@@ -1,0 +1,182 @@
+"""Static-calibrated W8A8 serving through the fused int8 ConvBN kernel.
+
+Mirrors the fused path of ``cvm_tpu/infer/quantize.py``
+(``calibrate_activation_scales``, ``prequantize_fused_weights``,
+``_bn_affine``, ``_fused_convbn``, ``_fused_resblock``,
+``w8a8_fused_inference``). The reference swaps modules at apply time with a
+flax method interceptor; the PyTorch counterpart swaps the modules
+themselves: ``swap_fused`` puts a ``FusedConvBN`` in place of every eligible
+ConvBN (stride 1, 1x1 or 3x3, calibrated input scale) and, with
+``chain=True``, a ``ChainedResBlock`` in place of every ResBlock whose convs
+are all calibrated, which keeps the c1 -> c2 buffer in int8.
+
+Differences from the reference, on purpose:
+  * the activations and BN eps come from the modules (the reference
+    hardcodes silu and eps 1e-5 in its chained block);
+  * nothing falls back to fp silently: a module that ``swap_fused`` selects
+    but cannot run fused raises, and the swap reports how many it made.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from cvm_tpu_torch.models.layers import ACTS, BatchNorm, Conv, ConvBN, ResBlock
+from cvm_tpu_torch.ops.cuda.fused_qconv import fused_qconv
+
+WeightTable = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+
+@torch.no_grad()
+def calibrate_activation_scales(model: nn.Module, inputs: Iterable[torch.Tensor],
+                                percentile: float = 99.9) -> Dict[str, float]:
+    """Run ``model`` over calibration inputs and record, per conv, the
+    ``percentile`` of |input| -> ``{conv module name: max over inputs / 127
+    + 1e-12}``. The percentile is numpy's (linear method) on the host:
+    ``torch.quantile`` refuses inputs over 2^24 elements."""
+    records: Dict[str, list] = {}
+
+    def hook(name):
+        def pre(mod, args):
+            x = np.abs(args[0].detach().to(torch.float32).cpu().numpy())
+            records.setdefault(name, []).append(float(np.percentile(x, percentile)))
+        return pre
+
+    handles = [m.register_forward_pre_hook(hook(n))
+               for n, m in model.named_modules() if isinstance(m, Conv)]
+    try:
+        for x in inputs:
+            model(x)
+    finally:
+        for h in handles:
+            h.remove()
+    if not records:
+        raise RuntimeError("calibration recorded no conv activations")
+    return {k: max(v) / 127.0 + 1e-12 for k, v in records.items()}
+
+
+@torch.no_grad()
+def prequantize_fused_weights(model: nn.Module) -> WeightTable:
+    """``{ConvBN module name: (wq int8 (k, k, Cin, Cout), sw (Cout,) f32)}``
+    for every ConvBN: per-output-channel symmetric int8 weights, the same
+    formula (and float32 arithmetic) as the reference's host table."""
+    table: WeightTable = {}
+    for name, mod in model.named_modules():
+        if isinstance(mod, ConvBN):
+            kf = mod.conv.weight.detach().float().permute(2, 3, 1, 0)  # HWIO
+            sw = kf.abs().amax(dim=(0, 1, 2)) / 127.0 + 1e-12
+            wq = torch.round(torch.clamp(kf / sw, -127.0, 127.0)).to(torch.int8)
+            table[name] = (wq.contiguous(), sw)
+    return table
+
+
+def _bn_affine(bn: Optional[nn.Module], conv: Conv) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Inference BatchNorm (with its own eps) as a per-channel f32 affine
+    (a, b); without BN, a = 1 and b = the conv bias (or 0)."""
+    cout = conv.weight.shape[0]
+    if isinstance(bn, BatchNorm):
+        a = bn.weight.float() * torch.rsqrt(bn.running_var.float() + bn.eps)
+        return a, bn.bias.float() - bn.running_mean.float() * a
+    if bn is not None:
+        raise ValueError(f"cannot run fused: BN module {type(bn).__name__} "
+                         "(folded BN and the fused epilogue exclude each other)")
+    ones = torch.ones(cout, device=conv.weight.device)
+    b = conv.bias.float() if conv.bias is not None else torch.zeros_like(ones)
+    return ones, b
+
+
+class FusedConvBN(nn.Module):
+    """A ConvBN body (conv + BN affine + activation) as one fused int8 kernel
+    call: quantize with the calibrated ``sx``, int8 conv, epilogue
+    ``acc * (sx * sw * a) + b`` and the module's activation."""
+
+    def __init__(self, mod: ConvBN, sx: float, wq_sw):
+        super().__init__()
+        if mod.stride != 1 or mod.kernel not in (1, 3) or mod.act not in ACTS:
+            raise ValueError("cannot run fused: stride-1 1x1/3x3 ConvBN only")
+        wq, sw = wq_sw
+        a, b = _bn_affine(mod.bn, mod.conv)
+        self.act, self.out_dtype, self.inv_sx = mod.act, mod.dtype, 1.0 / float(sx)
+        self.register_buffer("wq", wq.contiguous())
+        self.register_buffer("scale", (float(sx) * sw * a).contiguous())
+        self.register_buffer("bias", b.contiguous())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return fused_qconv(x.contiguous(), self.wq, self.scale, self.bias,
+                           inv_sx=self.inv_sx, act=self.act, out_dtype=self.out_dtype)
+
+
+class ChainedResBlock(nn.Module):
+    """An int8-resident ResBlock: c1's epilogue requantizes straight into
+    c2's calibrated lattice, so the c1 -> c2 buffer is int8 and c2 skips its
+    input quantize. The lattice values equal the unchained path's."""
+
+    def __init__(self, block: ResBlock, sx: Dict[str, float], wtab: Dict[str, tuple]):
+        super().__init__()
+        self.c1 = FusedConvBN(block.c1, sx["c1"], wtab["c1"])
+        self.c2 = FusedConvBN(block.c2, sx["c2"], wtab["c2"])
+        self.proj = (FusedConvBN(block.proj, sx["proj"], wtab["proj"])
+                     if block.proj is not None else None)
+        self.act, self.dtype = block.act, block.dtype
+        self.inv_s_mid = 1.0 / float(sx["c2"])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        c1, c2 = self.c1, self.c2
+        h_q = fused_qconv(x, c1.wq, c1.scale, c1.bias, inv_sx=c1.inv_sx, act=c1.act,
+                          out_dtype=torch.int8, inv_s_out=self.inv_s_mid)
+        h = fused_qconv(h_q, c2.wq, c2.scale, c2.bias, inv_sx=None, act=c2.act,
+                        out_dtype=c2.out_dtype)
+        if self.proj is not None:
+            x = self.proj(x)
+        return ACTS[self.act](x.to(self.dtype) + h)
+
+
+def swap_fused(model: nn.Module, scales: Dict[str, float], weight_table: WeightTable,
+               chain: bool = False) -> Dict[str, int]:
+    """Swap, in place, every eligible ConvBN for a ``FusedConvBN`` and (with
+    ``chain``) every fully calibrated ResBlock for a ``ChainedResBlock``.
+
+    ``scales`` is ``{conv module name: sx}`` (``calibrate_activation_scales``
+    or ``convert.convert_scales`` of a reference table); ``weight_table`` is
+    ``prequantize_fused_weights(model)``. Returns ``{"convbn": n,
+    "resblock": m, "calls": fused kernel calls per forward}``. Raises if a
+    selected module cannot run fused (missing weights, unknown activation,
+    a folded BN)."""
+    counts = {"convbn": 0, "resblock": 0, "calls": 0}
+
+    def visit(parent: nn.Module, prefix: str):
+        for cname, child in list(parent.named_children()):
+            name = f"{prefix}{cname}"
+            pre = name + "."
+            if chain and isinstance(child, ResBlock):
+                parts = ["c1", "c2"] + (["proj"] if child.proj is not None else [])
+                if all(f"{pre}{p}.conv" in scales for p in parts):
+                    missing = [p for p in parts if f"{pre}{p}" not in weight_table]
+                    if missing:
+                        raise ValueError(f"swap_fused: {name} selected for chaining "
+                                         f"but the weight table lacks {missing}")
+                    setattr(parent, cname, ChainedResBlock(
+                        child, {p: scales[f"{pre}{p}.conv"] for p in parts},
+                        {p: weight_table[f"{pre}{p}"] for p in parts}))
+                    counts["resblock"] += 1
+                    counts["calls"] += len(parts)
+                    continue
+            if (isinstance(child, ConvBN) and f"{pre}conv" in scales
+                    and child.stride == 1 and child.kernel in (1, 3)):
+                if name not in weight_table:
+                    raise ValueError(f"swap_fused: {name} selected but the weight "
+                                     "table has no entry for it")
+                setattr(parent, cname, FusedConvBN(child, scales[f"{pre}conv"],
+                                                   weight_table[name]))
+                counts["convbn"] += 1
+                counts["calls"] += 1
+                continue
+            visit(child, pre)
+
+    visit(model, "")
+    return counts

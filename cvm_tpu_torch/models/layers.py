@@ -1,0 +1,159 @@
+"""Shared NN building blocks, NHWC at every forward, bf16 compute / fp32
+parameters.
+
+Mirrors ``cvm_tpu/models/layers.py`` (``ConvBN``, ``ResBlock``,
+``upsample2x``, ``UpBlock``, ``Head``) with its numerics: convs run in bf16
+on fp32 parameters cast per call (flax ``promote_dtype``), a conv bias is
+added in bf16 after the conv, BatchNorm runs in fp32 and casts back to bf16.
+Each forward takes and returns NHWC tensors; the convs run on the
+channels-last NCHW view of the same memory, so no copy is made.
+
+Convolutions use TensorFlow/flax ``SAME`` padding, which is asymmetric for a
+stride-2 conv on an even input (0 before, 1 after), unlike ``padding=1``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+ACTS = {None: lambda x: x, "silu": F.silu, "relu": F.relu}
+
+
+def _same_pads(size: int, k: int, s: int):
+    out = -(-size // s)
+    total = max((out - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class Conv(nn.Conv2d):
+    """``flax.linen.Conv`` with SAME padding on NHWC tensors: computes in
+    ``dtype`` (the fp32 weight is cast per call), bias added after the conv
+    in ``dtype``, output in ``dtype``."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
+                 bias: bool = True, dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_ch, out_ch, kernel, stride=stride, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        k, s, dt = self.kernel_size[0], self.stride[0], self.dtype
+        xc = x.to(dt).permute(0, 3, 1, 2)  # channels-last NCHW view
+        pt, pb = _same_pads(xc.shape[2], k, s)
+        pl, pr = _same_pads(xc.shape[3], k, s)
+        if pt == pb and pl == pr:
+            y = F.conv2d(xc, self.weight.to(dt), stride=s, padding=(pt, pl))
+        else:
+            y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), self.weight.to(dt), stride=s)
+        y = y.permute(0, 2, 3, 1)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm over the channel (last) axis of an NHWC tensor, computed in
+    fp32 and cast back to the input dtype. Flax ``momentum=0.9`` is torch
+    ``momentum=0.1``; eps 1e-5 as flax's default. Inference reads the
+    running statistics only."""
+
+    def __init__(self, ch: int):
+        super().__init__(ch, eps=1e-5, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = super().forward(x.to(torch.float32).permute(0, 3, 1, 2))
+        return y.permute(0, 2, 3, 1).to(x.dtype)
+
+
+class BiasAdd(nn.Module):
+    """What a BatchNorm becomes after ``infer.fold_bn.fold_batchnorm``: its
+    residual bias, added in the conv's output dtype."""
+
+    def __init__(self, bias: torch.Tensor):
+        super().__init__()
+        self.register_buffer("bias", bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x + self.bias.to(x.dtype)
+
+
+class ConvBN(nn.Module):
+    """Conv -> BatchNorm -> activation (``act`` in None/"silu"/"relu")."""
+
+    def __init__(self, in_ch: int, features: int, kernel: int = 3, stride: int = 1,
+                 act: Optional[str] = "silu", use_bn: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        if act not in ACTS:
+            raise ValueError(f"act must be one of {list(ACTS)}, got {act!r}")
+        self.kernel, self.stride, self.act, self.dtype = kernel, stride, act, dtype
+        self.conv = Conv(in_ch, features, kernel, stride, bias=not use_bn, dtype=dtype)
+        self.bn = BatchNorm(features) if use_bn else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.bn is not None:
+            x = self.bn(x)
+        return ACTS[self.act](x)
+
+
+class ResBlock(nn.Module):
+    """Basic residual block: two 3x3 ConvBNs, a 1x1 ``proj`` when the width
+    changes, and ``act(x + h)``."""
+
+    act = "silu"
+
+    def __init__(self, in_ch: int, features: int, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.dtype = dtype
+        self.c1 = ConvBN(in_ch, features, 3, dtype=dtype)
+        self.c2 = ConvBN(features, features, 3, act=None, dtype=dtype)
+        self.proj = (ConvBN(in_ch, features, 1, act=None, dtype=dtype)
+                     if in_ch != features else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.c2(self.c1(x))
+        if self.proj is not None:
+            x = self.proj(x)
+        return ACTS[self.act](x + h)
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest 2x upsample of an NHWC tensor."""
+    B, H, W, C = x.shape
+    return x[:, :, None, :, None, :].expand(B, H, 2, W, 2, C).reshape(B, 2 * H, 2 * W, C)
+
+
+class UpBlock(nn.Module):
+    """2x nearest upsample + skip concat + two 3x3 ConvBNs (decoder stage)."""
+
+    def __init__(self, in_ch: int, skip_ch: int, features: int,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.c1 = ConvBN(in_ch + skip_ch, features, 3, dtype=dtype)
+        self.c2 = ConvBN(features, features, 3, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, skip: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x = upsample2x(x)
+        if skip is not None:
+            x = torch.cat([x, skip.to(x.dtype)], dim=-1)
+        return self.c2(self.c1(x))
+
+
+class Head(nn.Module):
+    """Task head: 3x3 conv with bias + silu (no BN), then a 1x1 projection
+    in bf16 whose logits are returned as fp32 (the inference form; the
+    reference's fp32 training projection comes with the training slice)."""
+
+    def __init__(self, in_ch: int, features: int, out_channels: int,
+                 bias_init_value: float = 0.0, dtype: torch.dtype = torch.bfloat16):
+        super().__init__()
+        self.bias_init_value = bias_init_value
+        self.c1 = ConvBN(in_ch, features, 3, use_bn=False, dtype=dtype)
+        self.out = Conv(features, out_channels, 1, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out(self.c1(x)).to(torch.float32)

@@ -1,0 +1,2 @@
+"""Counterpart of ``cvm_tpu.ops``: image ops and decoders (``ops/cuda`` holds
+the hand-written kernels that replace ``cvm_tpu/ops/pallas``)."""

@@ -1,0 +1,69 @@
+"""NMS-free CenterNet decode on the device.
+
+Mirrors ``cvm_tpu/ops/decode.py`` (``Detections``, ``decode_centernet``,
+``_decode_core``): sigmoid, a 3x3 SAME max-pool padded with -inf whose
+equality marks peaks, the two-stage exact top-k, and the offset/size gather.
+Heads are NHWC and are flattened as NHWC, so candidates rank in the
+reference's (pixel, class) order. ``torch.topk`` may order exactly equal
+scores differently from ``lax.top_k``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+
+class Detections(NamedTuple):
+    boxes: torch.Tensor    # (B, K, 4) [x0, y0, x1, y1] in input-pixel coords
+    scores: torch.Tensor   # (B, K)
+    classes: torch.Tensor  # (B, K) int32
+
+
+def _maxpool3x3(x: torch.Tensor) -> torch.Tensor:
+    """3x3 stride-1 SAME max-pool over (B, H, W, C); max_pool2d pads with
+    -inf, as the reference's reduce_window."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), 3, stride=1, padding=1).permute(0, 2, 3, 1)
+
+
+def decode_centernet(heatmap: torch.Tensor, offset: torch.Tensor, size: torch.Tensor,
+                     stride: int, top_k: int = 100, from_logits: bool = True) -> Detections:
+    """heatmap (B, Hs, Ws, C) logits (by default), offset (B, Hs, Ws, 2)
+    sub-pixel centre offsets (x, y), size (B, Hs, Ws, 2) box (w, h) in
+    output-stride units -> top_k detections per image."""
+    return _decode_core(heatmap, offset, size, stride, top_k, from_logits)[0]
+
+
+def _decode_core(heatmap, offset, size, stride, top_k, from_logits):
+    B, Hs, Ws, C = heatmap.shape
+    prob = torch.sigmoid(heatmap) if from_logits else heatmap
+    peaks = torch.where(_maxpool3x3(prob) == prob, prob, torch.zeros_like(prob))
+
+    # Two-stage exact top-k (see the reference): rank pixels by their best
+    # class, then re-rank the full class rows of the top-K pixels.
+    k1 = min(top_k, Hs * Ws)
+    pix_best = peaks.amax(dim=-1).reshape(B, Hs * Ws)
+    cand_pix = torch.topk(pix_best, k1, dim=1).indices                     # (B, K1)
+    cand = torch.gather(peaks.reshape(B, Hs * Ws, C), 1,
+                        cand_pix[..., None].expand(B, k1, C))              # (B, K1, C)
+    scores, idx = torch.topk(cand.reshape(B, k1 * C), min(top_k, k1 * C), dim=1)
+    if top_k > k1 * C:  # tiny maps cannot supply top_k candidates: pad
+        pad = top_k - k1 * C
+        scores = F.pad(scores, (0, pad))
+        idx = F.pad(idx, (0, pad))
+
+    cls = (idx % C).to(torch.int32)
+    pix = torch.gather(cand_pix, 1, idx // C)
+    py = (pix // Ws).to(torch.float32)
+    px = (pix % Ws).to(torch.float32)
+    off = torch.gather(offset.reshape(B, Hs * Ws, 2), 1, pix[..., None].expand(B, top_k, 2))
+    sz = torch.gather(size.reshape(B, Hs * Ws, 2), 1, pix[..., None].expand(B, top_k, 2))
+
+    cx = (px + off[..., 0]) * stride
+    cy = (py + off[..., 1]) * stride
+    w = sz[..., 0] * stride
+    h = sz[..., 1] * stride
+    boxes = torch.stack([cx - w * 0.5, cy - h * 0.5, cx + w * 0.5, cy + h * 0.5], -1)
+    return Detections(boxes, scores, cls), pix

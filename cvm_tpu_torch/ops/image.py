@@ -1,0 +1,171 @@
+"""Device-side image resampling for serving: letterbox, YUV->RGB, box mapping.
+
+Mirrors ``cvm_tpu/ops/image.py`` (``Roi``, ``full_roi``, ``letterbox_roi``,
+``_axis_coords``, ``sample_bilinear``, ``yuv_to_rgb``, ``chroma_roi``,
+``normalize_pm1``, ``map_points_to_input``, ``map_boxes_to_input``) with the
+same geometry: cv2 INTER_LINEAR half-pixel centres,
+
+    src = (dst + 0.5) * (src_extent / dst_extent) - 0.5 + src_origin,
+
+and border-replicate clamping to the valid extent of a host-padded buffer.
+
+The reference writes each function for one image and ``vmap``s it; here the
+batch axis is written out. ``Roi`` fields are float32 tensors of one shape
+(``()`` for one image, ``(B,)`` for a batch) and images are (B, H, W, C).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+
+class Roi(NamedTuple):
+    """A source-image region mapped onto an output-canvas region (see the
+    reference for the field meanings). ``flip_x`` mirrors horizontally."""
+
+    src_y0: torch.Tensor
+    src_x0: torch.Tensor
+    src_h: torch.Tensor
+    src_w: torch.Tensor
+    dst_y0: torch.Tensor
+    dst_x0: torch.Tensor
+    dst_h: torch.Tensor
+    dst_w: torch.Tensor
+    flip_x: torch.Tensor
+
+    @property
+    def scale_y(self):
+        return self.dst_h / self.src_h
+
+    @property
+    def scale_x(self):
+        return self.dst_w / self.src_w
+
+
+def _f(x, like: Optional[torch.Tensor] = None) -> torch.Tensor:
+    dev = like.device if isinstance(like, torch.Tensor) else None
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32)
+    return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+
+def full_roi(h, w, out_h: int, out_w: int) -> Roi:
+    """ROI for a plain (aspect-distorting) resize of the whole image."""
+    h = _f(h, h)
+    w = _f(w, h)
+    z = torch.zeros_like(h)
+    return Roi(z, z, h, w, z, z, torch.full_like(h, out_h),
+               torch.full_like(h, out_w), torch.zeros_like(h, dtype=torch.bool))
+
+
+def letterbox_roi(h, w, out_h: int, out_w: int, flip_x=False) -> Roi:
+    """Aspect-preserving fit of an (h, w) image into an (out_h, out_w)
+    canvas: scale = min(out/in), centred, with pad bars."""
+    h = _f(h, h)
+    w = _f(w, h)
+    scale = torch.minimum(out_h / h, out_w / w)
+    new_h = torch.round(h * scale)  # half to even, as jnp.round
+    new_w = torch.round(w * scale)
+    dst_y0 = torch.floor((out_h - new_h) * 0.5)
+    dst_x0 = torch.floor((out_w - new_w) * 0.5)
+    z = torch.zeros_like(h)
+    flip = torch.full_like(h, bool(flip_x), dtype=torch.bool)
+    return Roi(z, z, h, w, dst_y0, dst_x0, new_h, new_w, flip)
+
+
+def _axis_coords(out_size: int, dst0, dst_len, src0, src_len, valid_hi, flip=None):
+    """Per-axis bilinear gather plan (idx_lo, idx_hi, frac, in_dst_window),
+    each of shape ``dst0.shape + (out_size,)``."""
+    i = torch.arange(out_size, dtype=torch.float32, device=dst0.device)
+    dst0, dst_len, src0, src_len = (v[..., None] for v in (dst0, dst_len, src0, src_len))
+    t = (i - dst0 + 0.5) / dst_len  # 0..1 across the dst window
+    if flip is not None:
+        t = torch.where(flip[..., None], 1.0 - t, t)
+    src = t * src_len - 0.5 + src0
+    lo = torch.floor(src)
+    frac = src - lo
+    lo_i = lo.to(torch.int64)
+    hi = torch.clamp_min(torch.as_tensor(valid_hi, device=dst0.device) - 1, 0)[..., None]
+    idx_lo = torch.minimum(torch.clamp_min(lo_i, 0), hi)
+    idx_hi = torch.minimum(torch.clamp_min(lo_i + 1, 0), hi)
+    inside = (i >= dst0) & (i < dst0 + dst_len)
+    return idx_lo, idx_hi, frac, inside
+
+
+def sample_bilinear(image: torch.Tensor, roi: Roi, out_hw: Tuple[int, int],
+                    valid_hw=None, pad_value: float = 0.0) -> torch.Tensor:
+    """Separable bilinear resample of a batch through per-image ROIs.
+
+    image    : (B, H, W, C) any dtype; computed in float32.
+    roi      : Roi with (B,) fields.
+    valid_hw : (h, w), each a (B,) tensor, the valid extent of host-padded
+               buffers (defaults to the full shape). Samples clamp to it, so
+               pad garbage is never read.
+    returns  : (B, out_h, out_w, C) float32.
+    """
+    out_h, out_w = out_hw
+    B, H, W, C = image.shape
+    vh, vw = (H, W) if valid_hw is None else valid_hw
+    ylo, yhi, fy, in_y = _axis_coords(out_h, roi.dst_y0, roi.dst_h, roi.src_y0,
+                                      roi.src_h, vh)
+    xlo, xhi, fx, in_x = _axis_coords(out_w, roi.dst_x0, roi.dst_w, roi.src_x0,
+                                      roi.src_w, vw, flip=roi.flip_x)
+    # Rows first, gathered in the source dtype and converted afterwards
+    # (indexing commutes with conversion; a uint8 source is read at 1 B/px).
+    b = torch.arange(B, device=image.device)[:, None]
+    rows_lo = image[b, ylo].to(torch.float32)  # (B, out_h, W, C)
+    rows_hi = image[b, yhi].to(torch.float32)
+    rows = rows_lo + (rows_hi - rows_lo) * fy[:, :, None, None]
+    shape = (B, out_h, out_w, C)
+    cols_lo = torch.gather(rows, 2, xlo[:, None, :, None].expand(shape))
+    cols_hi = torch.gather(rows, 2, xhi[:, None, :, None].expand(shape))
+    out = cols_lo + (cols_hi - cols_lo) * fx[:, None, :, None]
+    inside = in_y[:, :, None] & in_x[:, None, :]
+    return torch.where(inside[..., None], out, torch.tensor(pad_value, dtype=torch.float32,
+                                                            device=out.device))
+
+
+def yuv_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Full-range JFIF YCbCr -> RGB (libjpeg's colour convert); y/u/v are
+    (..., H, W) float planes on 0..255 with chroma at luma resolution."""
+    cb = u - 128.0
+    cr = v - 128.0
+    r = y + 1.402 * cr
+    g = y - 0.344136 * cb - 0.714136 * cr
+    b = y + 1.772 * cb
+    return torch.clamp(torch.stack([r, g, b], dim=-1), 0.0, 255.0)
+
+
+def chroma_roi(roi: Roi) -> Roi:
+    """A luma-space Roi in 4:2:0 chroma-plane coordinates (JFIF centred
+    siting: the half-pixel algebra reduces to halving the source window)."""
+    return roi._replace(src_y0=roi.src_y0 * 0.5, src_x0=roi.src_x0 * 0.5,
+                        src_h=roi.src_h * 0.5, src_w=roi.src_w * 0.5)
+
+
+def normalize_pm1(image: torch.Tensor) -> torch.Tensor:
+    """Scale 0..255 -> [-1, 1]."""
+    return image.to(torch.float32) / 127.5 - 1.0
+
+
+def _bc(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """Give a Roi field trailing unit dims so it broadcasts against ``like``."""
+    return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
+
+
+def map_points_to_input(points: torch.Tensor, roi: Roi) -> torch.Tensor:
+    """(..., 2) [x, y] output-canvas points -> source-image coords (no flip:
+    inference ROIs do not flip). Roi fields broadcast over the leading axes."""
+    x, y = points[..., 0], points[..., 1]
+    xi = (x - _bc(roi.dst_x0, x)) / _bc(roi.scale_x, x) + _bc(roi.src_x0, x)
+    yi = (y - _bc(roi.dst_y0, y)) / _bc(roi.scale_y, y) + _bc(roi.src_y0, y)
+    return torch.stack([xi, yi], dim=-1)
+
+
+def map_boxes_to_input(boxes: torch.Tensor, roi: Roi) -> torch.Tensor:
+    """(..., 4) [x0, y0, x1, y1] boxes from the output canvas to the source."""
+    p0 = map_points_to_input(boxes[..., 0:2], roi)
+    p1 = map_points_to_input(boxes[..., 2:4], roi)
+    return torch.cat([p0, p1], dim=-1)
