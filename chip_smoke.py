@@ -2,12 +2,14 @@
 """Smoke test of cvm_tpu_torch on one CUDA card (an NVIDIA H100).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
-hand-written kernel from ``cvm_tpu_torch/csrc`` and drives the port's
-serving slice, CenterNet config B (512x512, ``small`` backbone with the
-space-to-depth stem, stride 4, 80 classes, batch 8, planar YUV420 padded to
-768x768), with random seeded weights:
+hand-written kernels from ``cvm_tpu_torch/csrc`` and drives the port's two
+slices with random seeded weights: serving CenterNet config B (512x512,
+``small`` backbone with the space-to-depth stem, stride 4, 80 classes,
+batch 8, planar YUV420 padded to 768x768), and training the same model on
+the flagship synthetic recipe (10 classes, batch 16, 512x512 padding)
+through ``cvm_tpu_torch.cli.train``:
 
-  1. card, versions, kernel build;
+  1. card, versions, both kernel builds (one nvcc each, started together);
   2. kernel vs its plain PyTorch version at every config-B shape of the
      fused W8A8 ConvBN and at the reference tests' shapes, in four modes,
      with kernel and plain times (CUDA events, median);
@@ -19,7 +21,14 @@ space-to-depth stem, stride 4, 80 classes, batch 8, planar YUV420 padded to
      fp heads, and the int8 posture through the kernel vs through the plain
      version on the card;
   5. a DynamicBatcher over the int8 pipeline answering 16 threaded requests;
-  6. median batch-8 latency of both postures.
+  6. median batch-8 latency of both postures;
+  7. the Gaussian splat kernel K1 vs its plain version at the flagship
+     training shape, config B's default shape and five edge cases, with
+     kernel and plain times (CUDA events, median);
+  8. training through ``cli.train.main``: 30 steps with a checkpoint at
+     step 20 (finite, falling loss, one K1 launch per step), then a second
+     call that resumes from step 20 to 40; median ms per step;
+  9. the trained model served (BN folded) for one batch-8 request.
 
 Any failure raises (exit code != 0). The last two lines are the kernels'
 JSON record and ``{"ok": true, "device": {...}}``. Without a CUDA device it
@@ -29,11 +38,14 @@ exits 1 before printing any result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -41,6 +53,14 @@ B = 8
 PAD_HW = (768, 768)
 KERNEL_SOURCE = "cvm_tpu_torch/csrc/fused_qconv.cu"
 KERNEL_REPLACES = "cvm_tpu/ops/pallas/fused_qconv.py:150"
+SPLAT_SOURCE = "cvm_tpu_torch/csrc/gaussian_splat.cu"
+SPLAT_REPLACES = "cvm_tpu/ops/pallas/gaussian_splat.py:60"
+# The flagship training recipe (scripts/flagship_persist.sh) at 30 + 10
+# steps, with a short warmup so the loss visibly falls within them.
+TRAIN_FLAGS = ["--model", "centernet", "--data", "synthetic", "--pad_hw", "512,512",
+               "--checkpoint_every", "20", "--log_every", "1", "--num_classes", "10",
+               "--max_objects", "16", "--batch_size", "16", "--warmup_steps", "5",
+               "--total_steps", "5000", "--seed", "0", "--device", "cuda"]
 
 # The 24 fused_qconv calls of one config-B int8 forward (B = 8, all 3x3):
 # (name, H, W, Cin, Cout, input, output, act, calls per forward).
@@ -237,6 +257,165 @@ def batch_to(batch, dev):
     return [torch.from_numpy(batch[k]).to(dev) for k in ("y", "u", "v", "image_hw")]
 
 
+def splat_cases(dev):
+    """(name, per-object inputs, map_hw, C) of K1 at the main path's shapes
+    and at the edge cases."""
+    import torch
+
+    from cvm_tpu_torch.ops.heatmap import prepare_centers
+
+    rng = np.random.default_rng(7)
+    cases = []
+    # flagship training (B16, K8 boxes, 128^2 map, 10 classes); config B
+    # default (B8, K128, 128^2, 80 classes)
+    for name, (b, k, hs, c) in (("flagship", (16, 8, 128, 10)), ("config-B", (8, 128, 128, 80))):
+        x0, y0 = rng.uniform(-8, hs, (2, b, k)).astype(np.float32)
+        w, h = rng.uniform(1, 96, (2, b, k)).astype(np.float32)
+        boxes = np.stack([x0, y0, x0 + w, y0 + h], -1)
+        valid = np.arange(k)[None] < rng.integers(0, k + 1, (b, 1))
+        cases.append((name, boxes, valid, rng.integers(0, c, (b, k)), 128, c))
+    edge = {  # one image, 32^2 map, 3 classes: boxes (map coords), classes
+        "no-valid": ([[4, 4, 12, 12], [20, 2, 30, 9]], [0, 1]),
+        "border": ([[-12, -12, 13, 13], [14, 18, 49, 45], [-10, 20, 11, 40]], [0, 1, 2]),
+        "radius-0": ([[10, 10, 11.5, 11.5], [3, 20, 4, 21]], [0, 1]),
+        "overlap": ([[6, 6, 22, 20], [9, 8, 25, 24]], [1, 1]),
+        "class=C": ([[6, 6, 22, 20], [9, 8, 25, 24]], [3, 3]),
+    }
+    for name, (boxes, cls) in edge.items():
+        valid = np.full((1, len(cls)), name != "no-valid")
+        cases.append((name, np.asarray([boxes], np.float32), valid, np.asarray([cls]), 32, 3))
+    out = []
+    for name, boxes, valid, cls, hs, c in cases:
+        _, _, _, _, v, ix, iy, radius, sigma = prepare_centers(
+            torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev), (hs, hs), 0.7)
+        cls_t = torch.from_numpy(np.asarray(cls, np.int32)).to(dev)
+        out.append((name, (iy, ix, sigma, radius, cls_t, v), (hs, hs), c))
+    return out
+
+
+def phase_splat(dev):
+    """K1 against its plain version; times at the flagship and config-B shapes."""
+    import torch
+
+    from cvm_tpu_torch.ops.cuda.gaussian_splat import render_heatmap, render_heatmap_reference
+
+    log("[splat] tolerance vs plain: max |kernel - plain| <= 1e-6 (values in [0, 1])")
+    worst, failures, times = 0.0, [], {}
+    for name, args, map_hw, c in splat_cases(dev):
+        got = render_heatmap(*args, map_hw, c)
+        torch.cuda.synchronize()
+        ref = render_heatmap_reference(*args, map_hw, c)
+        err = float((got - ref).abs().max())
+        worst = max(worst, err)
+        ok = got.shape == ref.shape and err <= 1e-6
+        if name == "class=C":
+            ok = ok and bool(args[5].all()) and float(got.abs().sum()) == 0.0
+        if name == "no-valid":
+            ok = ok and float(got.abs().sum()) == 0.0
+        note = ""
+        if name in ("flagship", "config-B"):
+            t_k = cuda_ms(lambda: render_heatmap(*args, map_hw, c))
+            t_p = cuda_ms(lambda: render_heatmap_reference(*args, map_hw, c))
+            times[name] = (t_k, t_p)
+            note = f"; kernel {t_k:.4f} ms (zero fill included), plain {t_p:.4f} ms"
+        log(f"[splat] {name:9s} B{args[0].shape[0]} K{args[0].shape[1]} {map_hw[0]}^2 C{c} "
+            f"valid {int(args[5].sum())}: {'ok' if ok else 'FAIL'} err={err:.3g}{note}")
+        if not ok:
+            failures.append(f"{name}: {err}")
+    if failures:
+        raise AssertionError(f"splat kernel disagrees with its plain version: {failures}")
+    return worst, times
+
+
+def read_metrics(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_train(dev, workdir):
+    """The flagship recipe through the CLI: 30 steps, then a resume to 40."""
+    import torch
+
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+    from cvm_tpu_torch.train.checkpoints import CheckpointManager
+
+    flags = TRAIN_FLAGS + ["--workdir", workdir]
+    ckpts = CheckpointManager(os.path.join(workdir, "checkpoints"))
+    metrics_path = os.path.join(workdir, "metrics.jsonl")
+    t0 = time.perf_counter()
+    gs.reset_counts()
+    train_main(flags + ["--steps", "30"])      # the main path, training slice
+    torch.cuda.synchronize()
+    launches = gs.render_heatmap.launches
+    first = read_metrics(metrics_path)
+    losses = [r["loss"] for r in first]
+    log(f"[train] 30 steps in {time.perf_counter() - t0:.1f} s: {launches} K1 launches, "
+        f"checkpoints {ckpts.all_steps()}; loss first 5 {np.round(losses[:5], 4).tolist()}, "
+        f"last 5 {np.round(losses[-5:], 4).tolist()}")
+    if [r["step"] for r in first] != list(range(1, 31)):
+        raise AssertionError(f"expected 30 logged steps, got {[r['step'] for r in first]}")
+    if not all(np.isfinite(r[k]) for r in first for k in ("loss", "grad_norm")):
+        raise AssertionError("non-finite loss or grad_norm")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"loss did not fall: {losses}")
+    if launches != 30:
+        raise AssertionError(f"expected one K1 launch per step (30), got {launches}")
+    if ckpts.all_steps() != [20]:
+        raise AssertionError(f"expected the step-20 checkpoint only, got {ckpts.all_steps()}")
+    # ms per step: each logged step ends in a host read of its metrics (a
+    # device sync); steps 1-5 (cuDNN autotuning, warm-up) are left out.
+    step_ms = [1e3 / r["steps_per_sec"] for r in first[5:]]
+
+    t0 = time.perf_counter()
+    gs.reset_counts()
+    train_main(flags + ["--steps", "40"])      # resumes from step 20
+    torch.cuda.synchronize()
+    resumed = read_metrics(metrics_path)[len(first):]
+    log(f"[train] resume to 40 in {time.perf_counter() - t0:.1f} s: steps "
+        f"{resumed[0]['step']}..{resumed[-1]['step']}, {gs.render_heatmap.launches} K1 "
+        f"launches, checkpoints {ckpts.all_steps()}, last loss {resumed[-1]['loss']:.4f}")
+    if [r["step"] for r in resumed] != list(range(21, 41)):
+        raise AssertionError(f"resume did not continue from step 20: "
+                             f"{[r['step'] for r in resumed]}")
+    if not all(np.isfinite(r["loss"]) for r in resumed) or gs.render_heatmap.launches != 20:
+        raise AssertionError("resumed run: non-finite loss or wrong K1 launch count")
+    if ckpts.all_steps() != [20, 40]:
+        raise AssertionError(f"expected checkpoints [20, 40], got {ckpts.all_steps()}")
+    return launches, statistics.median(step_ms)
+
+
+def phase_serve_trained(dev, workdir):
+    """The step-40 model (EMA parameters when on), BN folded, serves one
+    batch-8 request."""
+    import torch
+
+    from cvm_tpu_torch.data.synthetic import synthetic_yuv420_batch
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.models.centernet.model import create_model
+    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.train.checkpoints import CheckpointManager, load_params_cfg
+
+    ckdir = os.path.join(workdir, "checkpoints")
+    cfg = load_params_cfg(ckdir, CenternetParams)
+    ck = CheckpointManager(ckdir).restore_latest(map_location=dev)
+    model = create_model(cfg, dev)
+    sd = dict(ck["model"])
+    sd.update(ck["ema"] or {})
+    model.load_state_dict(sd, strict=True)
+    pipe = InferencePipeline(cfg, model.eval(), dev, fold_bn=True)
+    batch = synthetic_yuv420_batch(np.random.default_rng(3), B, PAD_HW, num_classes=10)
+    out = pipe(batch)
+    torch.cuda.synchronize()
+    if out["boxes"].shape != (B, cfg.top_k, 4) or not torch.isfinite(out["boxes"]).all():
+        raise AssertionError(f"trained model: bad boxes {tuple(out['boxes'].shape)}")
+    if not torch.isfinite(out["scores"]).all():
+        raise AssertionError("trained model: non-finite scores")
+    log(f"[serve-trained] step-{ck['step']} model, BN folded: boxes {tuple(out['boxes'].shape)}, "
+        f"top score {float(out['scores'].max()):.4f}, "
+        f"scores > {cfg.score_threshold}: {int((out['scores'] > cfg.score_threshold).sum())}")
+
+
 def main() -> int:
     import torch
 
@@ -252,13 +431,16 @@ def main() -> int:
     log(f"[versions] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
 
-    # Phase 1: build the kernel from the checkout's sources.
+    # Phase 1: build both kernels from the checkout's sources, in parallel.
     from cvm_tpu_torch.ops.cuda import _build
     from cvm_tpu_torch.ops.cuda import fused_qconv as fq
 
-    _build.load_library("fused_qconv")
-    log(f"[build] fused_qconv built in {_build.BUILD_SECONDS['fused_qconv']:.1f} s "
-        f"into {_build.BUILD_DIR}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as ex:
+        list(ex.map(_build.load_library, ["fused_qconv", "gaussian_splat"]))
+    log(f"[build] fused_qconv {_build.BUILD_SECONDS['fused_qconv']:.1f} s, gaussian_splat "
+        f"{_build.BUILD_SECONDS['gaussian_splat']:.1f} s, together "
+        f"{time.perf_counter() - t0:.1f} s, into {_build.BUILD_DIR}")
 
     # Phase 2: kernel vs plain.
     max_err, k_ms, plain_ms = phase_kernels(dev)
@@ -371,11 +553,29 @@ def main() -> int:
     log(f"[latency] batch-8 predict (preprocess+forward+decode), median of 20 on {smi}: "
         f"fp (BN folded) {lat_fp:.3f} ms, int8 (fused, chained) {lat_q:.3f} ms")
 
+    # Phase 7: K1 against its plain version.
+    t0 = time.perf_counter()
+    splat_err, splat_times = phase_splat(dev)
+    log(f"[splat] phase 7 took {time.perf_counter() - t0:.1f} s")
+
+    # Phases 8-9: training through the CLI, then the trained model served.
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        splat_launches, step_ms = phase_train(dev, workdir)
+        log(f"[train] flagship step (B16, 512^2, config-B model, 10 classes) on {smi}: "
+            f"median {step_ms:.3f} ms/step ({1e3 / step_ms:.2f} steps/s; host clock, "
+            f"each step ending in a device sync; steps 6-30 of the first call)")
+        phase_serve_trained(dev, workdir)
+        log(f"[train] phases 8-9 took {time.perf_counter() - t0:.1f} s")
+
     log(f"[card] {nvidia_smi()}")
     print(json.dumps({"kernels": [{
         "name": "fused_qconv", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": plain_ms}]}))
+        "ms": k_ms, "plain_ms": plain_ms}, {
+        "name": "gaussian_splat", "route": "cuda", "source": SPLAT_SOURCE,
+        "replaces": SPLAT_REPLACES, "launches": splat_launches, "max_abs_err": splat_err,
+        "ms": splat_times["flagship"][0], "plain_ms": splat_times["flagship"][1]}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

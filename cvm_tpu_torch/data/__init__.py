@@ -1,1 +1,2 @@
-"""Counterpart of ``cvm_tpu.data``: synthetic scenes in the serving wire format."""
+"""Counterpart of ``cvm_tpu.data``: synthetic scenes (serving planes and a
+resumable training stream) and host -> device batch prefetch."""

@@ -1,7 +1,9 @@
-"""Synthetic scenes as planar YUV420 batches, the serving wire format.
+"""Synthetic scenes: planar YUV420 batches (the serving wire format) and a
+resumable stream of RGB training batches.
 
-Counterpart of ``cvm_tpu.data.synthetic.synthetic_batch(..., yuv420=True)``:
-the scenes come from that (JAX-free, numpy-only) module, and the RGB ->
+Counterpart of ``cvm_tpu.data.synthetic.synthetic_batch(..., yuv420=True)``
+and ``synthetic_iterator``: the scenes come from that (JAX-free, numpy-only)
+module, and the RGB ->
 4:2:0 conversion is ``cvm_tpu/native::_rgb_to_yuv420_np`` (full-range JFIF,
 chroma averaged over each 2x2 block), written out here because
 ``cvm_tpu.native`` is not among the reference modules the port imports.
@@ -9,7 +11,7 @@ chroma averaged over each 2x2 block), written out here because
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Any, Dict, Tuple
 
 import numpy as np
 
@@ -50,3 +52,30 @@ def synthetic_yuv420_batch(rng: np.random.Generator, batch_size: int,
     for i, k in enumerate(("y", "u", "v")):
         out[k] = np.stack([p[i] for p in planes])
     return out
+
+
+class SyntheticIterator:
+    """Endless RGB training batches, the stream of
+    ``cvm_tpu.data.synthetic.synthetic_iterator(seed, ...)`` (one numpy
+    generator drawn from in order), whose position can be saved and
+    restored: ``state_dict`` is the generator's state after the last batch
+    it produced, so a resumed run continues the same stream."""
+
+    def __init__(self, seed: int, batch_size: int, pad_hw: Tuple[int, int],
+                 num_classes: int = 3, max_objects: int = 8):
+        self.rng = np.random.default_rng(seed)
+        self.batch_size, self.pad_hw = batch_size, tuple(pad_hw)
+        self.num_classes, self.max_objects = num_classes, max_objects
+
+    def __iter__(self) -> "SyntheticIterator":
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        return synthetic_batch(self.rng, self.batch_size, self.pad_hw, self.num_classes,
+                               self.max_objects)
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"bit_generator": self.rng.bit_generator.state}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.rng.bit_generator.state = state["bit_generator"]

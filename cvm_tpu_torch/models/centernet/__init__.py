@@ -1,1 +1,2 @@
-"""Counterpart of ``cvm_tpu.models.centernet`` (2D serving heads)."""
+"""Counterpart of ``cvm_tpu.models.centernet``: the 2D model, its processor,
+loss and training entry point."""

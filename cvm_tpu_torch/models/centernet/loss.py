@@ -1,0 +1,53 @@
+"""CenterNet losses: penalty-reduced focal loss on the heatmap and masked L1
+on offset and size at the GT centres ("Objects as Points").
+
+Mirrors ``cvm_tpu/models/centernet/loss.py`` (``penalty_reduced_focal_loss``,
+``masked_l1_loss``, ``centernet_loss``), 2D heads only. Every value is a
+0-dim device tensor, so a training step never waits on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from cvm_tpu_torch.models.centernet.params import CenternetParams
+from cvm_tpu_torch.ops.heatmap import CenternetTargets
+
+
+def penalty_reduced_focal_loss(logits: torch.Tensor, target: torch.Tensor,
+                               alpha: float = 2.0, beta: float = 4.0) -> torch.Tensor:
+    """Focal loss of heatmap logits against the rendered Gaussian target:
+    positive where target == 1, elsewhere penalty-reduced by
+    (1 - target)^beta; normalized by the number of positives."""
+    prob = torch.clamp(torch.sigmoid(logits), 1e-6, 1.0 - 1e-6)
+    pos = (target >= 1.0 - 1e-6).to(torch.float32)
+    neg = 1.0 - pos
+    pos_loss = -torch.log(prob) * (1.0 - prob) ** alpha * pos
+    neg_loss = -torch.log(1.0 - prob) * prob ** alpha * (1.0 - target) ** beta * neg
+    num_pos = torch.clamp_min(pos.sum(), 1.0)
+    return (pos_loss.sum() + neg_loss.sum()) / num_pos
+
+
+def masked_l1_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Mean |pred - target| over the pixels where mask == 1 (GT centres)."""
+    m = mask[..., None]
+    num = torch.clamp_min(m.sum(), 1.0)
+    return (torch.abs(pred - target) * m).sum() / num
+
+
+def centernet_loss(outputs: Dict[str, torch.Tensor], targets: CenternetTargets,
+                   params: CenternetParams) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Weighted sum of the three losses, and the metrics dict
+    ``{"loss", "loss_hm", "loss_off", "loss_size"}``."""
+    if params.with_3d:
+        raise NotImplementedError("with_3d: the 3D heads' losses are not ported yet "
+                                  "(ROADMAP Queue 1 item 15)")
+    l_hm = penalty_reduced_focal_loss(outputs["heatmap"], targets.heatmap,
+                                      params.focal_alpha, params.focal_beta)
+    l_off = masked_l1_loss(outputs["offset"], targets.offset, targets.mask)
+    l_size = masked_l1_loss(outputs["size"], targets.size, targets.mask)
+    total = (params.weight_heatmap * l_hm + params.weight_offset * l_off
+             + params.weight_size * l_size)
+    return total, {"loss": total, "loss_hm": l_hm, "loss_off": l_off, "loss_size": l_size}

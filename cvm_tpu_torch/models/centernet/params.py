@@ -1,9 +1,13 @@
-"""CenterNet serving hyperparameters; mirrors
-``cvm_tpu/models/centernet/params.py`` (same field names and defaults).
+"""CenterNet hyperparameters; mirrors ``cvm_tpu/models/centernet/params.py``
+(same field names and defaults).
 
-Only the fields the serving slice reads are carried; the loss, training and
-augmentation fields come with the training slice. ``BaseParams`` is shared
-with the reference: ``cvm_tpu.utils.config`` imports no JAX.
+The 3D-head fields (``with_3d``, ``weight_depth3d``, ``weight_dims3d``,
+``weight_rot``) are carried so that a reference ``params.json`` loads, but
+the 3D heads are not ported: the processor refuses ``with_3d``.
+``BaseParams`` (which adds ``ema_decay``, ``grad_accum_steps``,
+``lr_schedule``, ``optimizer``, ``aug_noise_std``, ``aug_blur_prob``,
+``aug_rotate_deg`` and the rest) is shared with the reference:
+``cvm_tpu.utils.config`` imports no JAX.
 """
 
 from __future__ import annotations
@@ -23,11 +27,35 @@ class CenternetParams(BaseParams):
     batch_size: int = 8
     num_classes: int = 80
     stride: int = 4
+    max_objects: int = 128
     backbone: str = "small"
     neck_features: int = 128
     head_features: int = 64
     top_k: int = 100
     score_threshold: float = 0.3
+    # loss weights (Objects-as-Points defaults)
+    focal_alpha: float = 2.0
+    focal_beta: float = 4.0
+    weight_heatmap: float = 1.0
+    weight_offset: float = 1.0
+    weight_size: float = 0.1
+    min_overlap: float = 0.7
+    # GT heatmap from the hand-written splat kernel K1
+    # (ops/cuda/gaussian_splat.py); False = the plain lattice renderer.
+    use_pallas_splat: bool = True
+    with_3d: bool = False
+    weight_depth3d: float = 1.0
+    weight_dims3d: float = 1.0
+    weight_rot: float = 1.0
+    # training
+    learning_rate: float = 5e-4
+    weight_decay: float = 1e-5
+    warmup_steps: int = 500
+    total_steps: int = 100_000
+    # augmentation
+    aug_scale_range: Tuple[float, float] = (0.6, 1.4)
+    aug_shift_frac: float = 0.1
+    aug_flip_prob: float = 0.5
 
     @property
     def map_hw(self) -> Tuple[int, int]:

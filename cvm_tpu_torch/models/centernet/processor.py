@@ -1,0 +1,63 @@
+"""CenterNet processor: raw padded batch -> model input + GT targets.
+
+Mirrors ``cvm_tpu/models/centernet/processor.py::make_processor``: letterbox
+(eval) or jitter + photometric augmentation (training), boxes mapped through
+the same ROI onto the canvas and divided by the stride, then the GT render.
+The reference swaps in its Pallas splat when the backend is a TPU; here the
+heatmap comes from ``render_heatmap``, which launches kernel K1 for a CUDA
+batch (no lattice is computed) and takes the plain version for a CPU batch.
+``use_pallas_splat=False`` selects the plain lattice renderer on both
+devices, as the reference's flag does.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from cvm_tpu_torch.models.centernet.params import CenternetParams
+from cvm_tpu_torch.ops.cuda.gaussian_splat import render_heatmap, render_heatmap_reference
+from cvm_tpu_torch.ops.heatmap import CenternetTargets, render_centernet_targets_batch
+from cvm_tpu_torch.ops.image import map_boxes_to_output
+from cvm_tpu_torch.pipeline.preprocess import (AugDraws, aug_from_params, draw_augmentation,
+                                               preprocess_batch)
+
+Processor = Callable[..., Tuple[torch.Tensor, CenternetTargets]]
+
+
+def make_processor(params: CenternetParams, train: bool) -> Processor:
+    """Returns ``process(generator, batch, draws=None) -> (inputs, targets)``.
+
+    batch: image (B, Hmax, Wmax, 3) uint8 or y/u/v planes; image_hw (B, 2);
+    boxes (B, K, 4) [x0, y0, x1, y1] source px; classes (B, K);
+    num_objects (B,) -- tensors on one device. In training the random
+    numbers are ``draws`` when given, else drawn from ``generator`` (on the
+    batch's device); eval takes neither.
+    """
+    aug = aug_from_params(params)
+    if params.with_3d:
+        raise NotImplementedError("with_3d: the 3D heads and targets are not ported yet "
+                                  "(ROADMAP Queue 1 item 15)")
+    if aug.rotate_deg > 0.0:
+        raise NotImplementedError("aug_rotate_deg > 0: rotation augmentation is not "
+                                  "ported yet (ROADMAP Queue 1 item 16)")
+    splat = render_heatmap if params.use_pallas_splat else render_heatmap_reference
+
+    def process(generator: Optional[torch.Generator], batch,
+                draws: Optional[AugDraws] = None) -> Tuple[torch.Tensor, CenternetTargets]:
+        B = batch["image_hw"].shape[0]
+        if train and draws is None:
+            draws = draw_augmentation(generator, B, params.input_hw, aug)
+        images, rois = preprocess_batch(batch, params.input_hw,
+                                        draws=draws if train else None)
+        boxes = map_boxes_to_output(batch["boxes"], rois) / params.stride
+        K = boxes.shape[1]
+        valid = (torch.arange(K, device=boxes.device)[None, :]
+                 < batch["num_objects"][:, None])
+        targets = render_centernet_targets_batch(boxes, batch["classes"], valid,
+                                                 params.map_hw, params.num_classes,
+                                                 params.min_overlap, splat)
+        return images, targets
+
+    return process

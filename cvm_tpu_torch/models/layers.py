@@ -8,6 +8,10 @@ added in bf16 after the conv, BatchNorm runs in fp32 and casts back to bf16.
 Each forward takes and returns NHWC tensors; the convs run on the
 channels-last NCHW view of the same memory, so no copy is made.
 
+``module.training`` plays the part of flax's ``train`` argument: BatchNorm
+normalizes with the batch statistics and updates its running ones, and each
+Head projects in fp32.
+
 Convolutions use TensorFlow/flax ``SAME`` padding, which is asymmetric for a
 stride-2 conv on an even input (0 before, 1 after), unlike ``padding=1``.
 """
@@ -39,8 +43,8 @@ class Conv(nn.Conv2d):
         super().__init__(in_ch, out_ch, kernel, stride=stride, bias=bias)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        k, s, dt = self.kernel_size[0], self.stride[0], self.dtype
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        k, s, dt = self.kernel_size[0], self.stride[0], dtype or self.dtype
         xc = x.to(dt).permute(0, 3, 1, 2)  # channels-last NCHW view
         pt, pb = _same_pads(xc.shape[2], k, s)
         pl, pr = _same_pads(xc.shape[3], k, s)
@@ -56,16 +60,30 @@ class Conv(nn.Conv2d):
 
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm over the channel (last) axis of an NHWC tensor, computed in
-    fp32 and cast back to the input dtype. Flax ``momentum=0.9`` is torch
-    ``momentum=0.1``; eps 1e-5 as flax's default. Inference reads the
+    fp32 and cast back to the input dtype; eps 1e-5 as flax's default.
+
+    Training follows flax's ``nn.BatchNorm(momentum=0.9)``: normalize with
+    the batch mean and the *biased* batch variance, and move the running
+    statistics 10% of the way to them (torch's own train mode would store
+    the unbiased variance, n/(n-1) times larger). Inference reads the
     running statistics only."""
 
     def __init__(self, ch: int):
         super().__init__(ch, eps=1e-5, momentum=0.1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = super().forward(x.to(torch.float32).permute(0, 3, 1, 2))
-        return y.permute(0, 2, 3, 1).to(x.dtype)
+        if not self.training:
+            y = super().forward(x.to(torch.float32).permute(0, 3, 1, 2))
+            return y.permute(0, 2, 3, 1).to(x.dtype)
+        x32 = x.to(torch.float32)
+        var, mean = torch.var_mean(x32, dim=(0, 1, 2), correction=0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(x.dtype)
 
 
 class BiasAdd(nn.Module):
@@ -145,8 +163,9 @@ class UpBlock(nn.Module):
 
 class Head(nn.Module):
     """Task head: 3x3 conv with bias + silu (no BN), then a 1x1 projection
-    in bf16 whose logits are returned as fp32 (the inference form; the
-    reference's fp32 training projection comes with the training slice)."""
+    whose logits are returned as fp32. The projection computes in bf16 at
+    inference and in fp32 in training, as the reference does (a bf16
+    projection would round the logits the loss sees to an 8-bit mantissa)."""
 
     def __init__(self, in_ch: int, features: int, out_channels: int,
                  bias_init_value: float = 0.0, dtype: torch.dtype = torch.bfloat16):
@@ -156,4 +175,5 @@ class Head(nn.Module):
         self.out = Conv(features, out_channels, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out(self.c1(x)).to(torch.float32)
+        dtype = torch.float32 if self.training else None
+        return self.out(self.c1(x), dtype=dtype).to(torch.float32)

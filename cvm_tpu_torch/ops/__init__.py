@@ -1,2 +1,3 @@
-"""Counterpart of ``cvm_tpu.ops``: image ops and decoders (``ops/cuda`` holds
-the hand-written kernels that replace ``cvm_tpu/ops/pallas``)."""
+"""Counterpart of ``cvm_tpu.ops``: image ops, GT heatmap rendering and decoders
+(``ops/cuda`` holds the hand-written kernels that replace
+``cvm_tpu/ops/pallas``)."""

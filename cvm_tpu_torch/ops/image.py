@@ -1,9 +1,12 @@
-"""Device-side image resampling for serving: letterbox, YUV->RGB, box mapping.
+"""Device-side image resampling: letterbox, training jitter, YUV->RGB, box
+mapping, photometric augmentation.
 
 Mirrors ``cvm_tpu/ops/image.py`` (``Roi``, ``full_roi``, ``letterbox_roi``,
-``_axis_coords``, ``sample_bilinear``, ``yuv_to_rgb``, ``chroma_roi``,
-``normalize_pm1``, ``map_points_to_input``, ``map_boxes_to_input``) with the
-same geometry: cv2 INTER_LINEAR half-pixel centres,
+``jittered_roi``, ``_axis_coords``, ``sample_bilinear``, ``yuv_to_rgb``,
+``chroma_roi``, ``normalize_pm1``, ``map_points_to_input``,
+``map_boxes_to_input``, ``map_points_to_output``, ``map_boxes_to_output``,
+``clip_boxes``, ``photometric_augment``) with the same geometry: cv2
+INTER_LINEAR half-pixel centres,
 
     src = (dst + 0.5) * (src_extent / dst_extent) - 0.5 + src_origin,
 
@@ -12,6 +15,13 @@ and border-replicate clamping to the valid extent of a host-padded buffer.
 The reference writes each function for one image and ``vmap``s it; here the
 batch axis is written out. ``Roi`` fields are float32 tensors of one shape
 (``()`` for one image, ``(B,)`` for a batch) and images are (B, H, W, C).
+
+Each random augmentation is split into its *draws* (``draw_roi``,
+``draw_photometric``: every random number it uses, drawn from an explicit
+``torch.Generator`` on the batch's device) and a deterministic core
+(``jittered_roi``, ``photometric_augment``) that takes them. JAX's random
+streams cannot be reproduced in torch; the split lets a test feed the core
+the numbers ``jax.random`` drew. Rotation (``rotate_*``) is not ported.
 """
 
 from __future__ import annotations
@@ -73,6 +83,50 @@ def letterbox_roi(h, w, out_h: int, out_w: int, flip_x=False) -> Roi:
     z = torch.zeros_like(h)
     flip = torch.full_like(h, bool(flip_x), dtype=torch.bool)
     return Roi(z, z, h, w, dst_y0, dst_x0, new_h, new_w, flip)
+
+
+class RoiDraws(NamedTuple):
+    """The random numbers of ``jittered_roi``, each (B,): ``zoom`` in
+    ``scale_range``, ``shift_y``/``shift_x`` in [-shift_frac, shift_frac]
+    (fractions of the image size), ``flip`` bool."""
+
+    zoom: torch.Tensor
+    shift_y: torch.Tensor
+    shift_x: torch.Tensor
+    flip: torch.Tensor
+
+
+def _uniform(generator: torch.Generator, n: int, lo: float, hi: float) -> torch.Tensor:
+    u = torch.rand(n, generator=generator, device=generator.device)
+    return u * (hi - lo) + lo
+
+
+def draw_roi(generator: torch.Generator, batch_size: int,
+             scale_range: Tuple[float, float] = (0.6, 1.4), shift_frac: float = 0.1,
+             flip_prob: float = 0.5) -> RoiDraws:
+    """Draw ``jittered_roi``'s zoom, shifts and flip for a batch."""
+    zoom = _uniform(generator, batch_size, scale_range[0], scale_range[1])
+    sy = _uniform(generator, batch_size, -shift_frac, shift_frac)
+    sx = _uniform(generator, batch_size, -shift_frac, shift_frac)
+    flip = torch.rand(batch_size, generator=generator, device=generator.device) < flip_prob
+    return RoiDraws(zoom, sy, sx, flip)
+
+
+def jittered_roi(h, w, out_h: int, out_w: int, draws: RoiDraws) -> Roi:
+    """Zoom/shift/flip ROI for training augmentation (the deterministic core
+    of the reference's ``jittered_roi``): a window of the output's aspect
+    ratio, ``1/zoom`` times the fit size, centred at the image centre
+    shifted by ``shift * size``."""
+    h = _f(h, h)
+    w = _f(w, h)
+    base = torch.minimum(h / out_h, w / out_w)  # src px per dst px at fit
+    src_h = out_h * base / draws.zoom
+    src_w = out_w * base / draws.zoom
+    cy = h * 0.5 + draws.shift_y * h
+    cx = w * 0.5 + draws.shift_x * w
+    z = torch.zeros_like(h)
+    return Roi(cy - src_h * 0.5, cx - src_w * 0.5, src_h, src_w, z, z,
+               torch.full_like(h, out_h), torch.full_like(h, out_w), draws.flip)
 
 
 def _axis_coords(out_size: int, dst0, dst_len, src0, src_len, valid_hi, flip=None):
@@ -155,6 +209,35 @@ def _bc(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return v.reshape(v.shape + (1,) * (like.dim() - v.dim()))
 
 
+def map_points_to_output(points: torch.Tensor, roi: Roi) -> torch.Tensor:
+    """(..., 2) [x, y] source-image points through ``roi`` onto the output
+    canvas, mirrored around the dst window where ``roi.flip_x``."""
+    x, y = points[..., 0], points[..., 1]
+    xo = (x - _bc(roi.src_x0, x)) * _bc(roi.scale_x, x) + _bc(roi.dst_x0, x)
+    yo = (y - _bc(roi.src_y0, y)) * _bc(roi.scale_y, y) + _bc(roi.dst_y0, y)
+    xflip = 2.0 * _bc(roi.dst_x0, x) + _bc(roi.dst_w, x) - xo
+    xo = torch.where(_bc(roi.flip_x, x), xflip, xo)
+    return torch.stack([xo, yo], dim=-1)
+
+
+def map_boxes_to_output(boxes: torch.Tensor, roi: Roi) -> torch.Tensor:
+    """(..., 4) [x0, y0, x1, y1] boxes through ``roi`` (handles flip)."""
+    p0 = map_points_to_output(boxes[..., 0:2], roi)
+    p1 = map_points_to_output(boxes[..., 2:4], roi)
+    return torch.stack([torch.minimum(p0[..., 0], p1[..., 0]),
+                        torch.minimum(p0[..., 1], p1[..., 1]),
+                        torch.maximum(p0[..., 0], p1[..., 0]),
+                        torch.maximum(p0[..., 1], p1[..., 1])], dim=-1)
+
+
+def clip_boxes(boxes: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Clip (..., 4) [x0, y0, x1, y1] boxes to the canvas [0, W) x [0, H)."""
+    h, w = out_hw
+    x = torch.clamp(boxes[..., 0::2], 0.0, float(w - 1))
+    y = torch.clamp(boxes[..., 1::2], 0.0, float(h - 1))
+    return torch.stack([x[..., 0], y[..., 0], x[..., 1], y[..., 1]], dim=-1)
+
+
 def map_points_to_input(points: torch.Tensor, roi: Roi) -> torch.Tensor:
     """(..., 2) [x, y] output-canvas points -> source-image coords (no flip:
     inference ROIs do not flip). Roi fields broadcast over the leading axes."""
@@ -169,3 +252,64 @@ def map_boxes_to_input(boxes: torch.Tensor, roi: Roi) -> torch.Tensor:
     p0 = map_points_to_input(boxes[..., 0:2], roi)
     p1 = map_points_to_input(boxes[..., 2:4], roi)
     return torch.cat([p0, p1], dim=-1)
+
+
+class PhotoDraws(NamedTuple):
+    """The random numbers of ``photometric_augment``, each (B,) unless
+    noted: ``brightness`` in [-brightness, brightness] (a fraction of 255),
+    ``contrast``, ``saturation``, ``hue`` in their +- ranges; ``noise_sigma``
+    in [0, noise_std * 255] and ``noise`` (B, H, W, 3) standard normal, or
+    both None when noise is off; ``blur`` bool, or None when blur is off."""
+
+    brightness: torch.Tensor
+    contrast: torch.Tensor
+    saturation: torch.Tensor
+    hue: torch.Tensor
+    noise_sigma: Optional[torch.Tensor] = None
+    noise: Optional[torch.Tensor] = None
+    blur: Optional[torch.Tensor] = None
+
+
+def draw_photometric(generator: torch.Generator, image_shape: Tuple[int, int, int, int],
+                     brightness: float = 0.2, contrast: float = 0.2,
+                     saturation: float = 0.2, hue: float = 0.05, noise_std: float = 0.0,
+                     blur_prob: float = 0.0) -> PhotoDraws:
+    """Draw ``photometric_augment``'s numbers for a (B, H, W, 3) batch."""
+    B = image_shape[0]
+    d = PhotoDraws(_uniform(generator, B, -brightness, brightness),
+                   _uniform(generator, B, -contrast, contrast),
+                   _uniform(generator, B, -saturation, saturation),
+                   _uniform(generator, B, -hue, hue))
+    if noise_std > 0.0:
+        d = d._replace(noise_sigma=_uniform(generator, B, 0.0, noise_std * 255.0),
+                       noise=torch.randn(image_shape, generator=generator,
+                                         device=generator.device))
+    if blur_prob > 0.0:
+        d = d._replace(blur=torch.rand(B, generator=generator,
+                                       device=generator.device) < blur_prob)
+    return d
+
+
+def photometric_augment(image: torch.Tensor, draws: PhotoDraws) -> torch.Tensor:
+    """Brightness, contrast, saturation and hue jitter (hue as an RGB
+    channel-rotation blend), then optional gaussian noise and 3x3 binomial
+    blur, on a (B, H, W, 3) 0..255 float batch; clipped to [0, 255]."""
+    def per_image(v):
+        return v.reshape(-1, 1, 1, 1)
+
+    img = image.to(torch.float32)
+    img = img + per_image(draws.brightness * 255.0)
+    img = (img - 127.5) * per_image(1.0 + draws.contrast) + 127.5
+    gray = 0.299 * img[..., 0:1] + 0.587 * img[..., 1:2] + 0.114 * img[..., 2:3]
+    img = gray + (img - gray) * per_image(1.0 + draws.saturation)
+    h = per_image(torch.abs(draws.hue))
+    img = img * (1.0 - h) + torch.roll(img, 1, dims=-1) * h
+    if draws.noise is not None:
+        img = img + per_image(draws.noise_sigma) * draws.noise
+    if draws.blur is not None:
+        x = torch.cat([img[:, :1], img, img[:, -1:]], dim=1)   # edge pad
+        x = x[:, :-2] * 0.25 + x[:, 1:-1] * 0.5 + x[:, 2:] * 0.25
+        x = torch.cat([x[:, :, :1], x, x[:, :, -1:]], dim=2)
+        x = x[:, :, :-2] * 0.25 + x[:, :, 1:-1] * 0.5 + x[:, :, 2:] * 0.25
+        img = torch.where(per_image(draws.blur), x, img)
+    return torch.clamp(img, 0.0, 255.0)

@@ -1,35 +1,126 @@
-"""Device-side serving preprocess: planar YUV420 -> letterboxed, normalized
-NHWC batch.
+"""Device-side batch preprocess: padded RGB buffers or planar YUV420 ->
+letterboxed (eval) or jittered and photometrically augmented (training),
+normalized NHWC batch.
 
-Mirrors the eval path of ``cvm_tpu/pipeline/preprocess.py`` (``make_rois``,
-``resample_yuv420_frame``, ``preprocess_yuv420_batch``). The training path
-(jittered ROIs, photometric jitter) comes with the training slice, so these
-functions take no RNG key and no ``train`` flag. The reference's
-``_materialize`` (an XLA ``optimization_barrier`` that stops a fusion on the
-TPU) has no counterpart: PyTorch runs eagerly and materializes every result.
+Mirrors ``cvm_tpu/pipeline/preprocess.py`` (``AugConfig``,
+``aug_from_params``, ``sample_rotation``, ``make_rois``,
+``preprocess_image_batch``, ``preprocess_batch``, ``resample_yuv420_frame``,
+``preprocess_yuv420_batch``). Where the reference takes a JAX key and a
+``train`` flag, these functions take ``draws``: ``None`` for the eval path,
+or the ``AugDraws`` of a training batch (``draw_augmentation``), so the
+deterministic part can be tested with numbers drawn by ``jax.random``.
+The reference's ``_materialize`` (an XLA ``optimization_barrier`` that stops
+a fusion on the TPU) has no counterpart: PyTorch runs eagerly and
+materializes every result. Rotation (``rotate_image_batch``) is not ported.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from cvm_tpu_torch.ops.image import (Roi, chroma_roi, letterbox_roi, normalize_pm1,
-                                     sample_bilinear, yuv_to_rgb)
+from cvm_tpu_torch.ops.image import (PhotoDraws, Roi, RoiDraws, chroma_roi, draw_photometric,
+                                     draw_roi, jittered_roi, letterbox_roi, normalize_pm1,
+                                     photometric_augment, sample_bilinear, yuv_to_rgb)
 
 
-def make_rois(image_hw: torch.Tensor, out_hw: Tuple[int, int]) -> Roi:
-    """(B, 2) valid sizes -> Roi with (B,) fields: the eval letterbox fit."""
-    return letterbox_roi(image_hw[:, 0], image_hw[:, 1], out_hw[0], out_hw[1])
+class AugConfig(NamedTuple):
+    scale_range: Tuple[float, float] = (0.6, 1.4)
+    shift_frac: float = 0.1
+    flip_prob: float = 0.5
+    brightness: float = 0.2
+    contrast: float = 0.2
+    saturation: float = 0.2
+    hue: float = 0.05
+    noise_std: float = 0.0   # max gaussian noise sigma (fraction of 255)
+    blur_prob: float = 0.0   # probability of a 3x3 binomial blur
+    rotate_deg: float = 0.0  # max |roll| in degrees (0 = rotation pass off)
+
+
+def aug_from_params(params, flip_prob=None) -> AugConfig:
+    """The AugConfig of a model Params object."""
+    return AugConfig(
+        params.aug_scale_range,
+        params.aug_shift_frac,
+        params.aug_flip_prob if flip_prob is None else flip_prob,
+        noise_std=getattr(params, "aug_noise_std", 0.0),
+        blur_prob=getattr(params, "aug_blur_prob", 0.0),
+        rotate_deg=getattr(params, "aug_rotate_deg", 0.0),
+    )
+
+
+def sample_rotation(generator: Optional[torch.Generator], batch_size: int,
+                    aug: AugConfig) -> Optional[torch.Tensor]:
+    """Per-sample roll angles (radians) in [-rotate_deg, rotate_deg], or None
+    when rotation is off or there is no generator (eval)."""
+    if generator is None or aug.rotate_deg <= 0.0:
+        return None
+    r = aug.rotate_deg * math.pi / 180.0
+    return torch.rand(batch_size, generator=generator, device=generator.device) * (2 * r) - r
+
+
+class AugDraws(NamedTuple):
+    """Every random number of one training batch's preprocess."""
+
+    roi: RoiDraws
+    photo: PhotoDraws
+
+
+def draw_augmentation(generator: torch.Generator, batch_size: int,
+                      out_hw: Tuple[int, int], aug: AugConfig) -> AugDraws:
+    """Draw a training batch's ROI jitter and photometric numbers from
+    ``generator`` (on the device the batch is on)."""
+    return AugDraws(
+        draw_roi(generator, batch_size, aug.scale_range, aug.shift_frac, aug.flip_prob),
+        draw_photometric(generator, (batch_size, out_hw[0], out_hw[1], 3), aug.brightness,
+                         aug.contrast, aug.saturation, aug.hue, aug.noise_std,
+                         aug.blur_prob))
+
+
+def make_rois(image_hw: torch.Tensor, out_hw: Tuple[int, int],
+              draws: Optional[RoiDraws] = None) -> Roi:
+    """(B, 2) valid sizes -> Roi with (B,) fields: the eval letterbox fit, or
+    the training jitter when ``draws`` is given."""
+    if draws is None:
+        return letterbox_roi(image_hw[:, 0], image_hw[:, 1], out_hw[0], out_hw[1])
+    return jittered_roi(image_hw[:, 0], image_hw[:, 1], out_hw[0], out_hw[1], draws)
+
+
+def _finish(out: torch.Tensor, draws: Optional[AugDraws], out_dtype) -> torch.Tensor:
+    if draws is not None:
+        out = photometric_augment(out, draws.photo)
+    return normalize_pm1(out).to(out_dtype)
+
+
+def preprocess_image_batch(images: torch.Tensor, image_hw: torch.Tensor,
+                           out_hw: Tuple[int, int], out_dtype: torch.dtype = torch.float32,
+                           draws: Optional[AugDraws] = None) -> Tuple[torch.Tensor, Roi]:
+    """(B, Hmax, Wmax, 3) uint8 + (B, 2) valid sizes -> ((B, H, W, 3) pm1
+    values in ``out_dtype``, rois)."""
+    rois = make_rois(image_hw, out_hw, None if draws is None else draws.roi)
+    out = sample_bilinear(images, rois, out_hw, valid_hw=(image_hw[:, 0], image_hw[:, 1]),
+                          pad_value=0.0)
+    return _finish(out, draws, out_dtype), rois
+
+
+def preprocess_batch(batch, out_hw: Tuple[int, int], out_dtype: torch.dtype = torch.float32,
+                     draws: Optional[AugDraws] = None) -> Tuple[torch.Tensor, Roi]:
+    """Dispatch on the wire format: ``{"image", "image_hw"}`` RGB buffers or
+    ``{"y", "u", "v", "image_hw"}`` YUV420 planes."""
+    if "y" in batch:
+        return preprocess_yuv420_batch(batch["y"], batch["u"], batch["v"], batch["image_hw"],
+                                       out_hw, out_dtype, draws)
+    return preprocess_image_batch(batch["image"], batch["image_hw"], out_hw, out_dtype, draws)
 
 
 def resample_yuv420_frame(yp, up, vp, hw, roi: Roi, out_hw) -> torch.Tensor:
     """4:2:0 frames -> (B, H, W, 3) RGB floats on 0..255 through ``roi``.
 
     yp (B, Hm, Wm), up/vp (B, Hm/2, Wm/2) planes; hw (B, 2) valid luma
-    sizes. Luma resamples through the ROI, chroma through the half-space ROI,
-    so no full-resolution YUV is materialized.
+    sizes. Luma resamples through the ROI, chroma through the half-space
+    ROI, so no full-resolution YUV is materialized.
     """
     h, w = hw[:, 0], hw[:, 1]
     croi = chroma_roi(roi)
@@ -43,10 +134,10 @@ def resample_yuv420_frame(yp, up, vp, hw, roi: Roi, out_hw) -> torch.Tensor:
 
 def preprocess_yuv420_batch(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                             image_hw: torch.Tensor, out_hw: Tuple[int, int],
-                            out_dtype: torch.dtype = torch.float32
-                            ) -> Tuple[torch.Tensor, Roi]:
+                            out_dtype: torch.dtype = torch.float32,
+                            draws: Optional[AugDraws] = None) -> Tuple[torch.Tensor, Roi]:
     """Planar YUV420 batch -> ((B, H, W, 3) pm1 values in ``out_dtype``,
     rois). Runs on the device the planes are on."""
-    rois = make_rois(image_hw, out_hw)
+    rois = make_rois(image_hw, out_hw, None if draws is None else draws.roi)
     out = resample_yuv420_frame(y, u, v, image_hw, rois, out_hw)
-    return normalize_pm1(out).to(out_dtype), rois
+    return _finish(out, draws, out_dtype), rois

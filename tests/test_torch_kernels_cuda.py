@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from cvm_tpu_torch.ops.cuda.fused_qconv import fused_qconv, fused_qconv_reference
+from cvm_tpu_torch.ops.cuda.gaussian_splat import render_heatmap, render_heatmap_reference
+from cvm_tpu_torch.ops.heatmap import prepare_centers
 
 pytestmark = pytest.mark.cuda
 
@@ -85,3 +87,59 @@ def test_fused_qconv_kernel_matches_plain(cuda_device, shape, mode):
     assert fused_qconv.launches == n0 + 1
     ref = fused_qconv_reference(*args, **kw)
     assert_kernel_close(got, ref)
+
+
+def splat_case(dev, name):
+    """Per-object inputs of the Gaussian splat K1 for one named case."""
+    shapes = {"flagship": (16, 8, 128, 10), "config_b": (8, 128, 128, 80)}
+    rng = np.random.default_rng(len(name))
+    if name in shapes:
+        B, K, hs, C = shapes[name]
+        x0 = rng.uniform(-8, hs, (B, K)).astype(np.float32)
+        y0 = rng.uniform(-8, hs, (B, K)).astype(np.float32)
+        w = rng.uniform(1, 96, (B, K)).astype(np.float32)
+        h = rng.uniform(1, 96, (B, K)).astype(np.float32)
+        boxes = np.stack([x0, y0, x0 + w, y0 + h], -1)
+        valid = np.arange(K)[None] < rng.integers(0, K + 1, (B, 1))
+        cls = rng.integers(0, C, (B, K))
+    else:
+        hs, C = 32, 3
+        boxes = {  # (x0, y0, x1, y1) per object, map coords
+            "empty": [[4, 4, 12, 12], [20, 2, 30, 9]],
+            "border": [[-12, -12, 13, 13], [14, 18, 49, 45], [-10, 20, 11, 40]],
+            "radius0": [[10, 10, 11.5, 11.5], [3, 20, 4, 21]],
+            "overlap": [[6, 6, 22, 20], [9, 8, 25, 24]],
+            "class_c": [[6, 6, 22, 20], [9, 8, 25, 24]],
+        }[name]
+        boxes = np.asarray([boxes], np.float32)
+        K = boxes.shape[1]
+        valid = np.full((1, K), name != "empty")
+        cls = {"class_c": [[C, -1]], "overlap": [[1, 1]]}.get(name, [list(range(K))])
+        cls = np.asarray(cls) % (C + 2) if name != "class_c" else np.asarray(cls)
+    _, _, _, _, v, ix, iy, radius, sigma = prepare_centers(
+        torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev), (hs, hs), 0.7)
+    cls = torch.from_numpy(np.asarray(cls, np.int32)).to(dev)
+    return (iy, ix, sigma, radius, cls, v), (hs, hs), C
+
+
+SPLAT_CASES = ["flagship", "config_b", "empty", "border", "radius0", "overlap", "class_c"]
+
+
+@pytest.mark.parametrize("name", SPLAT_CASES)
+def test_gaussian_splat_kernel_matches_plain(cuda_device, name):
+    """Values lie in [0, 1]; the kernel follows the plain version's order of
+    operations with accurate expf, so they agree to 1e-6."""
+    args, map_hw, C = splat_case(cuda_device, name)
+    n0 = render_heatmap.launches
+    got = render_heatmap(*args, map_hw, C)
+    torch.cuda.synchronize()
+    assert render_heatmap.launches == n0 + 1
+    ref = render_heatmap_reference(*args, map_hw, C)
+    assert got.shape == ref.shape == (args[0].shape[0], *map_hw, C)
+    torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+    if name == "empty":
+        assert float(got.abs().sum()) == 0.0
+    if name == "class_c":  # both objects carry an out-of-range class: dropped
+        assert bool(args[5].all()) and float(got.abs().sum()) == 0.0
+    if name == "radius0":
+        assert int((got > 0).sum()) == 2 and float(got.max()) == 1.0
