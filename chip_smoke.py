@@ -10,29 +10,34 @@ the flagship synthetic recipe (10 classes, batch 16, 512x512 padding)
 through ``cvm_tpu_torch.cli.train``:
 
   1. card, versions, both kernel builds (one nvcc each, started together);
-  2. kernel vs its plain PyTorch version at every config-B shape of the
-     fused W8A8 ConvBN and at the reference tests' shapes, in four modes,
-     with kernel and plain times (CUDA events, median);
+  2. the fused W8A8 ConvBN kernel K2 vs its plain PyTorch version at every
+     config-B shape, the reference tests' shapes and one case per special
+     path of the kernel, in four modes; then, per main-path call, the
+     kernel's device time beside its bound, cuDNN's bf16 conv of the same
+     shape (the library yardstick) and the plain version's time;
   3. the model at full width with non-trivial BN statistics, calibrated on
      3 synthetic batches; the fp (BN folded) and int8 (fused + chained)
      pipelines;
   4. one batch-8 request through each posture: finite results, exactly 24
-     kernel launches (7 with int8 output) per int8 forward, int8 heads near
-     fp heads, and the int8 posture through the kernel vs through the plain
-     version on the card;
+     kernel launches (7 with int8 output) and no weight packing per int8
+     forward, int8 heads near fp heads, and the int8 posture through the
+     kernel vs through the plain version on the card;
   5. a DynamicBatcher over the int8 pipeline answering 16 threaded requests;
   6. median batch-8 latency of both postures;
   7. the Gaussian splat kernel K1 vs its plain version at the flagship
      training shape, config B's default shape and five edge cases, with
-     kernel and plain times (CUDA events, median);
+     its device time beside its bound and the plain version's time;
   8. training through ``cli.train.main``: 30 steps with a checkpoint at
      step 20 (finite, falling loss, one K1 launch per step), then a second
      call that resumes from step 20 to 40; median ms per step;
   9. the trained model served (BN folded) for one batch-8 request.
 
-Any failure raises (exit code != 0). The last two lines are the kernels'
-JSON record and ``{"ok": true, "device": {...}}``. Without a CUDA device it
-exits 1 before printing any result.
+Device times come from CUDA events around 20 back-to-back calls while the
+card first sleeps through the host's enqueueing (``cuda_ms``). Any failure
+raises (exit code != 0). The last two lines are the kernels' JSON record
+(with each kernel's launches on the main path, bound and library time) and
+``{"ok": true, "device": {...}}``. Without a CUDA device it exits 1 before
+printing any result.
 """
 
 from __future__ import annotations
@@ -83,14 +88,27 @@ MAIN_CALLS = [
     ("head c1", 128, 128, 128, 64, "bf16", "bf16", "silu", 3),
 ]
 # (k, B, H, W, Cin, Cout, act) of tests/test_fused_qconv.py: 1x1, W not a
-# multiple of the tile, Cout > 128, narrow Cin with wide W, W = 1.
+# multiple of the tile, Cout > 128, narrow Cin with wide W, W = 1; then the
+# card tests' ragged Cin / Cout, and one case per special path of the
+# kernel: the folded stem, the Cin split over a cluster, Cout 512, W ragged.
 TEST_SHAPES = [
     (1, 2, 8, 16, 32, 64, "silu"),
     (3, 2, 16, 20, 32, 64, "silu"),
     (3, 1, 32, 48, 16, 256, None),
     (3, 1, 8, 96, 8, 32, "relu"),
     (3, 2, 2, 1, 16, 32, "relu"),
+    (3, 2, 9, 13, 12, 24, "silu"),
+    (1, 1, 5, 7, 40, 72, None),
+    (3, 2, 40, 24, 12, 32, "silu"),
+    (3, 1, 16, 16, 256, 128, None),
+    (3, 1, 16, 24, 64, 512, "relu"),
+    (3, 3, 19, 29, 96, 96, "silu"),
 ]
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense, 700 W):
+# int8 tensor-core operations and HBM3 bytes per second.
+PEAK_INT8_OPS = 1979e12
+PEAK_BYTES = 3.35e12
+_ESIZE = {"f32": 4, "bf16": 2, "int8": 1}
 # mode -> (input, output)
 MODES = {"f32->f32": ("f32", "f32"), "bf16->bf16": ("bf16", "bf16"),
          "int8->bf16": ("int8", "bf16"), "bf16->int8": ("bf16", "int8")}
@@ -106,21 +124,33 @@ def nvidia_smi() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of one ``fn()`` (CUDA events around each call)."""
+def cuda_ms(fn, reps: int = 20, warmup: int = 3, rounds: int = 3) -> float:
+    """Device time of one ``fn()``: CUDA events around ``reps`` calls, the
+    median over ``rounds``. The card first sleeps for longer than the host
+    takes to enqueue the calls, so the events time the device's work back
+    to back, not the host's launch overhead (which exceeds a small
+    kernel's time)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # _sleep counts SM cycles (~2 GHz); 1.5x the enqueue time, at most 0.5 s.
+    sleep_cycles = int(min(0.5, 1.5 * reps * host_s + 2e-4) * 2.0e9)
     times = []
-    for _ in range(reps):
+    for _ in range(rounds):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
 
 
@@ -142,9 +172,9 @@ def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def compare(got, ref):
     """(ok, max abs error, note). Tolerances by output type: f32 1e-4
-    (the kernel's int32 sums are exact; cuDNN's f32 conv in the plain version
-    may round them, e.g. with Winograd, at ~1e-6 relative); bf16 one bf16
-    step (2^-7 relative); int8 one lattice step on at most 0.1% of outputs."""
+    (both sums are exact, the kernel's in int32 and the plain version's in
+    f64; only the f32 epilogue may round differently); bf16 one bf16 step
+    (2^-7 relative); int8 one lattice step on at most 0.1% of outputs."""
     import torch
 
     if got.dtype != ref.dtype or got.shape != ref.shape:
@@ -214,20 +244,51 @@ def phase_kernels(dev):
     if failures:
         raise AssertionError(f"kernel disagrees with its plain version: {failures}")
 
-    # Times at the main path's shapes and modes, kernel beside plain.
-    ms = plain_ms = 0.0
+    # Times at the main path's shapes and modes: the kernel (weights packed
+    # once, as the modules do), its bound, the plain version, and the
+    # library yardstick: cuDNN's bf16 conv of the same shape on
+    # channels_last tensors (timed here only; the port never calls it).
+    import torch.nn.functional as F
+
+    from cvm_tpu_torch.ops.cuda.fused_qconv import cin_split, pack_qconv_weights, qconv_plan
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "ops_bound": 0.0}
+    log(f"[kernel-time] bound = max(int8 ops / {PEAK_INT8_OPS / 1e12:.0f} TOP/s, bytes / "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s); bytes = input + weights + scale/bias + output, each once")
     for name, h, w, cin, cout, xk, ok_, act, n in MAIN_CALLS:
         args, kw = kernel_case(dev, gen, 3, B, h, w, cin, cout, act, xk, ok_)
-        t_k = cuda_ms(lambda: fused_qconv(*args, **kw))
+        wp = pack_qconv_weights(args[1])
+        t_k = cuda_ms(lambda: fused_qconv(*args, **kw, w_packed=wp))
         t_p = cuda_ms(lambda: fused_qconv_reference(*args, **kw))
-        gmac = B * h * w * 9 * cin * cout / 1e9
-        log(f"[kernel-time] {name:8s} {h}x{w} {cin}->{cout} {xk}->{ok_} x{n}: kernel "
-            f"{t_k:.4f} ms ({2 * gmac / t_k:.1f} TOP/s), plain {t_p:.4f} ms")
-        ms += n * t_k
-        plain_ms += n * t_p
-    log(f"[kernel-time] one config-B int8 forward's 24 calls: kernel {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
-    return worst, ms, plain_ms
+        xb = torch.randn(B, cin, h, w, generator=gen, device=dev).to(
+            torch.bfloat16, memory_format=torch.channels_last)
+        wb = torch.randn(cout, cin, 3, 3, generator=gen, device=dev).to(
+            torch.bfloat16, memory_format=torch.channels_last)
+        t_l = cuda_ms(lambda: F.conv2d(xb, wb, padding=1))
+        ops = 2.0 * B * h * w * 9 * cin * cout
+        nbytes = (B * h * w * (cin * _ESIZE[xk] + cout * _ESIZE[ok_]) + 9 * cin * cout
+                  + 8 * cout)
+        t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+        bound = max(t_ops, t_bytes)
+        plan = qconv_plan(3, cin, cout)
+        path = ("fold" if plan.fold else f"split {cin_split(plan, B, h, w, sms)}") + \
+            f", bn {plan.bn}"
+        log(f"[kernel-time] {name:8s} {h}x{w} {cin}->{cout} {xk}->{ok_} x{n} ({path}): kernel "
+            f"{t_k:.4f} ms ({ops / t_k / 1e9:.1f} TOP/s), bound {bound * 1e3:.1f} us "
+            f"({'ops' if t_ops >= t_bytes else 'bytes'}; {bound / t_k:.1%} of it), "
+            f"cuDNN bf16 {t_l:.4f} ms, plain {t_p:.4f} ms")
+        tot["ms"] += n * t_k
+        tot["plain"] += n * t_p
+        tot["lib"] += n * t_l
+        tot["bound"] += n * bound
+        tot["ops_bound"] += n * bound * (t_ops >= t_bytes)
+    tot["bound_by"] = "operations" if tot["ops_bound"] >= tot["bound"] / 2 else "bytes"
+    log(f"[kernel-time] one config-B int8 forward's 24 calls: kernel {tot['ms']:.3f} ms, "
+        f"bound {tot['bound']:.3f} ms ({tot['bound'] / tot['ms']:.1%} of it; "
+        f"{tot['ops_bound']:.3f} ms of it ops-bound), cuDNN bf16 {tot['lib']:.3f} ms, "
+        f"plain {tot['plain']:.3f} ms")
+    return worst, tot
 
 
 def build_model(dev):
@@ -317,7 +378,17 @@ def phase_splat(dev):
             t_k = cuda_ms(lambda: render_heatmap(*args, map_hw, c))
             t_p = cuda_ms(lambda: render_heatmap_reference(*args, map_hw, c))
             times[name] = (t_k, t_p)
-            note = f"; kernel {t_k:.4f} ms (zero fill included), plain {t_p:.4f} ms"
+            # Bound: the map written once plus the per-object inputs read once,
+            # against ~15 f32 operations per pixel of each valid object's
+            # window (R = ceil(r) + 1) at 67 TFLOP/s; the bytes bound it.
+            nbytes = got.numel() * 4 + sum(t.numel() * t.element_size() for t in args)
+            win = (2 * (torch.ceil(args[3].float()) + 1) + 1) ** 2
+            ops = 15.0 * float((win * args[5]).sum())
+            bound = max(nbytes / 3.35e12, ops / 67e12) * 1e3
+            if name == "flagship":
+                times["bound_ms"] = bound
+            note = (f"; kernel {t_k:.4f} ms (zero fill included), bound {bound * 1e3:.1f} us "
+                    f"(bytes; {bound / t_k:.1%} of it), plain {t_p:.4f} ms, library: none")
         log(f"[splat] {name:9s} B{args[0].shape[0]} K{args[0].shape[1]} {map_hw[0]}^2 C{c} "
             f"valid {int(args[5].sum())}: {'ok' if ok else 'FAIL'} err={err:.3g}{note}")
         if not ok:
@@ -443,7 +514,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s, into {_build.BUILD_DIR}")
 
     # Phase 2: kernel vs plain.
-    max_err, k_ms, plain_ms = phase_kernels(dev)
+    max_err, k2 = phase_kernels(dev)
 
     # Phase 3: model, calibration, both pipelines.
     from cvm_tpu_torch.data.synthetic import synthetic_yuv420_batch
@@ -476,9 +547,13 @@ def main() -> int:
     out_q = pipe_q(batch)                      # the main path, int8 posture
     torch.cuda.synchronize()
     launches, int8_launches = fq.fused_qconv.launches, fq.fused_qconv.int8_out_launches
-    log(f"[serve] int8 forward: {launches} kernel launches, {int8_launches} with int8 output")
+    packs = fq.fused_qconv.weight_packs
+    log(f"[serve] int8 forward: {launches} kernel launches, {int8_launches} with int8 output, "
+        f"{packs} weight packs")
     if (launches, int8_launches) != (24, 7):
         raise AssertionError(f"expected 24 launches (7 int8-out), got {launches} ({int8_launches})")
+    if packs != 0:
+        raise AssertionError(f"the int8 forward packed weights {packs} times (expected 0)")
     for name, out in (("fp", out_fp), ("int8", out_q)):
         if out["boxes"].shape != (B, cfg.top_k, 4) or out["scores"].shape != (B, cfg.top_k):
             raise AssertionError(f"{name}: bad shapes {out['boxes'].shape} {out['scores'].shape}")
@@ -491,7 +566,8 @@ def main() -> int:
         heads_fp = pipe_fp.model(proc)
         heads_q = pipe_q.model(proc)
         real = qz.fused_qconv
-        qz.fused_qconv = fq.fused_qconv_reference  # the same posture, plain version
+        # the same posture, plain version (which reads the HWIO weights)
+        qz.fused_qconv = lambda *a, w_packed=None, **k: fq.fused_qconv_reference(*a, **k)
         try:
             heads_plain = pipe_q.model(proc)
         finally:
@@ -572,10 +648,12 @@ def main() -> int:
     print(json.dumps({"kernels": [{
         "name": "fused_qconv", "route": "cuda", "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": plain_ms}, {
+        "ms": k2["ms"], "plain_ms": k2["plain"], "bound_ms": k2["bound"],
+        "bound_by": k2["bound_by"], "library_ms": k2["lib"]}, {
         "name": "gaussian_splat", "route": "cuda", "source": SPLAT_SOURCE,
         "replaces": SPLAT_REPLACES, "launches": splat_launches, "max_abs_err": splat_err,
-        "ms": splat_times["flagship"][0], "plain_ms": splat_times["flagship"][1]}]}))
+        "ms": splat_times["flagship"][0], "plain_ms": splat_times["flagship"][1],
+        "bound_ms": splat_times["bound_ms"], "bound_by": "bytes", "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

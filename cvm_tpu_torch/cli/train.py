@@ -70,10 +70,10 @@ def main(argv=None) -> int:
         raise SystemExit("--data: .cvrec record data is not ported yet (ROADMAP Queue 1 "
                          "item 11, the record loader); use --data synthetic")
 
-    from cvm_tpu.utils.config import parse_hw
     from cvm_tpu_torch.data.synthetic import SyntheticIterator
     from cvm_tpu_torch.models.centernet.params import CenternetParams
     from cvm_tpu_torch.train.loop import Trainer
+    from cvm_tpu_torch.utils.config import parse_hw
 
     cfg = CenternetParams.from_cli(overrides)
     for field, (off, item) in _NOT_PORTED_CFG.items():

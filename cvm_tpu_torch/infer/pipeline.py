@@ -19,11 +19,11 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn as nn
 
-from cvm_tpu.utils.batch import pad_rows
 from cvm_tpu_torch.models.centernet.params import CenternetParams
 from cvm_tpu_torch.ops.decode import decode_centernet
 from cvm_tpu_torch.ops.image import map_boxes_to_input
 from cvm_tpu_torch.pipeline.preprocess import preprocess_yuv420_batch
+from cvm_tpu_torch.utils.batch import pad_rows
 from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
 
 

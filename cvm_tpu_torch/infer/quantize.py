@@ -26,7 +26,7 @@ import torch
 import torch.nn as nn
 
 from cvm_tpu_torch.models.layers import ACTS, BatchNorm, Conv, ConvBN, ResBlock
-from cvm_tpu_torch.ops.cuda.fused_qconv import fused_qconv
+from cvm_tpu_torch.ops.cuda.fused_qconv import fused_qconv, pack_qconv_weights
 
 WeightTable = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -92,7 +92,8 @@ def _bn_affine(bn: Optional[nn.Module], conv: Conv) -> Tuple[torch.Tensor, torch
 class FusedConvBN(nn.Module):
     """A ConvBN body (conv + BN affine + activation) as one fused int8 kernel
     call: quantize with the calibrated ``sx``, int8 conv, epilogue
-    ``acc * (sx * sw * a) + b`` and the module's activation."""
+    ``acc * (sx * sw * a) + b`` and the module's activation. The kernel's
+    packed weight image is made once, here, and moves with the module."""
 
     def __init__(self, mod: ConvBN, sx: float, wq_sw):
         super().__init__()
@@ -102,12 +103,14 @@ class FusedConvBN(nn.Module):
         a, b = _bn_affine(mod.bn, mod.conv)
         self.act, self.out_dtype, self.inv_sx = mod.act, mod.dtype, 1.0 / float(sx)
         self.register_buffer("wq", wq.contiguous())
+        self.register_buffer("wpack", pack_qconv_weights(wq))
         self.register_buffer("scale", (float(sx) * sw * a).contiguous())
         self.register_buffer("bias", b.contiguous())
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return fused_qconv(x.contiguous(), self.wq, self.scale, self.bias,
-                           inv_sx=self.inv_sx, act=self.act, out_dtype=self.out_dtype)
+                           inv_sx=self.inv_sx, act=self.act, out_dtype=self.out_dtype,
+                           w_packed=self.wpack)
 
 
 class ChainedResBlock(nn.Module):
@@ -128,9 +131,9 @@ class ChainedResBlock(nn.Module):
         x = x.contiguous()
         c1, c2 = self.c1, self.c2
         h_q = fused_qconv(x, c1.wq, c1.scale, c1.bias, inv_sx=c1.inv_sx, act=c1.act,
-                          out_dtype=torch.int8, inv_s_out=self.inv_s_mid)
+                          out_dtype=torch.int8, inv_s_out=self.inv_s_mid, w_packed=c1.wpack)
         h = fused_qconv(h_q, c2.wq, c2.scale, c2.bias, inv_sx=None, act=c2.act,
-                        out_dtype=c2.out_dtype)
+                        out_dtype=c2.out_dtype, w_packed=c2.wpack)
         if self.proj is not None:
             x = self.proj(x)
         return ACTS[self.act](x.to(self.dtype) + h)

@@ -17,7 +17,7 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from cvm_tpu.utils.batch import pad_rows
+from cvm_tpu_torch.utils.batch import pad_rows
 
 
 def _to_numpy(v) -> np.ndarray:

@@ -6,8 +6,8 @@ The 3D-head fields (``with_3d``, ``weight_depth3d``, ``weight_dims3d``,
 the 3D heads are not ported: the processor refuses ``with_3d``.
 ``BaseParams`` (which adds ``ema_decay``, ``grad_accum_steps``,
 ``lr_schedule``, ``optimizer``, ``aug_noise_std``, ``aug_blur_prob``,
-``aug_rotate_deg`` and the rest) is shared with the reference:
-``cvm_tpu.utils.config`` imports no JAX.
+``aug_rotate_deg`` and the rest) is the port's copy of the reference's
+(``cvm_tpu_torch/utils/config.py``).
 """
 
 from __future__ import annotations
@@ -15,7 +15,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Tuple
 
-from cvm_tpu.utils.config import BaseParams
+from cvm_tpu_torch.utils.config import BaseParams
 
 
 @dataclasses.dataclass

@@ -11,12 +11,20 @@ the consumer's lattice (``inv_s_out``, int8 out).
 the plain version, ``fused_qconv_reference``, only for CPU tensors. A CUDA
 tensor never reaches the plain version through the wrapper: a tensor the
 kernel does not take raises, and so does a failed build or launch.
+
+The kernel reads its weights from a packed image (``pack_qconv_weights``):
+per Cout tile, per 32-wide Cin chunk and per tap, a K-major int8 slab laid
+out as the kernel's shared memory holds it, so one pipeline stage's weights
+are one contiguous bulk copy. Modules pack once (``infer/quantize.py``
+``FusedConvBN``) and pass the image as ``w_packed``; a call without it
+packs on the spot and counts ``fused_qconv.weight_packs``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +32,89 @@ import torch.nn.functional as F
 _X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ACT = {None: 0, "silu": 1, "relu": 2}
+CK = 32          # Cin chunk: one int8 wgmma k-step
+FOLD_K = 128     # a 3x3 conv with 9*Cin <= FOLD_K folds its taps into K
+# The kernel copies whole 16-B channel groups (4-B ones when folded): x's
+# channels are zero padded to a multiple of this many bytes.
+_CIN_BYTES = {False: 16, True: 4}
+
+
+class QConvPlan(NamedTuple):
+    """How the kernel tiles one conv: ``bn`` output channels per block (64 or
+    128), ``ntiles`` Cout tiles, ``nch`` 32-wide Cin chunks; with ``fold``
+    the 3x3 taps fold into one K of ``kf`` (= 9*Cin padded to 32)."""
+    bn: int
+    ntiles: int
+    nch: int
+    fold: bool
+    kf: int
+
+
+def qconv_plan(k: int, cin: int, cout: int) -> QConvPlan:
+    bn = 64 if cout <= 64 else 128
+    fold = k == 3 and 9 * cin <= FOLD_K and cout <= bn
+    kf = -(-9 * cin // CK) * CK if fold else 0
+    return QConvPlan(bn, -(-cout // bn), -(-cin // CK), fold, kf)
+
+
+def pack_qconv_weights(w_q: torch.Tensor) -> torch.Tensor:
+    """HWIO int8 weights (k, k, Cin, Cout) -> the kernel's flat int8 image.
+
+    Unfolded: ``[ntiles][nch][k*k taps][2 K halves][bn][16]`` -- for Cout
+    tile t, Cin chunk c and tap (dy, dx), byte ``[h][n][e]`` is
+    ``w[dy, dx, 32c + 16h + e, t*bn + n]``. Folded (3x3, 9*Cin <= 128, one
+    Cout tile):
+    ``[ntiles][kf/16][bn][16]`` with K index ``(3*dy + dx)*Cin + ci``. Zero
+    beyond Cin, Cout and 9*Cin. A plain tensor function on w_q's device."""
+    if w_q.dim() != 4 or w_q.dtype != torch.int8 or w_q.shape[0] != w_q.shape[1]:
+        raise ValueError(f"pack_qconv_weights: int8 (k, k, Cin, Cout), got "
+                         f"{w_q.dtype} {tuple(w_q.shape)}")
+    k, _, cin, cout = w_q.shape
+    p = qconv_plan(k, cin, cout)
+    if p.fold:
+        w = torch.zeros((p.kf, p.ntiles * p.bn), dtype=torch.int8, device=w_q.device)
+        w[:9 * cin, :cout] = w_q.reshape(9 * cin, cout)
+        w = w.view(p.kf // 16, 16, p.ntiles, p.bn).permute(2, 0, 3, 1)
+    else:
+        w = torch.zeros((k * k, p.nch * CK, p.ntiles * p.bn), dtype=torch.int8,
+                        device=w_q.device)
+        w[:, :cin, :cout] = w_q.reshape(k * k, cin, cout)
+        w = w.view(k * k, p.nch, 2, 16, p.ntiles, p.bn).permute(4, 1, 0, 2, 5, 3)
+    return w.contiguous().reshape(-1)
+
+
+def unpack_qconv_weights(image: torch.Tensor, k: int, cin: int, cout: int) -> torch.Tensor:
+    """The inverse of ``pack_qconv_weights``: the HWIO int8 weights."""
+    p = qconv_plan(k, cin, cout)
+    if p.fold:
+        w = image.view(p.ntiles, p.kf // 16, p.bn, 16).permute(1, 3, 0, 2)
+        w = w.reshape(p.kf, p.ntiles * p.bn)[:9 * cin, :cout]
+        return w.reshape(3, 3, cin, cout).contiguous()
+    w = image.view(p.ntiles, p.nch, k * k, 2, p.bn, 16).permute(2, 1, 3, 5, 0, 4)
+    w = w.reshape(k * k, p.nch * CK, p.ntiles * p.bn)[:, :cin, :cout]
+    return w.reshape(k, k, cin, cout).contiguous()
+
+
+def packed_numel(k: int, cin: int, cout: int) -> int:
+    p = qconv_plan(k, cin, cout)
+    if p.fold:
+        return p.ntiles * p.kf * p.bn
+    return p.ntiles * p.nch * k * k * 2 * p.bn * 16
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def cin_split(plan: QConvPlan, B: int, H: int, W: int, sms: int) -> int:
+    """Blocks of a cluster that share one tile's Cin chunks: 2-4 where the
+    call has fewer 128-pixel tiles than SMs (the deep s5 and up0 convs);
+    otherwise 1, and each block walks several tiles."""
+    if plan.fold:
+        return 1
+    blocks = B * -(-H // 16) * -(-W // 8) * plan.ntiles
+    return max(1, min(4, sms // blocks, plan.nch))
 
 
 def _check(x, w_q, scale, bias, inv_sx, act, out_dtype, inv_s_out):
@@ -63,16 +154,18 @@ def fused_qconv_reference(x, w_q, scale, bias, *, inv_sx: Optional[float],
                           out_dtype: torch.dtype = torch.bfloat16,
                           inv_s_out: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version: explicit quantize, conv of the lattice values
-    in f32, f32 epilogue. Lattice values (|q| <= 127) are exact in f32 (and
-    in TF32); the f32 sum is exact while partial sums stay below 2^24."""
+    in f64, f32 epilogue. The f64 sum of lattice products is exact, as the
+    kernel's int32 sum is (an f32 conv is not: cuDNN may take a Winograd or
+    FFT algorithm that rounds); it is then rounded to f32 once, as the
+    kernel converts its int32 sum."""
     _check(x, w_q, scale, bias, inv_sx, act, out_dtype, inv_s_out)
     if inv_sx is None:
         q = x.float()
     else:
         q = torch.round(torch.clamp(x.float() * inv_sx, -127.0, 127.0))
     k = w_q.shape[0]
-    acc = F.conv2d(q.permute(0, 3, 1, 2), w_q.float().permute(3, 2, 0, 1),
-                   padding=k // 2).permute(0, 2, 3, 1)
+    acc = F.conv2d(q.double().permute(0, 3, 1, 2), w_q.double().permute(3, 2, 0, 1),
+                   padding=k // 2).permute(0, 2, 3, 1).float()
     y = acc * scale + bias
     if act == "silu":
         y = y * torch.sigmoid(y)
@@ -90,7 +183,7 @@ def _lib():
     fn = lib.fused_qconv_launch
     if fn.argtypes is None:
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, Fl, I, I, Fl, P]
+        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, Fl, I, I, Fl, I, I, I, I, P]
         fn.restype = I
     return fn
 
@@ -98,10 +191,13 @@ def _lib():
 def fused_qconv(x, w_q, scale, bias, *, inv_sx: Optional[float],
                 act: Optional[str] = "silu",
                 out_dtype: torch.dtype = torch.bfloat16,
-                inv_s_out: Optional[float] = None) -> torch.Tensor:
+                inv_s_out: Optional[float] = None,
+                w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x (B,H,W,Cin) f32/bf16, or int8 lattice points with inv_sx=None;
     w_q (k,k,Cin,Cout) int8; scale, bias (Cout,) f32 -> (B,H,W,Cout) of
-    out_dtype. CPU tensors take the plain version; CUDA tensors the kernel."""
+    out_dtype. ``w_packed``: ``pack_qconv_weights(w_q)``, made once by the
+    caller (the kernel reads only it). CPU tensors take the plain version;
+    CUDA tensors the kernel."""
     if x.device.type == "cpu":
         return fused_qconv_reference(x, w_q, scale, bias, inv_sx=inv_sx, act=act,
                                      out_dtype=out_dtype, inv_s_out=inv_s_out)
@@ -112,18 +208,31 @@ def fused_qconv(x, w_q, scale, bias, *, inv_sx: Optional[float],
         if not t.is_contiguous():
             raise ValueError(f"fused_qconv: {name} must be contiguous")
     B, H, W, cin = x.shape
-    cout = w_q.shape[-1]
+    k, cout = w_q.shape[0], w_q.shape[-1]
     if B * H * W * cin * cout == 0:
         raise ValueError(f"fused_qconv: empty shape x {tuple(x.shape)}, Cout {cout}")
+    if w_packed is None:
+        w_packed = pack_qconv_weights(w_q)
+        fused_qconv.weight_packs += 1
+    if (w_packed.dtype != torch.int8 or w_packed.device != x.device
+            or not w_packed.is_contiguous() or w_packed.numel() != packed_numel(k, cin, cout)):
+        raise ValueError(f"fused_qconv: w_packed is not pack_qconv_weights(w_q) for "
+                         f"{tuple(w_q.shape)}")
+    plan = qconv_plan(k, cin, cout)
+    pad = -cin % (_CIN_BYTES[plan.fold] // x.element_size())
+    if pad:  # zero channels are exact: they quantize to 0
+        x = F.pad(x, (0, pad))
+    if x.data_ptr() % 16:
+        x = x.clone()
+    split = cin_split(plan, B, H, W, _sm_count(x.device.index or 0))
     out = torch.empty((B, H, W, cout), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _lib()(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                     bias.data_ptr(), out.data_ptr(), B, H, W, cin, cout,
-                     w_q.shape[0], _X_KIND[x.dtype],
-                     0.0 if inv_sx is None else float(inv_sx), _ACT[act],
-                     _OUT_KIND[out_dtype],
-                     0.0 if inv_s_out is None else float(inv_s_out), stream)
+        err = _lib()(x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
+                     bias.data_ptr(), out.data_ptr(), B, H, W, cin, x.shape[-1], cout, k,
+                     _X_KIND[x.dtype], 0.0 if inv_sx is None else float(inv_sx), _ACT[act],
+                     _OUT_KIND[out_dtype], 0.0 if inv_s_out is None else float(inv_s_out),
+                     plan.bn, int(plan.fold), plan.kf, split, stream)
     if err != 0:
         raise RuntimeError(f"fused_qconv kernel launch failed: cudaError {err}")
     fused_qconv.launches += 1
@@ -134,8 +243,10 @@ def fused_qconv(x, w_q, scale, bias, *, inv_sx: Optional[float],
 
 fused_qconv.launches = 0           # kernel launches (CUDA tensors only)
 fused_qconv.int8_out_launches = 0  # of which emitted int8 lattice points
+fused_qconv.weight_packs = 0       # calls that had to pack w_q themselves
 
 
 def reset_counts() -> None:
     fused_qconv.launches = 0
     fused_qconv.int8_out_launches = 0
+    fused_qconv.weight_packs = 0

@@ -30,7 +30,9 @@ from cvm_tpu_torch.infer.quantize import (ChainedResBlock, FusedConvBN,
 from cvm_tpu_torch.models import layers as tl
 from cvm_tpu_torch.models.centernet.model import create_model
 from cvm_tpu_torch.models.centernet.params import CenternetParams
-from cvm_tpu_torch.ops.cuda.fused_qconv import fused_qconv
+from cvm_tpu_torch.ops.cuda.fused_qconv import (cin_split, fused_qconv, fused_qconv_reference,
+                                                pack_qconv_weights, packed_numel, qconv_plan,
+                                                unpack_qconv_weights)
 
 from test_torch_model import assert_bf16_close, random_bn_stats
 
@@ -219,3 +221,87 @@ def test_pipeline_refusals(tiny32):
         InferencePipeline(p, tm, "cpu", w8a8_chain=True)
     with pytest.raises(ValueError, match="no module matched"):
         InferencePipeline(p, tm, "cpu", w8a8={"nothing.conv": 0.1}, w8a8_fused=True)
+
+
+# (k, B, H, W, Cin, Cout): the card tests' shapes (1x1, ragged W, Cout 256,
+# W = 1, folded stems with Cin 8 / 12, ragged Cin 40 and Cout 72) and
+# config-B-like calls at a small map (the stem fold, Cout 512, Cin 768).
+PACK_SHAPES = [
+    (1, 2, 8, 16, 32, 64), (3, 2, 16, 20, 32, 64), (3, 1, 32, 48, 16, 256),
+    (3, 1, 8, 96, 8, 32), (3, 2, 2, 1, 16, 32), (3, 2, 9, 13, 12, 24), (1, 1, 5, 7, 40, 72),
+    (3, 1, 16, 16, 12, 32), (3, 1, 4, 4, 512, 512), (3, 1, 4, 8, 768, 128),
+]
+
+
+def _conv_from_image(q, image, k, cin, cout):
+    """The kernel's loop in plain PyTorch, reading weights only from the
+    packed image: per Cout tile, per Cin chunk and per tap a (bn, 32) K-major
+    slab times the shifted input window; folded, one im2col product."""
+    p = qconv_plan(k, cin, cout)
+    B, H, W, _ = q.shape
+    acc = torch.zeros(B, H, W, p.ntiles * p.bn, dtype=torch.float64)
+    xp = torch.nn.functional.pad(q.double(), (0, p.nch * 32 - cin, k // 2, k // 2, k // 2, k // 2))
+    if p.fold:
+        cols = torch.cat([xp[:, dy:dy + H, dx:dx + W, :cin] for dy in range(3) for dx in range(3)], -1)
+        cols = torch.nn.functional.pad(cols, (0, p.kf - 9 * cin))
+        img = image.view(p.ntiles, p.kf // 16, p.bn, 16).double()
+        for t in range(p.ntiles):
+            acc[..., t * p.bn:(t + 1) * p.bn] = cols @ img[t].permute(1, 0, 2).reshape(p.bn, p.kf).T
+    else:
+        img = image.view(p.ntiles, p.nch, k * k, 2, p.bn, 16).double()
+        for t in range(p.ntiles):
+            for c in range(p.nch):
+                for tap in range(k * k):
+                    a = xp[:, tap // k:tap // k + H, tap % k:tap % k + W, 32 * c:32 * c + 32]
+                    bm = img[t, c, tap].permute(1, 0, 2).reshape(p.bn, 32)
+                    acc[..., t * p.bn:(t + 1) * p.bn] += a @ bm.T
+    return acc[..., :cout].float()
+
+
+@pytest.mark.parametrize("shape", PACK_SHAPES)
+def test_packed_weight_image_round_trips(shape):
+    k, _, _, _, cin, cout = shape
+    rng = np.random.default_rng(cin + cout)
+    w = torch.from_numpy(rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8))
+    image = pack_qconv_weights(w)
+    assert image.dtype == torch.int8 and image.dim() == 1
+    assert image.numel() == packed_numel(k, cin, cout) and image.numel() % 128 == 0
+    assert torch.equal(unpack_qconv_weights(image, k, cin, cout), w)
+    # Everything outside the real weights is zero padding.
+    assert int(image.abs().sum()) == int(w.abs().sum())
+
+
+@pytest.mark.parametrize("shape", PACK_SHAPES)
+def test_conv_from_packed_image_matches_plain_version(shape):
+    k, B, H, W, cin, cout = shape
+    rng = np.random.default_rng(k + B + H + W + cin + cout)
+    x = torch.from_numpy(rng.integers(-127, 128, (B, H, W, cin)).astype(np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8))
+    scale = torch.from_numpy((rng.uniform(0.5, 2, (cout,)) * 1e-5).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.1, (cout,)).astype(np.float32))
+    acc = _conv_from_image(x, pack_qconv_weights(w), k, cin, cout)
+    got = acc * scale + bias
+    ref = fused_qconv_reference(x, w, scale, bias, inv_sx=None, act=None, out_dtype=torch.float32)
+    # Integer sums below 2^24 are exact in f32 on both sides.
+    torch.testing.assert_close(got, ref, rtol=0, atol=0)
+
+
+def test_plan_folds_the_stem_and_splits_the_deep_calls():
+    assert qconv_plan(3, 12, 32) == (64, 1, 1, True, 128)     # stem: 9*12 = 108 -> 128
+    assert qconv_plan(3, 16, 32).fold is False                 # 9*16 > 128
+    assert qconv_plan(3, 512, 512)[:3] == (128, 4, 16)
+    sms = 132  # an H100 SXM
+    split = {name: cin_split(qconv_plan(3, cin, cout), 8, hw, hw, sms)
+             for name, hw, cin, cout in [("stem", 256, 12, 32), ("s2", 128, 64, 64),
+                                         ("s4", 32, 256, 256), ("s5", 16, 512, 512),
+                                         ("up0 c1", 32, 768, 128), ("up0 c2", 32, 128, 128)]}
+    assert split == {"stem": 1, "s2": 1, "s4": 1, "s5": 2, "up0 c1": 2, "up0 c2": 2}
+
+
+def test_fused_convbn_packs_its_weights_once(tiny32):
+    _, _, tm, cal = tiny32
+    scales = calibrate_activation_scales(tm, [torch.from_numpy(cal[0])])
+    m = FusedConvBN(tm.backbone.stem, scales["backbone.stem.conv"],
+                    prequantize_fused_weights(tm)["backbone.stem"])
+    assert torch.equal(m.wpack, pack_qconv_weights(m.wq))
+    assert "wpack" in dict(m.named_buffers())  # moves with the module

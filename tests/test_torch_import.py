@@ -1,7 +1,9 @@
-"""cvm_tpu_torch imports, module by module, with JAX and flax blocked.
+"""cvm_tpu_torch imports, module by module, with JAX, flax and the JAX
+package blocked.
 
 The card's machine has no JAX, so the port must never reach it: not
-directly, and not through a reference module whose package imports flax.
+directly, and not through the reference package, not even a module there
+that imports no JAX. The port keeps its own copies of what it needs.
 """
 
 import pkgutil
@@ -15,12 +17,13 @@ _CODE = """
 import sys
 sys.modules["jax"] = None
 sys.modules["flax"] = None
+sys.modules["cvm_tpu"] = None
 import importlib, pkgutil
 import cvm_tpu_torch
 names = sorted(m.name for m in pkgutil.walk_packages(cvm_tpu_torch.__path__, "cvm_tpu_torch."))
 for n in names:
     importlib.import_module(n)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "cvm_tpu")
              and sys.modules[m] is not None)
 assert not bad, bad
 print(len(names))
@@ -42,11 +45,11 @@ def test_every_module_imports_with_jax_blocked():
             "cvm_tpu_torch.ops.cuda.gaussian_splat"} <= set(_module_names())
 
 
-def test_no_source_file_names_jax_or_flax():
+def test_no_source_file_imports_jax_flax_or_the_jax_package():
     pkg = Path(cvm_tpu_torch.__file__).resolve().parent
-    for f in sorted(pkg.rglob("*.py")):
+    for f in sorted(pkg.rglob("*.py")) + [pkg.parent / "chip_smoke.py"]:
         for line in f.read_text().splitlines():
             words = line.replace(",", " ").split()
             if words[:1] in (["import"], ["from"]):
                 roots = {w.split(".")[0] for w in words[1:2]}
-                assert not roots & {"jax", "jaxlib", "flax"}, f"{f}: {line}"
+                assert not roots & {"jax", "jaxlib", "flax", "cvm_tpu"}, f"{f}: {line}"

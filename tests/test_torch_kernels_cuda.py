@@ -10,7 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from cvm_tpu_torch.ops.cuda.fused_qconv import fused_qconv, fused_qconv_reference
+from cvm_tpu_torch.ops.cuda.fused_qconv import (cin_split, fused_qconv, fused_qconv_reference,
+                                                pack_qconv_weights, qconv_plan)
 from cvm_tpu_torch.ops.cuda.gaussian_splat import render_heatmap, render_heatmap_reference
 from cvm_tpu_torch.ops.heatmap import prepare_centers
 
@@ -57,12 +58,8 @@ SHAPES = [
 MODES = ["f32_out", "bf16_out", "int8_in", "int8_out", "bf16_in"]
 
 
-@pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("shape", SHAPES)
-def test_fused_qconv_kernel_matches_plain(cuda_device, shape, mode):
+def _run_case(dev, shape, mode, rng, packed=False):
     k, B, H, W, cin, cout, act = shape
-    rng = np.random.default_rng(k * 1000 + cout + cin)
-    dev = cuda_device
     if mode == "int8_in":
         x = torch.from_numpy(rng.integers(-127, 128, (B, H, W, cin)).astype(np.int8))
         inv_sx = None
@@ -81,12 +78,63 @@ def test_fused_qconv_kernel_matches_plain(cuda_device, shape, mode):
         y = fused_qconv_reference(*args, inv_sx=inv_sx, act=act, out_dtype=torch.float32)
         inv_s_out = 127.0 / float(y.abs().max())
     kw = dict(inv_sx=inv_sx, act=act, out_dtype=out_dtype, inv_s_out=inv_s_out)
-    n0 = fused_qconv.launches
-    got = fused_qconv(*args, **kw)
+    n0, p0 = fused_qconv.launches, fused_qconv.weight_packs
+    w_packed = pack_qconv_weights(args[1]) if packed else None
+    got = fused_qconv(*args, **kw, w_packed=w_packed)
     torch.cuda.synchronize()
     assert fused_qconv.launches == n0 + 1
+    assert fused_qconv.weight_packs == p0 + (0 if packed else 1)
     ref = fused_qconv_reference(*args, **kw)
     assert_kernel_close(got, ref)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_qconv_kernel_matches_plain(cuda_device, shape, mode):
+    k, B, H, W, cin, cout, act = shape
+    _run_case(cuda_device, shape, mode, np.random.default_rng(k * 1000 + cout + cin))
+
+
+# The 16 config-B calls of one int8 forward (B 8, 3x3): name -> (H = W, Cin,
+# Cout, mode, act), mode as the main path runs them.
+MAIN = {
+    "stem": (256, 12, 32, "bf16_in", "silu"), "s2_c1": (128, 64, 64, "int8_out", "silu"),
+    "s2_c2": (128, 64, 64, "int8_in", None), "s3_c1": (64, 128, 128, "int8_out", "silu"),
+    "s3_c2": (64, 128, 128, "int8_in", None), "s4_c1": (32, 256, 256, "int8_out", "silu"),
+    "s4_c2": (32, 256, 256, "int8_in", None), "s5_c1": (16, 512, 512, "int8_out", "silu"),
+    "s5_c2": (16, 512, 512, "int8_in", None), "up0_c1": (32, 768, 128, "bf16_in", "silu"),
+    "up0_c2": (32, 128, 128, "bf16_in", "silu"), "up1_c1": (64, 256, 128, "bf16_in", "silu"),
+    "up1_c2": (64, 128, 128, "bf16_in", "silu"), "up2_c1": (128, 192, 128, "bf16_in", "silu"),
+    "up2_c2": (128, 128, 128, "bf16_in", "silu"), "head_c1": (128, 128, 64, "bf16_in", "silu"),
+}
+
+
+@pytest.mark.parametrize("name", list(MAIN))
+def test_fused_qconv_kernel_main_path_shapes(cuda_device, name):
+    hw, cin, cout, mode, act = MAIN[name]
+    _run_case(cuda_device, (3, 8, hw, hw, cin, cout, act), mode,
+              np.random.default_rng(len(name) + cin), packed=True)
+
+
+# One case per special path: the folded stem taps, the Cin split over a
+# cluster, Cout 512 (four Cout tiles), W not a multiple of the 8-wide tile.
+SPECIAL = {
+    "stem_fold": ((3, 2, 40, 24, 12, 32, "silu"), "int8_out"),
+    "cin_split": ((3, 1, 16, 16, 256, 128, None), "bf16_out"),
+    "cout_512": ((3, 1, 16, 24, 64, 512, "relu"), "f32_out"),
+    "w_ragged": ((3, 3, 19, 29, 96, 96, "silu"), "int8_in"),
+}
+
+
+@pytest.mark.parametrize("name", list(SPECIAL))
+def test_fused_qconv_kernel_special_paths(cuda_device, name):
+    shape, mode = SPECIAL[name]
+    k, B, H, W, cin, cout, _ = shape
+    plan = qconv_plan(k, cin, cout)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert {"stem_fold": plan.fold, "cin_split": cin_split(plan, B, H, W, sms) > 1,
+            "cout_512": plan.ntiles == 4, "w_ragged": W % 8 != 0}[name]
+    _run_case(cuda_device, shape, mode, np.random.default_rng(len(name)), packed=True)
 
 
 def splat_case(dev, name):

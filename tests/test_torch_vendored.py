@@ -1,0 +1,85 @@
+"""The port's copies of JAX-free reference modules against the originals.
+
+The port imports nothing of the JAX package, so it carries its own
+``pad_rows`` (``cvm_tpu/utils/batch.py``), ``BaseParams`` / ``parse_hw``
+(``cvm_tpu/utils/config.py``) and the RGB path of ``synthetic_batch``
+(``cvm_tpu/data/synthetic.py``). Each must give exactly what its original
+gives: the same arrays from the same generator, the same config JSON.
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+from cvm_tpu.data.synthetic import synthetic_batch as j_synthetic_batch
+from cvm_tpu.models.centernet.params import CenternetParams as JCenternetParams
+from cvm_tpu.utils.batch import pad_rows as j_pad_rows
+from cvm_tpu.utils.config import parse_hw as j_parse_hw
+from cvm_tpu_torch.data.synthetic import SyntheticIterator, synthetic_batch
+from cvm_tpu_torch.models.centernet.params import CenternetParams
+from cvm_tpu_torch.utils.batch import pad_rows
+from cvm_tpu_torch.utils.config import parse_hw
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("pad_hw,num_classes,max_objects", [((80, 96), 3, 8),
+                                                             ((128, 128), 10, 16)])
+def test_synthetic_batch_identical(seed, pad_hw, num_classes, max_objects):
+    ref = j_synthetic_batch(np.random.default_rng(seed), 3, pad_hw, num_classes, max_objects)
+    rng = np.random.default_rng(seed)
+    got = synthetic_batch(rng, 3, pad_hw, num_classes, max_objects)
+    assert set(got) == set(ref)
+    for k in ref:
+        assert got[k].dtype == ref[k].dtype, k
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    # The generator ends where the reference's does: the next draw agrees.
+    j_rng = np.random.default_rng(seed)
+    j_synthetic_batch(j_rng, 3, pad_hw, num_classes, max_objects)
+    assert rng.integers(1 << 30) == j_rng.integers(1 << 30)
+
+
+def test_synthetic_iterator_is_the_reference_stream():
+    it = SyntheticIterator(5, 2, (64, 64), num_classes=3, max_objects=4)
+    rng = np.random.default_rng(5)
+    for _ in range(2):
+        got, ref = next(it), j_synthetic_batch(rng, 2, (64, 64), 3, 4)
+        np.testing.assert_array_equal(got["image"], ref["image"])
+        np.testing.assert_array_equal(got["boxes"], ref["boxes"])
+
+
+CLI = ["--input_hw", "256,320", "--num_classes", "10", "--ema_decay", "0.999",
+       "--aug_scale_range", "0.5,1.5", "--space_to_depth_stem", "false",
+       "--optimizer", "sgd", "--warmup_steps", "7"]
+
+
+@pytest.mark.parametrize("argv", [[], CLI], ids=["defaults", "overrides"])
+def test_config_round_trips_like_the_reference(argv):
+    got, ref = CenternetParams.from_cli(argv), JCenternetParams.from_cli(argv)
+    assert got.to_json() == ref.to_json()
+    d = json.loads(ref.to_json())
+    assert CenternetParams.from_dict(d) == got
+    assert JCenternetParams.from_dict(json.loads(got.to_json())) == ref
+    assert got.replace(batch_size=3).to_dict() == ref.replace(batch_size=3).to_dict()
+
+
+def test_parse_hw_identical():
+    assert parse_hw("12,34", "--pad_hw") == j_parse_hw("12,34", "--pad_hw") == (12, 34)
+    for bad in ("12", "a,b", "0,4"):
+        with pytest.raises(SystemExit) as e1:
+            parse_hw(bad, "--pad_hw")
+        with pytest.raises(SystemExit) as e2:
+            j_parse_hw(bad, "--pad_hw")
+        assert str(e1.value) == str(e2.value)
+
+
+def test_pad_rows_identical():
+    rng = np.random.default_rng(0)
+    arrays = [rng.normal(size=(3, 4)).astype(np.float32),
+              rng.integers(0, 9, (3, 2, 2)).astype(np.int32), [[1, 2], [3, 4], [5, 6]]]
+    for total in (3, 5):
+        for g, r in zip(pad_rows(arrays, total), j_pad_rows(arrays, total)):
+            assert g.dtype == r.dtype
+            np.testing.assert_array_equal(g, r)
+    with pytest.raises(ValueError, match="more than the static"):
+        pad_rows(arrays, 2)
