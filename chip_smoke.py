@@ -25,8 +25,10 @@ through ``cvm_tpu_torch.cli.train``:
   5. a DynamicBatcher over the int8 pipeline answering 16 threaded requests;
   6. median batch-8 latency of both postures;
   7. the Gaussian splat kernel K1 vs its plain version at the flagship
-     training shape, config B's default shape and five edge cases, with
-     its device time beside its bound and the plain version's time;
+     training shape, config B's default shape and twelve edge cases, each
+     output block poisoned with NaN first; one call at the flagship shape
+     runs exactly one device kernel (torch.profiler); its device time
+     beside its bound and the plain version's time;
   8. training through ``cli.train.main``: 30 steps with a checkpoint at
      step 20 (finite, falling loss, one K1 launch per step), then a second
      call that resumes from step 20 to 40; median ms per step;
@@ -328,41 +330,78 @@ def splat_cases(dev):
     rng = np.random.default_rng(7)
     cases = []
     # flagship training (B16, K8 boxes, 128^2 map, 10 classes); config B
-    # default (B8, K128, 128^2, 80 classes)
-    for name, (b, k, hs, c) in (("flagship", (16, 8, 128, 10)), ("config-B", (8, 128, 128, 80))):
-        x0, y0 = rng.uniform(-8, hs, (2, b, k)).astype(np.float32)
-        w, h = rng.uniform(1, 96, (2, b, k)).astype(np.float32)
+    # default (B8, K128, 128^2, 80 classes); then a non-square map, a row
+    # length Ws*C not a multiple of 4 floats, no objects at all, all objects
+    # invalid, rows wider than a tile (flat chunks)
+    for name, (b, k, hs, ws, c) in (("flagship", (16, 8, 128, 128, 10)),
+                                    ("config-B", (8, 128, 128, 128, 80)),
+                                    ("24x40", (2, 6, 24, 40, 3)), ("ragged", (3, 7, 13, 17, 5)),
+                                    ("K=0", (2, 0, 32, 32, 3)),
+                                    ("all-invalid", (4, 16, 128, 128, 10)),
+                                    ("wide-row", (1, 6, 8, 1024, 80))):
+        x0 = rng.uniform(-8, ws, (b, k)).astype(np.float32)
+        y0 = rng.uniform(-8, hs, (b, k)).astype(np.float32)
+        w = rng.uniform(1, min(96, ws + 2), (b, k)).astype(np.float32)
+        h = rng.uniform(1, min(96, hs + 2), (b, k)).astype(np.float32)
         boxes = np.stack([x0, y0, x0 + w, y0 + h], -1)
         valid = np.arange(k)[None] < rng.integers(0, k + 1, (b, 1))
-        cases.append((name, boxes, valid, rng.integers(0, c, (b, k)), 128, c))
+        if name in ("24x40", "ragged", "wide-row"):
+            valid = rng.uniform(size=(b, k)) < 0.8
+        cls = rng.integers(0, c, (b, k))
+        cases.append((name, boxes, valid & (name != "all-invalid"), cls, (hs, ws), c))
+    half = rng.uniform(0.2, 4, (2, 3, 1)).astype(np.float32)   # 1x1 map, one class
+    cases.append(("1x1 C1", np.concatenate([0.5 - half, 0.5 - half, 0.5 + half, 0.5 + half], -1),
+                  np.ones((2, 3), bool), np.zeros((2, 3), int), (1, 1), 1))
     edge = {  # one image, 32^2 map, 3 classes: boxes (map coords), classes
         "no-valid": ([[4, 4, 12, 12], [20, 2, 30, 9]], [0, 1]),
         "border": ([[-12, -12, 13, 13], [14, 18, 49, 45], [-10, 20, 11, 40]], [0, 1, 2]),
         "radius-0": ([[10, 10, 11.5, 11.5], [3, 20, 4, 21]], [0, 1]),
         "overlap": ([[6, 6, 22, 20], [9, 8, 25, 24]], [1, 1]),
         "class=C": ([[6, 6, 22, 20], [9, 8, 25, 24]], [3, 3]),
+        # a box 40 maps wide centred in the map: its radius exceeds the map
+        "radius>map": ([[-624, -624, 656, 656], [3, 20, 9, 27]], [0, 1]),
     }
     for name, (boxes, cls) in edge.items():
         valid = np.full((1, len(cls)), name != "no-valid")
-        cases.append((name, np.asarray([boxes], np.float32), valid, np.asarray([cls]), 32, 3))
+        cases.append((name, np.asarray([boxes], np.float32), valid, np.asarray([cls]), (32, 32), 3))
     out = []
-    for name, boxes, valid, cls, hs, c in cases:
+    for name, boxes, valid, cls, map_hw, c in cases:
         _, _, _, _, v, ix, iy, radius, sigma = prepare_centers(
-            torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev), (hs, hs), 0.7)
-        cls_t = torch.from_numpy(np.asarray(cls, np.int32)).to(dev)
-        out.append((name, (iy, ix, sigma, radius, cls_t, v), (hs, hs), c))
+            torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev), map_hw, 0.7)
+        cls_t = torch.from_numpy(np.asarray(cls, np.int32).reshape(valid.shape)).to(dev)
+        out.append((name, (iy, ix, sigma, radius, cls_t, v), map_hw, c))
     return out
 
 
+def device_kernels(fn):
+    """Names of the device kernels one ``fn()`` runs (torch.profiler, CUDA
+    activity), with ``fn`` run once before to build and warm it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def phase_splat(dev):
-    """K1 against its plain version; times at the flagship and config-B shapes."""
+    """K1 against its plain version, each output block first poisoned with
+    NaN (the kernel's output comes from torch.empty and must be written
+    whole); one call at the flagship shape runs one device kernel; times at
+    the flagship and config-B shapes."""
     import torch
 
-    from cvm_tpu_torch.ops.cuda.gaussian_splat import render_heatmap, render_heatmap_reference
+    from cvm_tpu_torch.ops.cuda.gaussian_splat import (render_heatmap, render_heatmap_reference,
+                                                       splat_plan)
 
     log("[splat] tolerance vs plain: max |kernel - plain| <= 1e-6 (values in [0, 1])")
     worst, failures, times = 0.0, [], {}
     for name, args, map_hw, c in splat_cases(dev):
+        B = args[0].shape[0]
+        torch.full((B, *map_hw, c), float("nan"), device=dev)  # freed at once, then reused
         got = render_heatmap(*args, map_hw, c)
         torch.cuda.synchronize()
         ref = render_heatmap_reference(*args, map_hw, c)
@@ -371,9 +410,17 @@ def phase_splat(dev):
         ok = got.shape == ref.shape and err <= 1e-6
         if name == "class=C":
             ok = ok and bool(args[5].all()) and float(got.abs().sum()) == 0.0
-        if name == "no-valid":
+        if name in ("no-valid", "K=0", "all-invalid"):
             ok = ok and float(got.abs().sum()) == 0.0
+        if name == "radius>map":
+            ok = ok and float(args[3][0, 0]) > max(map_hw) and bool((got[0, ..., 0] > 0).all())
         note = ""
+        if name == "flagship":
+            kernels = device_kernels(lambda: render_heatmap(*args, map_hw, c))
+            log(f"[splat] one render_heatmap call at the flagship shape runs {len(kernels)} "
+                f"device kernel(s): {kernels}")
+            if len(kernels) != 1 or "splat" not in kernels[0]:
+                failures.append(f"expected one device kernel, the splat; got {kernels}")
         if name in ("flagship", "config-B"):
             t_k = cuda_ms(lambda: render_heatmap(*args, map_hw, c))
             t_p = cuda_ms(lambda: render_heatmap_reference(*args, map_hw, c))
@@ -387,9 +434,11 @@ def phase_splat(dev):
             bound = max(nbytes / 3.35e12, ops / 67e12) * 1e3
             if name == "flagship":
                 times["bound_ms"] = bound
-            note = (f"; kernel {t_k:.4f} ms (zero fill included), bound {bound * 1e3:.1f} us "
+            plan = splat_plan(B, *map_hw, c)
+            note = (f"; kernel {t_k:.4f} ms (one kernel, no fill; {plan.blocks} blocks of "
+                    f"{plan.rows} rows, {plan.smem_bytes} B shared), bound {bound * 1e3:.1f} us "
                     f"(bytes; {bound / t_k:.1%} of it), plain {t_p:.4f} ms, library: none")
-        log(f"[splat] {name:9s} B{args[0].shape[0]} K{args[0].shape[1]} {map_hw[0]}^2 C{c} "
+        log(f"[splat] {name:11s} B{B} K{args[0].shape[1]} {map_hw[0]}x{map_hw[1]} C{c} "
             f"valid {int(args[5].sum())}: {'ok' if ok else 'FAIL'} err={err:.3g}{note}")
         if not ok:
             failures.append(f"{name}: {err}")

@@ -14,14 +14,64 @@ takes the plain version, ``render_heatmap_reference`` (the reference's
 (K, Hs, Ws) lattice and a per-class max), only for CPU tensors. A CUDA
 tensor never reaches the plain version through the wrapper: a tensor the
 kernel does not take raises, and so does a failed build or launch.
+
+The kernel writes every element of the map once, from tiles zeroed and
+splatted in shared memory, so the output comes from ``torch.empty``.
+``splat_plan`` picks the tiles: bands of whole rows, or flat chunks where
+one row is wider than a tile.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
+
+
+# Kernel constants (csrc/gaussian_splat.cu): objects culled per pass and the
+# bytes of one culled object in shared memory (struct Obj).
+_KERNEL_OBJS = 128
+_OBJ_BYTES = 44
+# Tiling: a tile of several rows holds at most TILE_BYTES; a row up to
+# ROW_BYTES_MAX is one tile of its own (dynamic shared memory above 48 KB);
+# a wider row is cut into flat chunks of TILE_BYTES. Bands stay thin enough
+# that the grid has MIN_BLOCKS blocks (two per SM of an H100) where the map
+# has that many rows.
+TILE_BYTES = 24 * 1024
+ROW_BYTES_MAX = 160 * 1024
+MIN_BLOCKS = 2 * 132
+
+
+class SplatPlan(NamedTuple):
+    """How the kernel tiles a (B, Hs, Ws, C) map: ``chunk`` floats per tile
+    (``rows`` whole rows, or a flat chunk when ``rows`` is 0), ``tiles`` per
+    image (the last may be shorter), one block per tile, ``smem_bytes`` of
+    dynamic shared memory per block."""
+    rows: int
+    chunk: int
+    tiles: int
+    blocks: int
+    smem_bytes: int
+
+
+def splat_plan(B: int, Hs: int, Ws: int, C: int) -> SplatPlan:
+    """The kernel's tiles for a (B, Hs, Ws, C) map: the tallest band
+    within TILE_BYTES that leaves MIN_BLOCKS blocks."""
+    row = Ws * C
+    if 4 * row <= ROW_BYTES_MAX:
+        rows = 1
+        for h in range(2, Hs + 1):
+            if 4 * h * row > TILE_BYTES or B * -(-Hs // h) < MIN_BLOCKS:
+                break
+            rows = h
+        chunk = rows * row
+    else:
+        rows, chunk = 0, TILE_BYTES // 4
+    tiles = -(-Hs * row // chunk)
+    # the tile with up to 3 floats of alignment offset, in whole float4s
+    smem = 4 * ((chunk + 6) // 4 * 4) + _KERNEL_OBJS * _OBJ_BYTES
+    return SplatPlan(rows, chunk, tiles, B * tiles, smem)
 
 
 def _check(iy, ix, sigma, radius, classes, valid, map_hw, num_classes):
@@ -73,7 +123,7 @@ def _lib():
     fn = load_library("gaussian_splat").gaussian_splat_launch
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
         fn.restype = I
     return fn
 
@@ -82,7 +132,8 @@ def render_heatmap(iy, ix, sigma, radius, classes, valid,
                    map_hw: Tuple[int, int], num_classes: int) -> torch.Tensor:
     """iy, ix, classes (B, K) int32; sigma, radius (B, K) float32; valid
     (B, K) bool -> (B, Hs, Ws, C) float32. CPU tensors take the plain
-    version; CUDA tensors the kernel (the zero fill is the wrapper's)."""
+    version; CUDA tensors the kernel, which writes every element of the
+    uninitialised output (an empty batch has none, and launches nothing)."""
     if iy.device.type == "cpu":
         return render_heatmap_reference(iy, ix, sigma, radius, classes, valid,
                                         map_hw, num_classes)
@@ -93,11 +144,17 @@ def render_heatmap(iy, ix, sigma, radius, classes, valid,
     args.append(valid.contiguous().view(torch.uint8))
     B, K = iy.shape
     hs, ws = map_hw
-    out = torch.zeros((B, hs, ws, num_classes), dtype=torch.float32, device=iy.device)
+    if B > 65535 or hs * ws * num_classes >= 2 ** 31:
+        raise ValueError(f"render_heatmap: the kernel takes B <= 65535 and Hs*Ws*C < 2^31, "
+                         f"got B={B}, {hs}x{ws}x{num_classes}")
+    out = torch.empty((B, hs, ws, num_classes), dtype=torch.float32, device=iy.device)
+    if B == 0:
+        return out
+    plan = splat_plan(B, hs, ws, num_classes)
     with torch.cuda.device(iy.device):
         stream = torch.cuda.current_stream(iy.device).cuda_stream
         err = _lib()(*(t.data_ptr() for t in args), out.data_ptr(), B, K, hs, ws,
-                     num_classes, stream)
+                     num_classes, plan.chunk, plan.tiles, plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"gaussian_splat kernel launch failed: cudaError {err}")
     render_heatmap.launches += 1

@@ -139,25 +139,41 @@ def test_fused_qconv_kernel_special_paths(cuda_device, name):
 
 def splat_case(dev, name):
     """Per-object inputs of the Gaussian splat K1 for one named case."""
-    shapes = {"flagship": (16, 8, 128, 10), "config_b": (8, 128, 128, 80)}
+    # name -> (B, K, Hs, Ws, C) of the random cases: the main path's two
+    # shapes, a non-square map, a row length Ws*C that is not a multiple of
+    # 4 floats, a 1x1 map with one class, no objects at all, objects that
+    # are all invalid, and rows wider than a tile (flat chunks)
+    shapes = {"flagship": (16, 8, 128, 128, 10), "config_b": (8, 128, 128, 128, 80),
+              "non_square": (2, 6, 24, 40, 3), "ragged": (3, 7, 13, 17, 5),
+              "one_pixel": (2, 3, 1, 1, 1), "k0": (2, 0, 32, 32, 3),
+              "all_invalid": (4, 16, 128, 128, 10), "wide_row": (1, 6, 8, 1024, 80)}
     rng = np.random.default_rng(len(name))
     if name in shapes:
-        B, K, hs, C = shapes[name]
-        x0 = rng.uniform(-8, hs, (B, K)).astype(np.float32)
+        B, K, hs, ws, C = shapes[name]
+        x0 = rng.uniform(-8, ws, (B, K)).astype(np.float32)
         y0 = rng.uniform(-8, hs, (B, K)).astype(np.float32)
-        w = rng.uniform(1, 96, (B, K)).astype(np.float32)
-        h = rng.uniform(1, 96, (B, K)).astype(np.float32)
+        w = rng.uniform(1, min(96, ws + 2), (B, K)).astype(np.float32)
+        h = rng.uniform(1, min(96, hs + 2), (B, K)).astype(np.float32)
         boxes = np.stack([x0, y0, x0 + w, y0 + h], -1)
         valid = np.arange(K)[None] < rng.integers(0, K + 1, (B, 1))
+        if name in ("ragged", "one_pixel", "wide_row"):
+            valid = rng.uniform(size=(B, K)) < 0.8
+        if name == "all_invalid":
+            valid = np.zeros((B, K), bool)
+        if name == "one_pixel":  # boxes of several sizes around the one pixel
+            half = rng.uniform(0.2, 4, (B, K, 1)).astype(np.float32)
+            boxes = np.concatenate([0.5 - half, 0.5 - half, 0.5 + half, 0.5 + half], -1)
         cls = rng.integers(0, C, (B, K))
     else:
-        hs, C = 32, 3
+        hs, ws, C = 32, 32, 3
         boxes = {  # (x0, y0, x1, y1) per object, map coords
             "empty": [[4, 4, 12, 12], [20, 2, 30, 9]],
             "border": [[-12, -12, 13, 13], [14, 18, 49, 45], [-10, 20, 11, 40]],
             "radius0": [[10, 10, 11.5, 11.5], [3, 20, 4, 21]],
             "overlap": [[6, 6, 22, 20], [9, 8, 25, 24]],
             "class_c": [[6, 6, 22, 20], [9, 8, 25, 24]],
+            # a box 40 maps wide centred in the map: its radius exceeds the map
+            "huge_radius": [[-624, -624, 656, 656], [3, 20, 9, 27]],
         }[name]
         boxes = np.asarray([boxes], np.float32)
         K = boxes.shape[1]
@@ -165,12 +181,14 @@ def splat_case(dev, name):
         cls = {"class_c": [[C, -1]], "overlap": [[1, 1]]}.get(name, [list(range(K))])
         cls = np.asarray(cls) % (C + 2) if name != "class_c" else np.asarray(cls)
     _, _, _, _, v, ix, iy, radius, sigma = prepare_centers(
-        torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev), (hs, hs), 0.7)
-    cls = torch.from_numpy(np.asarray(cls, np.int32)).to(dev)
-    return (iy, ix, sigma, radius, cls, v), (hs, hs), C
+        torch.from_numpy(boxes).to(dev), torch.from_numpy(valid).to(dev), (hs, ws), 0.7)
+    cls = torch.from_numpy(np.asarray(cls, np.int32).reshape(boxes.shape[:2])).to(dev)
+    return (iy, ix, sigma, radius, cls, v), (hs, ws), C
 
 
-SPLAT_CASES = ["flagship", "config_b", "empty", "border", "radius0", "overlap", "class_c"]
+SPLAT_CASES = ["flagship", "config_b", "empty", "border", "radius0", "overlap", "class_c",
+               "non_square", "ragged", "one_pixel", "k0", "all_invalid", "huge_radius",
+               "wide_row"]
 
 
 @pytest.mark.parametrize("name", SPLAT_CASES)
@@ -185,9 +203,34 @@ def test_gaussian_splat_kernel_matches_plain(cuda_device, name):
     ref = render_heatmap_reference(*args, map_hw, C)
     assert got.shape == ref.shape == (args[0].shape[0], *map_hw, C)
     torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
-    if name == "empty":
+    if name in ("empty", "k0", "all_invalid"):
         assert float(got.abs().sum()) == 0.0
     if name == "class_c":  # both objects carry an out-of-range class: dropped
         assert bool(args[5].all()) and float(got.abs().sum()) == 0.0
     if name == "radius0":
         assert int((got > 0).sum()) == 2 and float(got.max()) == 1.0
+    if name == "huge_radius":
+        assert float(args[3][0, 0]) > max(map_hw) and bool((got[0, ..., 0] > 0).all())
+    if name in ("ragged", "one_pixel", "wide_row", "non_square"):
+        assert float(got.max()) == 1.0
+
+
+@pytest.mark.parametrize("name", ["flagship", "ragged", "wide_row"])
+def test_gaussian_splat_kernel_writes_every_element(cuda_device, name):
+    """The output comes from torch.empty: poison the block the caching
+    allocator will hand back with NaN, free it, and find no NaN after the
+    call."""
+    args, map_hw, C = splat_case(cuda_device, name)
+    render_heatmap(*args, map_hw, C)  # builds the kernel; its output is freed
+    shape = (args[0].shape[0], *map_hw, C)
+    torch.cuda.synchronize()
+    poison = torch.full(shape, float("nan"), device=cuda_device)
+    ptr = poison.data_ptr()
+    del poison
+    got = render_heatmap(*args, map_hw, C)
+    torch.cuda.synchronize()
+    if got.data_ptr() != ptr:
+        pytest.skip("the caching allocator did not hand the poisoned block back")
+    assert not bool(torch.isnan(got).any())
+    torch.testing.assert_close(got, render_heatmap_reference(*args, map_hw, C),
+                               rtol=0, atol=1e-6)
