@@ -5,9 +5,10 @@ Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
 hand-written kernels from ``cvm_tpu_torch/csrc`` and drives the port's two
 slices with random seeded weights: serving CenterNet config B (512x512,
 ``small`` backbone with the space-to-depth stem, stride 4, 80 classes,
-batch 8, planar YUV420 padded to 768x768), and training the same model on
+batch 8, planar YUV420 padded to 768x768), training the same model on
 the flagship synthetic recipe (10 classes, batch 16, 512x512 padding)
-through ``cvm_tpu_torch.cli.train``:
+through ``cvm_tpu_torch.cli.train``, and evaluating it (with evals during
+training, then ``cvm_tpu_torch.cli.evaluate`` in four postures):
 
   1. card, versions, both kernel builds (one nvcc each, started together);
   2. the fused W8A8 ConvBN kernel K2 vs its plain PyTorch version at every
@@ -32,7 +33,17 @@ through ``cvm_tpu_torch.cli.train``:
   8. training through ``cli.train.main``: 30 steps with a checkpoint at
      step 20 (finite, falling loss, one K1 launch per step), then a second
      call that resumes from step 20 to 40; median ms per step;
-  9. the trained model served (BN folded) for one batch-8 request.
+  9. the trained model served (BN folded) for one batch-8 request;
+ 10. training with evaluation through ``cli.train.main``: 20 steps with an
+     eval every 10 (2 batches of 16), ``--keep_best mAP --early_stop 1``
+     (one K1 launch per step, ``val_mAP`` at steps 10 and 20, a best
+     checkpoint on disk); seconds per eval;
+ 11. ``cli.evaluate.main`` on that workdir at batch 16 and 512^2 padding,
+     2 batches, in four postures: fp, ``--fold_bn``, ``--quantize
+     w8a8_fused_chain`` (24 K2 launches per forward, 7 int8-out, no weight
+     packs) and ``--tta hflip``; then the int8 posture at batch 16 through
+     K2 and through its plain version (heads and mAP), and the eval layer's
+     host and device ms per batch.
 
 Device times come from CUDA events around 20 back-to-back calls while the
 card first sleeps through the host's enqueueing (``cuda_ms``). Any failure
@@ -68,6 +79,15 @@ TRAIN_FLAGS = ["--model", "centernet", "--data", "synthetic", "--pad_hw", "512,5
                "--checkpoint_every", "20", "--log_every", "1", "--num_classes", "10",
                "--max_objects", "16", "--batch_size", "16", "--warmup_steps", "5",
                "--total_steps", "5000", "--seed", "0", "--device", "cuda"]
+
+# Phases 10-11: evals during training, then cli.evaluate on that workdir.
+EVAL_TRAIN_FLAGS = ["--steps", "20", "--eval_every", "10", "--eval_batches", "2",
+                    "--keep_best", "mAP", "--early_stop", "1"]
+EVAL_FLAGS = ["--model", "centernet", "--pad_hw", "512,512", "--batches", "2",
+              "--calib_batches", "1", "--device", "cuda"]
+EVAL_POSTURES = {"fp": [], "fold_bn": ["--fold_bn"],
+                 "w8a8_fused_chain": ["--quantize", "w8a8_fused_chain"],
+                 "tta hflip": ["--tta", "hflip"]}
 
 # The 24 fused_qconv calls of one config-B int8 forward (B = 8, all 3x3):
 # (name, H, W, Cin, Cout, input, output, act, calls per forward).
@@ -227,6 +247,11 @@ def phase_kernels(dev):
         if key not in [s[1:7] for s in shapes]:
             shapes.append((name.split()[0], *key, act))
     shapes += [(f"test{i}", *s) for i, s in enumerate(TEST_SHAPES)]
+    # Batch 16 (phase 11's int8 eval): the folded stem, and s5 / up0 whose
+    # Cin batch 8 splits over a cluster and batch 16 does not.
+    shapes += [("b16 stem", 3, 16, 256, 256, 12, 32, "silu"),
+               ("b16 s5", 3, 16, 16, 16, 512, 512, "silu"),
+               ("b16 up0", 3, 16, 32, 32, 768, 128, "silu")]
     log("[kernel] tolerance vs plain: f32 out |d| <= 1e-4*|ref| + 1e-4; bf16 out "
         "|d| <= 2^-7*|ref| + 1e-5; int8 out |d| <= 1 lattice step on <= 0.1% of outputs")
     worst, failures = 0.0, []
@@ -536,6 +561,136 @@ def phase_serve_trained(dev, workdir):
         f"scores > {cfg.score_threshold}: {int((out['scores'] > cfg.score_threshold).sum())}")
 
 
+def phase_train_eval(workdir, smi):
+    """The flagship recipe with evals: 20 steps, an eval every 10."""
+    import torch
+
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+    from cvm_tpu_torch.train.checkpoints import CheckpointManager
+
+    t0 = time.perf_counter()
+    gs.reset_counts()
+    train_main(TRAIN_FLAGS + EVAL_TRAIN_FLAGS + ["--workdir", workdir])  # main path, eval slice
+    torch.cuda.synchronize()
+    launches = gs.render_heatmap.launches
+    evals = [r for r in read_metrics(os.path.join(workdir, "metrics.jsonl")) if "val_mAP" in r]
+    with open(os.path.join(workdir, "best", "best.json")) as f:
+        best = json.load(f)
+    on_disk = CheckpointManager(os.path.join(workdir, "best")).all_steps()
+    log(f"[train-eval] 20 steps with 2 evals on {smi} in {time.perf_counter() - t0:.1f} s: "
+        f"{launches} K1 launches; " + "; ".join(
+            f"step {r['step']}: val_mAP {r['val_mAP']:.4f}, mAP50 {r['val_mAP50']:.4f}, "
+            f"{r['eval_seconds']:.2f} s" for r in evals)
+        + f"; best.json {best}, best checkpoint steps on disk {on_disk}")
+    if launches != 20:
+        raise AssertionError(f"expected one K1 launch per step (20), got {launches}")
+    if [r["step"] for r in evals] != [10, 20]:
+        raise AssertionError(f"expected val_mAP at steps 10 and 20, got {[r['step'] for r in evals]}")
+    for r in evals:
+        if not all(np.isfinite(r[k]) and 0.0 <= r[k] <= 1.0
+                   for k in ("val_mAP", "val_mAP50", "val_mAP75")):
+            raise AssertionError(f"eval metrics not finite in [0, 1]: {r}")
+    if best["metric"] != "mAP" or on_disk != [best["step"]]:
+        raise AssertionError(f"best.json {best} does not name the step on disk {on_disk}")
+
+
+def phase_evaluate(dev, workdir, smi):
+    """cli.evaluate in four postures at batch 16; then the int8 posture
+    through K2 and through its plain version, and the eval layer's times."""
+    import torch
+
+    from cvm_tpu_torch.cli.evaluate import main as eval_main
+    from cvm_tpu_torch.data.synthetic import synthetic_batch
+    from cvm_tpu_torch.infer import quantize as qz
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+    from cvm_tpu_torch.pipeline.preprocess import preprocess_image_batch
+    from cvm_tpu_torch.train.checkpoints import load_params_cfg
+    from cvm_tpu_torch.train.evaluate import evaluate_model
+    from cvm_tpu_torch.train.loop import Trainer
+
+    maps, launches = {}, 0
+    for name, extra in EVAL_POSTURES.items():
+        out = os.path.join(workdir, f"eval_{name.replace(' ', '_')}.json")
+        fq.reset_counts()
+        t0 = time.perf_counter()
+        eval_main(EVAL_FLAGS + ["--workdir", workdir, "--json_out", out] + extra)  # main path
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = (fq.fused_qconv.launches, fq.fused_qconv.int8_out_launches,
+                  fq.fused_qconv.weight_packs)
+        with open(out) as f:
+            m = json.load(f)
+        maps[name] = m["mAP"]
+        log(f"[evaluate] {name:16s} step {m['step']}: mAP {m['mAP']:.4f}, mAP50 {m['mAP50']:.4f}, "
+            f"mAP75 {m['mAP75']:.4f}; {seconds:.2f} s for the call (2 batches of 16), K2 "
+            f"launches / int8-out / weight packs {counts}")
+        if not all(np.isfinite(m[k]) and 0.0 <= m[k] <= 1.0 for k in ("mAP", "mAP50", "mAP75")):
+            raise AssertionError(f"{name}: eval metrics not finite in [0, 1]: {m}")
+        want = (48, 14, 0) if name == "w8a8_fused_chain" else (0, 0, 0)
+        if counts != want:
+            raise AssertionError(f"{name}: expected K2 launches / int8-out / packs {want} "
+                                 f"(24 / 7 / 0 per int8 forward), got {counts}")
+        launches += counts[0]
+
+    # The int8 posture at batch 16, kernel vs plain, on the same weights,
+    # scales and scenes.
+    ckdir = os.path.join(workdir, "checkpoints")
+    cfg = load_params_cfg(ckdir, CenternetParams)
+    trainer = Trainer(cfg, dev, checkpoint_dir=ckdir)
+    trainer.init_state()
+    model = trainer.eval_model()
+    cal = synthetic_batch(np.random.default_rng(0), cfg.batch_size, (512, 512), num_classes=10)
+    proc_cal, _ = preprocess_image_batch(torch.from_numpy(cal["image"]).to(dev),
+                                         torch.from_numpy(cal["image_hw"]).to(dev), cfg.input_hw)
+    scales = qz.calibrate_activation_scales(model, [proc_cal])
+    pipe_q = InferencePipeline(cfg, model, dev, input_format="rgb", w8a8=scales,
+                               w8a8_fused=True, w8a8_chain=True)
+    pipe_fp = InferencePipeline(cfg, model, dev, input_format="rgb")
+    rng = np.random.default_rng(999)
+    val = [synthetic_batch(rng, cfg.batch_size, (512, 512), num_classes=10) for _ in range(2)]
+    data = [torch.from_numpy(val[0][k]).to(dev) for k in ("image", "image_hw")]
+    proc, _ = preprocess_image_batch(*data, cfg.input_hw, out_dtype=torch.bfloat16)
+    st_k, st_p, st_fp = {}, {}, {}
+    with torch.no_grad():
+        m_k = evaluate_model("centernet", cfg, None, val, device=dev, predict_fn=pipe_q, stats=st_k)
+        heads_k = pipe_q.heads(proc)
+        real = qz.fused_qconv
+        qz.fused_qconv = lambda *a, w_packed=None, **k: fq.fused_qconv_reference(*a, **k)
+        try:
+            m_p = evaluate_model("centernet", cfg, None, val, device=dev, predict_fn=pipe_q,
+                                 stats=st_p)
+            heads_p = pipe_q.heads(proc)
+        finally:
+            qz.fused_qconv = real
+        evaluate_model("centernet", cfg, None, val, device=dev, predict_fn=pipe_fp, stats=st_fp)
+    d_sig = float((torch.sigmoid(heads_k["heatmap"]) - torch.sigmoid(heads_p["heatmap"]))
+                  .abs().mean())
+    d_map = abs(m_k["mAP"] - m_p["mAP"])
+    log(f"[evaluate] int8 posture at batch 16, kernel vs plain: mean |d sigmoid(hm)| = "
+        f"{d_sig:.3e} (bound 1e-3), mAP {m_k['mAP']:.4f} vs {m_p['mAP']:.4f} (|d| {d_map:.4f}, "
+        f"bound 0.005)")
+    if not d_sig < 1e-3:
+        raise AssertionError(f"int8 posture at batch 16: kernel vs plain heads differ: {d_sig}")
+    if not d_map <= 0.005:
+        raise AssertionError(f"int8 posture at batch 16: kernel vs plain mAP differ: {d_map}")
+    # The eval layer: host ms per batch in the pipeline (transfers and the
+    # sync of the results included) and in the evaluator; device ms per
+    # batch of predict on resident inputs.
+    dev_fp = cuda_ms(lambda: pipe_fp.predict(*data), reps=10)
+    dev_q = cuda_ms(lambda: pipe_q.predict(*data), reps=10)
+    for name, st, d in (("fp", st_fp, dev_fp), ("w8a8_fused_chain", st_k, dev_q)):
+        n = st["batches"]
+        tot = st["predict_s"] + st["evaluator_s"]
+        log(f"[eval-layer] {name:16s} batch 16 on {smi}: evaluate_model host "
+            f"{1e3 * tot / n:.3f} ms/batch (pipeline {1e3 * st['predict_s'] / n:.3f}, evaluator "
+            f"{1e3 * st['evaluator_s'] / n:.3f}: {st['evaluator_s'] / tot:.1%}), device "
+            f"{d:.3f} ms/batch (predict, inputs resident)")
+    return maps, launches
+
+
 def main() -> int:
     import torch
 
@@ -692,6 +847,16 @@ def main() -> int:
             f"each step ending in a device sync; steps 6-30 of the first call)")
         phase_serve_trained(dev, workdir)
         log(f"[train] phases 8-9 took {time.perf_counter() - t0:.1f} s")
+
+    # Phases 10-11: training with evals, then cli.evaluate on its workdir.
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        phase_train_eval(workdir, smi)
+        log(f"[train-eval] phase 10 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        maps, eval_launches = phase_evaluate(dev, workdir, smi)
+        log(f"[evaluate] phase 11 took {time.perf_counter() - t0:.1f} s: mAP by posture {maps}, "
+            f"{eval_launches} K2 launches")
 
     log(f"[card] {nvidia_smi()}")
     print(json.dumps({"kernels": [{

@@ -1,0 +1,224 @@
+"""Standalone evaluation: ``python -m cvm_tpu_torch.cli.evaluate --model
+centernet --workdir D [--device cuda]``.
+
+Mirrors ``cvm_tpu/cli/evaluate.py`` (``_build_val``, ``_emit``, ``main``)
+for a checkpoint: it loads the newest checkpoint of ``<workdir>/checkpoints``
+(or ``--checkpoint_dir``, e.g. ``<workdir>/best`` from ``cli.train
+--keep_best``) and scores it on fixed-seed synthetic scenes in the posture
+asked for: fp, ``--fold_bn``, ``--tta hflip``, weight-only ``--quantize
+int8``, or calibrated W8A8 through the fused int8 kernel (``--quantize
+w8a8_fused[_chain]``), optionally on the mean of the last N checkpoints
+(``--average_last``). ``--artifact``, the XLA-composed int8 modes and
+``.cvrec`` data raise "not ported yet" with their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+
+def _not_ported(what: str, item: str) -> SystemExit:
+    return SystemExit(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def _build_val(args, cfg, pad_hw):
+    """Held-out eval source: fixed-seed synthetic RGB scenes (the
+    reference's yuv420 variant serves only ``--artifact``, not ported)."""
+    import numpy as np
+
+    from cvm_tpu_torch.data.synthetic import synthetic_batch
+
+    rng = np.random.default_rng(999)
+    return [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=min(cfg.num_classes, 10))
+            for _ in range(args.batches)]
+
+
+def _emit(args, m, step):
+    variant = ""
+    if args.quantize != "none" or args.fold_bn:
+        variant = f" quantize={args.quantize}{' fold_bn' if args.fold_bn else ''}"
+    print(f"[cvm_tpu_torch] eval model={args.model} step={step} split={args.split}{variant}: "
+          f"{json.dumps(m, sort_keys=True)}", flush=True)
+    if args.json_out:
+        payload = {"model": args.model, "step": step, "quantize": args.quantize,
+                   "fold_bn": args.fold_bn, **m}
+        with open(args.json_out, "w") as f:
+            json.dump(payload, f)
+
+
+def _calibrate(args, cfg, model, pad_hw, device):
+    """The reference's calibration recipe (that of cli.export): synthetic
+    RGB scenes from ``default_rng(0)`` through the serving preprocess in
+    fp32, ``--calib_batches`` batches of ``max(batch_size, 2)``."""
+    import numpy as np
+    import torch
+
+    from cvm_tpu_torch.data.synthetic import synthetic_batch
+    from cvm_tpu_torch.infer.quantize import calibrate_activation_scales
+    from cvm_tpu_torch.pipeline.preprocess import preprocess_image_batch
+
+    rng = np.random.default_rng(0)
+    procs = []
+    for _ in range(max(args.calib_batches, 1)):
+        b = synthetic_batch(rng, max(cfg.batch_size, 2), pad_hw,
+                            num_classes=min(cfg.num_classes, 10))
+        proc, _ = preprocess_image_batch(torch.from_numpy(b["image"]).to(device),
+                                         torch.from_numpy(b["image_hw"]).to(device),
+                                         cfg.input_hw)
+        procs.append(proc)
+    scales = calibrate_activation_scales(model.to(device), procs)
+    print(f"[cvm_tpu_torch] {args.quantize}: calibrated {len(scales)} convs on "
+          f"{len(procs)} synthetic batches", file=sys.stderr)
+    return scales
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--model", default=None, help="model-zoo name (centernet is ported)")
+    parser.add_argument("--workdir", default="runs/default",
+                        help="training workdir containing checkpoints/")
+    parser.add_argument("--checkpoint_dir", default=None,
+                        help="explicit checkpoint dir (overrides <workdir>/checkpoints — "
+                             "e.g. <workdir>/best from --keep_best)")
+    parser.add_argument("--data", default="synthetic",
+                        help="'synthetic' (.cvrec record data is not ported yet)")
+    parser.add_argument("--split", default="val", choices=("val", "train", "all"),
+                        help="which id split of a record dataset to evaluate")
+    parser.add_argument("--batches", type=int, default=50)
+    parser.add_argument("--pad_hw", default=None)
+    parser.add_argument("--device", default="cuda", help="'cuda', 'cuda:N' or 'cpu'")
+    parser.add_argument("--json_out", default=None,
+                        help="also write metrics as JSON to this path")
+    parser.add_argument("--per_class", action="store_true",
+                        help="report per-class AP alongside the means")
+    parser.add_argument("--tta", default="none", choices=("none", "hflip"),
+                        help="test-time augmentation: hflip merges the flipped pass at "
+                             "the head level (2x forward cost)")
+    parser.add_argument("--size_ap", action="store_true",
+                        help="report COCO-style mAP_small/medium/large")
+    parser.add_argument("--pr_out", default=None, metavar="FILE",
+                        help="write per-class precision/recall operating curves "
+                             "(IoU 0.5) as JSON")
+    parser.add_argument("--average_last", type=int, default=0, metavar="N",
+                        help="evaluate the MEAN of the last N retained checkpoints (SWA) "
+                             "instead of the newest one")
+    parser.add_argument("--quantize", default="none",
+                        choices=("none", "int8", "w8a8", "w8a8_static",
+                                 "w8a8_fused", "w8a8_fused_chain"),
+                        help="score the DEPLOYED numerics: int8 = weight-only, "
+                             "w8a8_fused = calibrated static scales through the fused "
+                             "int8 ConvBN kernel, w8a8_fused_chain = + int8-resident "
+                             "ResBlock c1->c2 buffers (w8a8 and w8a8_static are not "
+                             "ported yet)")
+    parser.add_argument("--fold_bn", action="store_true",
+                        help="evaluate with conv+BN folded as at export time")
+    parser.add_argument("--calib_batches", type=int, default=3,
+                        help="synthetic calibration batches for w8a8_fused[_chain]")
+    parser.add_argument("--artifact", default=None, metavar="DIR",
+                        help="score a serialized export (not ported yet)")
+    args, overrides = parser.parse_known_args(argv)
+
+    if args.artifact:
+        raise _not_ported("--artifact", "14")
+    if not args.model:
+        parser.error("--model is required (unless evaluating an --artifact)")
+    if args.pr_out and args.model not in ("centernet", "multitask"):
+        parser.error(f"--pr_out needs a detection-capable model "
+                     f"(centernet/multitask), got {args.model!r}")
+    if args.model != "centernet":
+        raise _not_ported(f"--model {args.model}", "15")
+    if args.data != "synthetic":
+        raise SystemExit("--data: .cvrec record data is not ported yet (ROADMAP Queue 1 "
+                         "item 11, the record loader); use --data synthetic")
+    if args.quantize in ("w8a8", "w8a8_static"):
+        raise _not_ported(f"--quantize {args.quantize}", "13")
+    w8a8_fused = args.quantize in ("w8a8_fused", "w8a8_fused_chain")
+    if w8a8_fused and args.fold_bn:
+        parser.error("--quantize w8a8_fused is incompatible with --fold_bn: "
+                     "the fused kernel applies the BN affine in its epilogue "
+                     "from live stats; folded kernels would get it twice")
+
+    import torch
+
+    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.train.checkpoints import load_params_cfg
+    from cvm_tpu_torch.train.evaluate import evaluate_model
+    from cvm_tpu_torch.train.loop import Trainer
+    from cvm_tpu_torch.utils.config import parse_hw
+
+    # The checkpoint is self-describing: use the SAVED config, with only the
+    # flags the user TYPED overriding it (a value equal to the class default
+    # must still override, e.g. --ema_decay 0.0 to score the raw weights).
+    ckpt_dir = args.checkpoint_dir or f"{args.workdir}/checkpoints"
+    try:
+        cfg_saved = load_params_cfg(ckpt_dir, CenternetParams)
+    except (FileNotFoundError, OSError):
+        cfg_saved = CenternetParams()
+    cfg = cfg_saved
+    if overrides:
+        passed = {t.lstrip("-").split("=", 1)[0] for t in overrides if t.startswith("--")}
+        base = cfg.to_dict()
+        cli_cfg = CenternetParams.from_cli(overrides).to_dict()
+        base.update({k: v for k, v in cli_cfg.items() if k in passed})
+        cfg = CenternetParams.from_dict(base)
+    pad_hw = (parse_hw(args.pad_hw, "--pad_hw") if args.pad_hw
+              else (int(cfg.input_hw[0] * 1.5), int(cfg.input_hw[1] * 1.5)))
+
+    # The restore template's STRUCTURE must match the checkpoint, so the
+    # state-shaping fields come from the SAVED config; an override (e.g.
+    # --ema_decay 0.0) only selects which weights are evaluated below.
+    state_fields = {f: getattr(cfg_saved, f)
+                    for f in ("ema_decay", "grad_accum_steps", "tensor_parallel")}
+    trainer = Trainer(cfg.replace(**state_fields), args.device, checkpoint_dir=ckpt_dir)
+    trainer.init_state()
+    step = trainer.state.step
+    if step == 0:
+        print(f"[cvm_tpu_torch] WARNING: no checkpoint restored from {ckpt_dir} — "
+              "evaluating fresh init", file=sys.stderr)
+    if args.average_last:
+        from cvm_tpu_torch.train.average import average_checkpoints
+
+        try:
+            steps = average_checkpoints(trainer, args.average_last)
+        except ValueError as e:
+            parser.error(f"--average_last: {e}")
+        print(f"[cvm_tpu_torch] averaged checkpoints at steps {list(steps)}", file=sys.stderr)
+
+    val = _build_val(args, cfg, pad_hw)
+    # EMA parameters when on, with the live BatchNorm statistics.
+    model = trainer.eval_model(use_ema=cfg.ema_decay > 0.0)
+
+    w8a8 = None
+    if args.quantize == "int8":
+        from cvm_tpu_torch.infer.quantize import (dequantize_params, quantization_error,
+                                                  quantize_params)
+
+        params = dict(model.named_parameters())
+        qparams, _ = quantize_params(params)
+        err = quantization_error(params, qparams)
+        print(f"[cvm_tpu_torch] weight-only int8: relative weight error {err:.3e}",
+              file=sys.stderr)
+        deq = dequantize_params(qparams)
+        with torch.no_grad():
+            for name, p in params.items():
+                p.copy_(deq[name])
+    elif w8a8_fused:
+        w8a8 = _calibrate(args, cfg, model, pad_hw, trainer.device)
+
+    m = evaluate_model("centernet", cfg, model, val, max_batches=args.batches,
+                       device=trainer.device, per_class=args.per_class,
+                       size_buckets=args.size_ap, pr_curves=args.pr_out is not None,
+                       tta=args.tta, w8a8=w8a8, w8a8_fused=w8a8_fused,
+                       w8a8_chain=args.quantize == "w8a8_fused_chain", fold_bn=args.fold_bn)
+    if args.pr_out:
+        with open(args.pr_out, "w") as f:
+            json.dump(m.pop("pr_curves", {}), f)
+        print(f"[cvm_tpu_torch] PR curves -> {args.pr_out}", file=sys.stderr)
+    _emit(args, m, step)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

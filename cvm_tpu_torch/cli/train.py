@@ -7,6 +7,15 @@ resumes from ``<workdir>/checkpoints`` trains only the remainder; SIGTERM
 and ``--max_seconds`` stop cleanly after the current step with a checkpoint
 of it. Metrics go to ``<workdir>/metrics.jsonl``.
 
+``--eval_every N`` trains in chunks that end at multiples of N and scores
+the model after each (``evaluate_model`` on fixed-seed synthetic scenes,
+``val_*`` rows in ``metrics.jsonl``); ``--keep_best METRIC`` keeps the best
+checkpoint by that metric in ``<workdir>/best`` (loadable by
+``cli.evaluate --checkpoint_dir``); ``--early_stop P`` stops after P evals
+without improvement. The chunks end at multiples of N (the reference ends
+them N steps after the start), so a run that is stopped and resumed
+evaluates at the same steps as one that is not.
+
 Flags whose machinery is not ported raise instead of being ignored.
 """
 
@@ -16,12 +25,13 @@ import argparse
 import signal
 import sys
 import threading
+import time
 
 # flag -> (value that means "off", ROADMAP Queue 1 item that ports it)
 _NOT_PORTED = {
-    "eval_every": (0, "12"), "keep_best": (None, "12"), "early_stop": (0, "12"),
     "auto_restart": (0, "11 (the stall watchdog)"), "tensorboard": (False, "16"),
-    "model_parallel": (1, "17"), "dcn_slices": (1, "17"), "coordinator": (None, "17"),
+    "eval_images": (0, "16"), "model_parallel": (1, "17"), "dcn_slices": (1, "17"),
+    "coordinator": (None, "17"),
 }
 _NOT_PORTED_CFG = {"qat": (False, "13"), "remat": (False, "16"),
                    "aug_rotate_deg": (0.0, "16"), "tensor_parallel": (False, "17"),
@@ -50,9 +60,18 @@ def main(argv=None) -> int:
     parser.add_argument("--max_seconds", type=float, default=0, metavar="S",
                         help="after S seconds, finish the current step, checkpoint it "
                              "and exit 0 (re-invoke to continue toward --steps)")
-    parser.add_argument("--eval_every", type=int, default=0)
-    parser.add_argument("--keep_best", default=None)
-    parser.add_argument("--early_stop", type=int, default=0)
+    parser.add_argument("--eval_every", type=int, default=0,
+                        help="run evaluation every N steps (0 = off)")
+    parser.add_argument("--eval_batches", type=int, default=20)
+    parser.add_argument("--keep_best", default=None, metavar="METRIC",
+                        help="with --eval_every: keep the best checkpoint by this eval "
+                             "metric (e.g. mAP) in <workdir>/best")
+    parser.add_argument("--keep_best_mode", default="max", choices=["max", "min"],
+                        help="whether higher (max) or lower (min) is better")
+    parser.add_argument("--early_stop", type=int, default=0, metavar="PATIENCE",
+                        help="with --keep_best: stop after PATIENCE consecutive evals "
+                             "without improvement on the --keep_best metric")
+    parser.add_argument("--eval_images", type=int, default=0)
     parser.add_argument("--auto_restart", type=int, default=0)
     parser.add_argument("--tensorboard", action="store_true")
     parser.add_argument("--model_parallel", type=int, default=1)
@@ -60,6 +79,15 @@ def main(argv=None) -> int:
     parser.add_argument("--coordinator", default=None)
     args, overrides = parser.parse_known_args(argv)
 
+    if args.keep_best and args.eval_every <= 0:
+        parser.error("--keep_best requires --eval_every (the best checkpoint "
+                     "is selected by the eval metric)")
+    if args.eval_images > 0 and (args.eval_every <= 0 or not args.tensorboard):
+        parser.error("--eval_images requires --eval_every and --tensorboard "
+                     "(images land in the TB events file)")
+    if args.early_stop > 0 and not args.keep_best:
+        parser.error("--early_stop requires --keep_best (it defines the "
+                     "watched metric and direction)")
     for flag, (off, item) in _NOT_PORTED.items():
         if getattr(args, flag) != off:
             raise _not_ported(flag, item)
@@ -70,8 +98,13 @@ def main(argv=None) -> int:
         raise SystemExit("--data: .cvrec record data is not ported yet (ROADMAP Queue 1 "
                          "item 11, the record loader); use --data synthetic")
 
-    from cvm_tpu_torch.data.synthetic import SyntheticIterator
+    import numpy as np
+
+    from cvm_tpu_torch.data.synthetic import SyntheticIterator, synthetic_batch
     from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.train.checkpoints import BestCheckpoint
+    from cvm_tpu_torch.train.early_stop import EarlyStopper
+    from cvm_tpu_torch.train.evaluate import evaluate_model
     from cvm_tpu_torch.train.loop import Trainer
     from cvm_tpu_torch.utils.config import parse_hw
 
@@ -81,11 +114,41 @@ def main(argv=None) -> int:
             raise _not_ported(field, item)
     pad_hw = (parse_hw(args.pad_hw, "--pad_hw") if args.pad_hw
               else (int(cfg.input_hw[0] * 1.5), int(cfg.input_hw[1] * 1.5)))
+    nc = min(cfg.num_classes, 10)
 
     trainer = Trainer(cfg, args.device, checkpoint_dir=f"{args.workdir}/checkpoints",
                       metrics_path=f"{args.workdir}/metrics.jsonl",
                       checkpoint_every=args.checkpoint_every, log_every=args.log_every,
                       seed=args.seed)
+    best = (BestCheckpoint(f"{args.workdir}/best", args.keep_best, args.keep_best_mode,
+                           params_cfg=cfg) if args.keep_best else None)
+    stopper = (EarlyStopper(args.keep_best, args.early_stop, args.keep_best_mode)
+               if args.early_stop > 0 else None)
+
+    def run_eval(it):
+        # Held-out scenes from their own generator: the training streams
+        # (data, augmentation) and the training model are not touched.
+        rng = np.random.default_rng(999)
+        val = [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=nc)
+               for _ in range(args.eval_batches)]
+        t0 = time.perf_counter()
+        m = evaluate_model("centernet", cfg, trainer.eval_model(), val,
+                           max_batches=args.eval_batches, device=trainer.device)
+        seconds = time.perf_counter() - t0
+        step = trainer.state.step
+        print(f"[cvm_tpu_torch] eval@{step}: {m} ({seconds:.2f} s)", flush=True)
+        trainer.metrics_writer.write(step, {**{f"val_{k}": v for k, v in m.items()},
+                                            "eval_seconds": seconds})
+        if best is not None:
+            if args.keep_best not in m:
+                print(f"[cvm_tpu_torch] --keep_best {args.keep_best!r} not in eval "
+                      f"metrics {sorted(m)} — no best checkpoint recorded",
+                      file=sys.stderr, flush=True)
+            elif best.update(step, trainer.checkpoint_state(it.state_dict()),
+                             m[args.keep_best]):
+                print(f"[cvm_tpu_torch] new best {args.keep_best}={m[args.keep_best]:.4f} "
+                      f"@step {step} -> {args.workdir}/best", flush=True)
+        return m
 
     def stop(reason: str) -> None:
         trainer.request_stop()
@@ -102,8 +165,7 @@ def main(argv=None) -> int:
     try:
         # The reference's synthetic stream: batch_size scenes per batch, at
         # most 10 classes, padded to its default of 8 boxes (no max_objects).
-        it = SyntheticIterator(args.seed, cfg.batch_size, pad_hw,
-                               num_classes=min(cfg.num_classes, 10))
+        it = SyntheticIterator(args.seed, cfg.batch_size, pad_hw, num_classes=nc)
         trainer.init_state()
         if trainer.data_state is not None:
             it.load_state_dict(trainer.data_state)
@@ -114,7 +176,28 @@ def main(argv=None) -> int:
         if start_step > 0 and steps > 0:
             steps = max(0, steps - start_step)
             print(f"[cvm_tpu_torch] resume: {steps} of the --steps total remain", flush=True)
-        metrics = trainer.fit(it, steps) if steps > 0 else {}
+        metrics = {}
+        if args.eval_every > 0:
+            if steps == 0 and start_step > 0:
+                # Resumed past the target (stopped between the last chunk
+                # and its eval): the final eval, and the best checkpoint it
+                # selects, still happen.
+                run_eval(it)
+            while steps > 0:
+                chunk = min(args.eval_every - trainer.state.step % args.eval_every, steps)
+                metrics = trainer.fit(it, chunk)
+                if trainer.stop_requested:
+                    break  # stopping: skip the eval, the grace window is short
+                steps -= chunk
+                m = run_eval(it)
+                if stopper is not None and stopper.update(m):
+                    print(f"[cvm_tpu_torch] early stop @step {trainer.state.step}: "
+                          f"{args.keep_best} has not improved past {stopper.best:.4f} for "
+                          f"{args.early_stop} evals (best checkpoint is in "
+                          f"{args.workdir}/best)", flush=True)
+                    break
+        elif steps > 0:
+            metrics = trainer.fit(it, steps)
     finally:
         if timer is not None:
             timer.cancel()

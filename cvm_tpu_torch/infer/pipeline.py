@@ -1,20 +1,24 @@
-"""End-to-end serving: planar YUV420 batch -> preprocess -> CenterNet ->
-NMS-free decode -> boxes in source-image coordinates.
+"""End-to-end serving: RGB buffers or planar YUV420 -> preprocess ->
+CenterNet -> NMS-free decode -> boxes in source-image coordinates.
 
-Mirrors ``cvm_tpu/infer/pipeline.py::InferencePipeline`` for CenterNet with
-``input_format="yuv420"`` in its two serving postures:
-  * fp with BN folded (``fold_bn=True``), the default deploy posture;
+Mirrors ``cvm_tpu/infer/pipeline.py::InferencePipeline`` for CenterNet (2D
+heads) in its deploy postures:
+  * fp, optionally with BN folded (``fold_bn=True``);
   * static W8A8 through the fused int8 kernel (``w8a8=<scales>``,
     ``w8a8_fused=True``), optionally with int8-resident ResBlocks
-    (``w8a8_chain=True``).
+    (``w8a8_chain=True``);
+  * any of them with horizontal-flip test-time augmentation
+    (``tta="hflip"``).
 It keeps the reference's refusals. The reference jits one program; here the
-same steps run eagerly on the pipeline's device.
+same steps run eagerly on the pipeline's device. The XLA-composed int8
+paths (``w8a8=True``, static scales without the fused kernel) wait with
+ROADMAP Queue 1 item 13.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 import torch.nn as nn
@@ -22,14 +26,19 @@ import torch.nn as nn
 from cvm_tpu_torch.models.centernet.params import CenternetParams
 from cvm_tpu_torch.ops.decode import decode_centernet
 from cvm_tpu_torch.ops.image import map_boxes_to_input
-from cvm_tpu_torch.pipeline.preprocess import preprocess_yuv420_batch
+from cvm_tpu_torch.pipeline.preprocess import preprocess_image_batch, preprocess_yuv420_batch
 from cvm_tpu_torch.utils.batch import pad_rows
 from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
+
+# The batch keys each input format reads, in ``predict``'s argument order.
+_KEYS = {"yuv420": ("y", "u", "v", "image_hw"), "rgb": ("image", "image_hw")}
 
 
 class InferencePipeline:
     """Predict for a CenterNet model on one device, from planar YUV420
-    (the reference's ``input_format="yuv420"``; RGB input is not ported).
+    (``input_format="yuv420"``: y (B, Hm, Wm), u/v (B, Hm/2, Wm/2) uint8) or
+    from padded RGB buffers (``"rgb"``: image (B, Hm, Wm, 3) uint8), each
+    with the valid sizes image_hw (B, 2).
 
     ``model`` is left untouched: the pipeline serves a transformed copy.
     ``__call__`` pads a short batch up to ``params.batch_size`` by repeating
@@ -38,8 +47,16 @@ class InferencePipeline:
     """
 
     def __init__(self, params: CenternetParams, model: nn.Module, device: DeviceLike,
+                 input_format: str = "yuv420", tta: str = "none",
                  w8a8: Optional[Dict[str, float]] = None, w8a8_fused: bool = False,
                  w8a8_chain: bool = False, fold_bn: bool = False):
+        if input_format not in _KEYS:
+            raise ValueError(f"input_format must be rgb|yuv420, got {input_format!r}")
+        if tta not in ("none", "hflip"):
+            raise ValueError(f"tta must be none|hflip, got {tta!r}")
+        if tta == "hflip" and getattr(params, "with_3d", False):
+            raise ValueError("tta='hflip' is incompatible with with_3d decoding "
+                             "(yaw sin/cos flips sign under mirroring)")
         if w8a8_fused and not isinstance(w8a8, dict):
             raise ValueError(
                 "w8a8_fused requires calibrated per-conv scales: pass "
@@ -56,9 +73,13 @@ class InferencePipeline:
             raise ValueError("w8a8 scales dict is empty — calibration produced no "
                              "per-conv scales; refusing to serve fp as 'int8'")
         if w8a8 is not None and not w8a8_fused:
-            raise ValueError("only the fused W8A8 path is ported: set w8a8_fused=True")
+            raise ValueError("only the fused W8A8 path is ported (set w8a8_fused=True); "
+                             "the XLA-composed ones are not ported yet (ROADMAP Queue 1 "
+                             "item 13)")
         self.cfg = params
         self.device = resolve_device(device)
+        self.input_format, self.tta = input_format, tta
+        self._plain_weights = not fold_bn and w8a8 is None
         self.fused_counts = None
         if fold_bn:
             from cvm_tpu_torch.infer.fold_bn import fold_batchnorm
@@ -76,22 +97,48 @@ class InferencePipeline:
                 raise ValueError("w8a8_fused: no module matched the calibrated scales")
         self.model = model
 
-    @torch.no_grad()
-    def predict(self, y, u, v, image_hw) -> Dict[str, torch.Tensor]:
-        """Device tensors in, device tensors out: y (B, Hm, Wm), u/v
-        (B, Hm/2, Wm/2) uint8, image_hw (B, 2) int."""
-        cfg = self.cfg
-        proc, rois = preprocess_yuv420_batch(y, u, v, image_hw, cfg.input_hw,
-                                             out_dtype=torch.bfloat16)
+    def update_variables(self, state_dict: Mapping[str, torch.Tensor]) -> None:
+        """Serve new weights (a ``state_dict`` of the model). Valid only for
+        the plain fp pipeline: fold_bn/w8a8 pipelines transform the weights
+        when they are built; rebuild those."""
+        if not self._plain_weights:
+            raise ValueError(
+                "update_variables on a fold_bn/w8a8 pipeline would serve "
+                "untransformed weights — rebuild the pipeline instead")
+        self.model.load_state_dict(state_dict, strict=True)
+
+    def heads(self, proc: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The model's heads on a preprocessed batch. With ``tta="hflip"``
+        the mirrored input's heatmap and size are flipped back and averaged
+        with the plain pass's (the standard CenterNet flip test); the
+        sub-pixel offset keeps the plain pass's."""
         out = self.model(proc)
+        if self.tta == "hflip":
+            flipped = self.model(torch.flip(proc, dims=(2,)))
+            out = dict(out)
+            for k in ("heatmap", "size"):
+                out[k] = 0.5 * (out[k] + torch.flip(flipped[k], dims=(2,)))
+        return out
+
+    @torch.no_grad()
+    def predict(self, *data: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Device tensors in, device tensors out: ``(y, u, v, image_hw)``
+        for yuv420, ``(image, image_hw)`` for rgb."""
+        cfg = self.cfg
+        if self.input_format == "yuv420":
+            proc, rois = preprocess_yuv420_batch(*data, cfg.input_hw, out_dtype=torch.bfloat16)
+        else:
+            proc, rois = preprocess_image_batch(*data, cfg.input_hw, out_dtype=torch.bfloat16)
+        out = self.heads(proc)
         det = decode_centernet(out["heatmap"], out["offset"], out["size"],
                                stride=cfg.stride, top_k=cfg.top_k)
         return {"boxes": map_boxes_to_input(det.boxes, rois), "scores": det.scores,
                 "classes": det.classes}
 
     def __call__(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """batch: y/u/v planes + image_hw (numpy arrays or tensors)."""
-        args = [batch[k] for k in ("y", "u", "v", "image_hw")]
+        """batch: the format's keys (numpy arrays or tensors); other keys
+        (labels) are ignored."""
+        args = [batch[k] for k in _KEYS[self.input_format]]
         args = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args]
         n = int(args[0].shape[0])
         args = pad_rows(args, self.cfg.batch_size)

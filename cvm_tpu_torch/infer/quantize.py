@@ -1,9 +1,14 @@
-"""Static-calibrated W8A8 serving through the fused int8 ConvBN kernel.
+"""Weight-only int8, and static-calibrated W8A8 serving through the fused
+int8 ConvBN kernel.
 
-Mirrors the fused path of ``cvm_tpu/infer/quantize.py``
-(``calibrate_activation_scales``, ``prequantize_fused_weights``,
+Mirrors ``cvm_tpu/infer/quantize.py``: weight-only int8
+(``quantize_params``, ``dequantize_params``, ``quantization_error``; plain
+tensor arithmetic on the model's named parameters, no kernel) and the fused
+path (``calibrate_activation_scales``, ``prequantize_fused_weights``,
 ``_bn_affine``, ``_fused_convbn``, ``_fused_resblock``,
-``w8a8_fused_inference``). The reference swaps modules at apply time with a
+``w8a8_fused_inference``). The XLA-composed int8 paths (``w8a8_inference``,
+``w8a8_static_inference``) are not ported yet (ROADMAP Queue 1 item 13).
+For the fused path, the reference swaps modules at apply time with a
 flax method interceptor; the PyTorch counterpart swaps the modules
 themselves: ``swap_fused`` puts a ``FusedConvBN`` in place of every eligible
 ConvBN (stride 1, 1x1 or 3x3, calibrated input scale) and, with
@@ -19,7 +24,7 @@ Differences from the reference, on purpose:
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +34,65 @@ from cvm_tpu_torch.models.layers import ACTS, BatchNorm, Conv, ConvBN, ResBlock
 from cvm_tpu_torch.ops.cuda.fused_qconv import fused_qconv, pack_qconv_weights
 
 WeightTable = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
+
+# Weights eligible for weight-only int8: conv weights (the reference's flax
+# "kernel" leaves), at least _MIN_SIZE elements.
+_MIN_SIZE = 256
+
+
+def _is_quantized(v: Any) -> bool:
+    return isinstance(v, dict) and set(v) == {"int8", "scale"}
+
+
+@torch.no_grad()
+def quantize_params(params: Mapping[str, torch.Tensor]) -> Tuple[Dict[str, Any], Dict[str, int]]:
+    """``{name: tensor}`` (a model's named parameters) -> the same mapping
+    where each eligible conv weight (``*.weight``, >= 2 dims, >= 256
+    elements, float32/float16) becomes ``{"int8": int8 tensor of the same
+    shape, "scale": (Cout,) float32}``: per-output-channel symmetric scales
+    (axis 0 of the port's OIHW weights, the last axis of the reference's
+    HWIO kernels), the reference's formula in the same float arithmetic.
+    Also returns ``{"quantized": n, "total": number of tensors}``."""
+    out: Dict[str, Any] = {}
+    n_quant = 0
+    for name, v in params.items():
+        v = v.detach()
+        if (name.endswith(".weight") and v.dim() >= 2 and v.numel() >= _MIN_SIZE
+                and v.dtype in (torch.float32, torch.float16)):
+            amax = v.abs().amax(dim=tuple(range(1, v.dim())))
+            scale = (amax / 127.0 + 1e-12).to(torch.float32)
+            per_row = scale.view(-1, *([1] * (v.dim() - 1)))
+            q = torch.clamp(torch.round(v / per_row), -127, 127).to(torch.int8)
+            out[name] = {"int8": q, "scale": scale}
+            n_quant += 1
+        else:
+            out[name] = v
+    return out, {"quantized": n_quant, "total": len(out)}
+
+
+def dequantize_params(qparams: Mapping[str, Any],
+                      dtype: torch.dtype = torch.float32) -> Dict[str, torch.Tensor]:
+    """Inverse of ``quantize_params``: ``{name: tensor}`` to load into the
+    model (int8 value times its channel's scale, in ``dtype``)."""
+    out = {}
+    for name, v in qparams.items():
+        if _is_quantized(v):
+            q = v["int8"]
+            v = q.to(dtype) * v["scale"].to(dtype).view(-1, *([1] * (q.dim() - 1)))
+        out[name] = v
+    return out
+
+
+def quantization_error(params: Mapping[str, torch.Tensor], qparams: Mapping[str, Any]) -> float:
+    """Max relative Frobenius error across the quantized tensors (a sanity
+    metric; float32 numpy arithmetic, as the reference's)."""
+    errs = []
+    for name, v in qparams.items():
+        if _is_quantized(v):
+            orig = params[name].detach().cpu().numpy().astype(np.float32)
+            deq = dequantize_params({name: v})[name].cpu().numpy()
+            errs.append(float(np.linalg.norm(orig - deq) / (np.linalg.norm(orig) + 1e-12)))
+    return max(errs) if errs else 0.0
 
 
 @torch.no_grad()

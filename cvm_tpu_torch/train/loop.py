@@ -10,10 +10,11 @@ points.
 
 Random numbers: the reference folds the step into one base key per ``fit``
 call. JAX's streams cannot be reproduced in torch, so each step seeds its
-own ``torch.Generator`` on the device from (seed, fit call, step). The
-checkpoint carries the fit call and the data stream's state, so a run
-resumed from a checkpoint taken inside a ``fit`` call continues the same
-data and augmentation stream.
+own ``torch.Generator`` on the device from (seed, step) alone: how a run is
+cut into ``fit`` calls (``cli.train --eval_every`` calls it once per eval
+chunk) does not change its numbers. The checkpoint carries the data
+stream's state, so a run resumed from any checkpoint continues the same
+data and augmentation stream, evaluations in between or not.
 
 Not ported yet: the mesh and tensor-parallel sharding (ROADMAP Queue 1 item
 17), the stall watchdog and re-exec auto-restart, TensorBoard, QAT.
@@ -21,6 +22,7 @@ Not ported yet: the mesh and tensor-parallel sharding (ROADMAP Queue 1 item
 
 from __future__ import annotations
 
+import copy
 import sys
 import time
 from collections import deque
@@ -114,10 +116,9 @@ def make_eval_step(loss_fn: Callable, params_cfg, processor: Callable) -> Callab
     return eval_step
 
 
-def step_generator(device: torch.device, seed: int, fit_call: int,
-                   step: int) -> torch.Generator:
+def step_generator(device: torch.device, seed: int, step: int) -> torch.Generator:
     """The generator of one training step, on ``device``."""
-    s = np.random.SeedSequence([seed, fit_call, step]).generate_state(1, np.uint64)[0]
+    s = np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(s))
 
 
@@ -134,7 +135,6 @@ class Trainer:
         self.processor = make_processor(params_cfg, train=True)
         self.train_step = make_train_step(centernet_loss, params_cfg, self.processor)
         self.log_every, self.checkpoint_every, self.seed = log_every, checkpoint_every, seed
-        self.fit_calls = 0          # the reference's per-fit key split
         self.data_state = None      # data stream state restored from a checkpoint
         self._stop_requested = False
         self.metrics_writer = (None if metrics_path is None
@@ -158,6 +158,21 @@ class Trainer:
         values = self.state.ema if self.state.ema is not None else self.state.params
         return {n: v.detach() for n, v in zip(names, values)}
 
+    def eval_model(self, use_ema: bool = True) -> nn.Module:
+        """A copy of the model in eval mode to evaluate or export: the EMA
+        parameters when ``use_ema`` and ``ema_decay > 0``, else the live
+        ones, with the live BatchNorm statistics (the reference scores
+        ``eval_params`` with the live ``batch_stats``). The training model's
+        mode, parameters and buffers are not touched."""
+        if self.state is None:
+            raise RuntimeError("call init_state() first")
+        model = copy.deepcopy(self.state.model)
+        if use_ema and self.state.ema is not None:
+            with torch.no_grad():
+                for p, e in zip(model.parameters(), self.state.ema):
+                    p.copy_(e)
+        return model.eval()
+
     def init_state(self) -> TrainState:
         """Build the model (weights drawn from ``seed``) and optimizer, and
         restore the newest checkpoint when there is one."""
@@ -170,17 +185,17 @@ class Trainer:
                              optimizer=getattr(cfg, "optimizer", "adamw"))
         self.state = create_train_state(model, cfg, opt)
         if self.ckpt is not None:
-            self._restore_compatible(self.state)
+            ck = self.ckpt.restore_latest(map_location=self.device)
+            if ck is not None:
+                self.load_checkpoint(ck)
         return self.state
 
-    def _restore_compatible(self, state: TrainState) -> bool:
-        """Load the newest checkpoint into ``state``; tolerant of an
-        ``ema_decay`` / checkpoint mismatch (a missing shadow is seeded from
-        the restored parameters, a stale one dropped). Any other mismatch
-        raises."""
-        ck = self.ckpt.restore_latest(map_location=self.device)
-        if ck is None:
-            return False
+    def load_checkpoint(self, ck: dict) -> None:
+        """Load a checkpoint (``checkpoint_state``'s dict) into the state;
+        tolerant of an ``ema_decay`` / checkpoint mismatch (a missing shadow
+        is seeded from the restored parameters, a stale one dropped). Any
+        other mismatch raises."""
+        state = self.state
         state.model.load_state_dict(ck["model"], strict=True)
         state.optimizer.load_state_dict(ck["optimizer"])
         if state.ema is not None:
@@ -197,19 +212,22 @@ class Trainer:
             print("[cvm_tpu_torch] checkpoint carries an EMA shadow but ema_decay=0: "
                   "dropping it", file=sys.stderr, flush=True)
         state.step = int(ck["step"])
-        self.fit_calls = int(ck["host"]["fit_calls"])
         self.data_state = ck["host"]["data"]
-        return True
 
-    def _save(self, data_state) -> None:
+    def checkpoint_state(self, data_state) -> dict:
+        """What a checkpoint holds: step, model ``state_dict``, optimizer
+        state, EMA shadow (``{name: tensor}`` or None) and the data stream's
+        state ``data_state``."""
         st = self.state
         ema = None
         if st.ema is not None:
             ema = {n: e for (n, _), e in zip(st.model.named_parameters(), st.ema)}
-        self.ckpt.save(st.step, {
-            "step": st.step, "model": st.model.state_dict(),
-            "optimizer": st.optimizer.state_dict(), "ema": ema,
-            "host": {"fit_calls": self.fit_calls, "data": data_state}})
+        return {"step": st.step, "model": st.model.state_dict(),
+                "optimizer": st.optimizer.state_dict(), "ema": ema,
+                "host": {"data": data_state}}
+
+    def _save(self, data_state) -> None:
+        self.ckpt.save(self.state.step, self.checkpoint_state(data_state))
 
     def request_stop(self) -> None:
         """Ask ``fit`` to stop at the next step boundary (signal-handler
@@ -228,7 +246,6 @@ class Trainer:
         checkpoints every ``checkpoint_every`` steps and on a stop request."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
-        fit_call = self.fit_calls
         step = self.state.step
         resumable = hasattr(data_iter, "state_dict")
         data_states: deque = deque()
@@ -251,7 +268,7 @@ class Trainer:
         t0 = time.perf_counter()
         for raw in prefetch_to_device(pull(), self.device):
             data_state = data_states.popleft()
-            gen = step_generator(self.device, self.seed, fit_call, step)
+            gen = step_generator(self.device, self.seed, step)
             self.state, metrics = self.train_step(self.state, raw, gen)
             step += 1
             steps_in_window += 1
@@ -269,7 +286,6 @@ class Trainer:
                 if self.ckpt is not None and step % self.checkpoint_every:
                     self._save(data_state)
                 break
-        self.fit_calls += 1
         if steps_in_window and metrics is not None:
             last = {k: float(v) for k, v in metrics.items()}
             last["steps_per_sec"] = steps_in_window / max(time.perf_counter() - t0, 1e-9)

@@ -116,6 +116,22 @@ def test_fused_qconv_kernel_main_path_shapes(cuda_device, name):
               np.random.default_rng(len(name) + cin), packed=True)
 
 
+# Batch 16, the flagship's eval batch (cli.evaluate --quantize w8a8_fused
+# at 512^2): one call per Cin-split path it takes. The stem keeps its folded
+# taps; s5 and up0, whose Cin batch 8 splits over a cluster, run unsplit.
+BATCH16 = ["stem", "s5_c1", "up0_c1"]
+
+
+@pytest.mark.parametrize("name", BATCH16)
+def test_fused_qconv_kernel_batch16_paths(cuda_device, name):
+    hw, cin, cout, mode, act = MAIN[name]
+    plan = qconv_plan(3, cin, cout)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert plan.fold if name == "stem" else cin_split(plan, 16, hw, hw, sms) == 1
+    _run_case(cuda_device, (3, 16, hw, hw, cin, cout, act), mode,
+              np.random.default_rng(16 + cin), packed=True)
+
+
 # One case per special path: the folded stem taps, the Cin split over a
 # cluster, Cout 512 (four Cout tiles), W not a multiple of the 8-wide tile.
 SPECIAL = {

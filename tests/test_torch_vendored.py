@@ -2,22 +2,31 @@
 
 The port imports nothing of the JAX package, so it carries its own
 ``pad_rows`` (``cvm_tpu/utils/batch.py``), ``BaseParams`` / ``parse_hw``
-(``cvm_tpu/utils/config.py``) and the RGB path of ``synthetic_batch``
-(``cvm_tpu/data/synthetic.py``). Each must give exactly what its original
-gives: the same arrays from the same generator, the same config JSON.
+(``cvm_tpu/utils/config.py``), the RGB path of ``synthetic_batch``
+(``cvm_tpu/data/synthetic.py``), the numpy evaluators
+(``cvm_tpu/train/evaluate.py``) and ``EarlyStopper``
+(``cvm_tpu/train/early_stop.py``). Each must give exactly what its original
+gives: the same arrays from the same generator, the same config JSON; the
+evaluators and ``EarlyStopper`` are verbatim copies, held to the original
+source and run side by side.
 """
 
+import inspect
 import json
 
 import numpy as np
 import pytest
 
+import cvm_tpu.train.evaluate as j_evaluate
 from cvm_tpu.data.synthetic import synthetic_batch as j_synthetic_batch
 from cvm_tpu.models.centernet.params import CenternetParams as JCenternetParams
+from cvm_tpu.train.early_stop import EarlyStopper as JEarlyStopper
 from cvm_tpu.utils.batch import pad_rows as j_pad_rows
 from cvm_tpu.utils.config import parse_hw as j_parse_hw
 from cvm_tpu_torch.data.synthetic import SyntheticIterator, synthetic_batch
+import cvm_tpu_torch.train.evaluate as t_evaluate
 from cvm_tpu_torch.models.centernet.params import CenternetParams
+from cvm_tpu_torch.train.early_stop import EarlyStopper
 from cvm_tpu_torch.utils.batch import pad_rows
 from cvm_tpu_torch.utils.config import parse_hw
 
@@ -83,3 +92,53 @@ def test_pad_rows_identical():
             np.testing.assert_array_equal(g, r)
     with pytest.raises(ValueError, match="more than the static"):
         pad_rows(arrays, 2)
+
+
+@pytest.mark.parametrize("name", ["box_iou_matrix", "DetectionEvaluator", "Detection3dEvaluator",
+                                  "SemsegEvaluator", "DepthEvaluator"])
+def test_evaluators_are_verbatim_copies(name):
+    assert inspect.getsource(getattr(t_evaluate, name)) == \
+        inspect.getsource(getattr(j_evaluate, name))
+    assert t_evaluate.COCO_IOU_THRESHOLDS == j_evaluate.COCO_IOU_THRESHOLDS
+    assert t_evaluate._COCO_AREA_BUCKETS == j_evaluate._COCO_AREA_BUCKETS
+
+
+def test_numpy_evaluators_agree_with_the_originals():
+    rng = np.random.default_rng(4)
+    seg = (j_evaluate.SemsegEvaluator(5), t_evaluate.SemsegEvaluator(5))
+    dep = (j_evaluate.DepthEvaluator(median_scale=True),
+           t_evaluate.DepthEvaluator(median_scale=True))
+    d3 = (j_evaluate.Detection3dEvaluator(), t_evaluate.Detection3dEvaluator())
+    for _ in range(3):
+        pred, label = rng.integers(0, 5, (8, 8)), rng.integers(0, 6, (8, 8))
+        label[0] = 255
+        gt, pd = rng.uniform(0, 40, (8, 8)), rng.uniform(1, 50, (8, 8))
+        gt[gt < 5] = 0
+        xy = rng.uniform(0, 50, (4, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(5, 20, (4, 2))], 1)
+        loc = rng.uniform(1, 30, (4, 3))
+        classes = rng.integers(0, 2, 4)
+        scores = rng.uniform(0.2, 1, 4)
+        for ev in seg:
+            ev.add(pred, label)
+        for ev in dep:
+            ev.add(pd, gt)
+        for ev in d3:
+            ev.add_image(boxes + 0.5, scores, classes, loc + 0.3, boxes, classes, loc)
+    assert seg[1].compute(per_class=True, confusion=True) == \
+        seg[0].compute(per_class=True, confusion=True)
+    assert dep[1].compute() == dep[0].compute()
+    assert d3[1].compute() == d3[0].compute() and d3[1].n_matched > 0
+
+
+def test_early_stopper_is_the_original():
+    assert inspect.getsource(EarlyStopper) == inspect.getsource(JEarlyStopper)
+    metrics = [0.1, 0.3, 0.3, 0.29, 0.5, 0.5, 0.5, 0.2]
+    for mode, patience in (("max", 2), ("min", 1), ("max", 3)):
+        ours, ref = EarlyStopper("mAP", patience, mode), JEarlyStopper("mAP", patience, mode)
+        got = [ours.update({"mAP": m}) for m in metrics] + [ours.update({})]
+        want = [ref.update({"mAP": m}) for m in metrics] + [ref.update({})]
+        assert got == want and any(got) and (ours.best, ours.stale) == (ref.best, ref.stale)
+    for bad in ((0, "max"), (1, "up")):
+        with pytest.raises(ValueError):
+            EarlyStopper("mAP", *bad)
