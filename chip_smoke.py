@@ -2,20 +2,26 @@
 """Smoke test of cvm_tpu_torch on one CUDA card (an NVIDIA H100).
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It builds the
-hand-written kernels from ``cvm_tpu_torch/csrc`` and drives the port's two
+hand-written kernels from ``cvm_tpu_torch/csrc`` and drives the port's
 slices with random seeded weights: serving CenterNet config B (512x512,
 ``small`` backbone with the space-to-depth stem, stride 4, 80 classes,
 batch 8, planar YUV420 padded to 768x768), training the same model on
 the flagship synthetic recipe (10 classes, batch 16, 512x512 padding)
 through ``cvm_tpu_torch.cli.train``, and evaluating it (with evals during
-training, then ``cvm_tpu_torch.cli.evaluate`` in four postures):
+training, then ``cvm_tpu_torch.cli.evaluate`` in four postures); then the
+dense zoo at full width (256x640, ``small`` backbone, space-to-depth
+stem): semseg (config A at batch 1, and batch 8), depth (config C) and
+multitask (config D), served, trained and timed by ``cli.benchmark``:
 
   1. card, versions, both kernel builds (one nvcc each, started together);
   2. the fused W8A8 ConvBN kernel K2 vs its plain PyTorch version at every
      config-B shape, the reference tests' shapes and one case per special
      path of the kernel, in four modes; then, per main-path call, the
      kernel's device time beside its bound, cuDNN's bf16 conv of the same
-     shape (the library yardstick) and the plain version's time;
+     shape (the library yardstick) and the plain version's time; then the
+     same for every distinct K2 call of the dense models' int8 forwards
+     (recorded from one forward of each), batch 1 and the 8x20 map of
+     stride 32 included;
   3. the model at full width with non-trivial BN statistics, calibrated on
      3 synthetic batches; the fp (BN folded) and int8 (fused + chained)
      pipelines;
@@ -26,7 +32,8 @@ training, then ``cvm_tpu_torch.cli.evaluate`` in four postures):
   5. a DynamicBatcher over the int8 pipeline answering 16 threaded requests;
   6. median batch-8 latency of both postures;
   7. the Gaussian splat kernel K1 vs its plain version at the flagship
-     training shape, config B's default shape and twelve edge cases, each
+     training shape, config B's default shape, multitask's (B8 K128 64x160
+     C10) and twelve edge cases, each
      output block poisoned with NaN first; one call at the flagship shape
      runs exactly one device kernel (torch.profiler); its device time
      beside its bound and the plain version's time;
@@ -43,7 +50,16 @@ training, then ``cvm_tpu_torch.cli.evaluate`` in four postures):
      w8a8_fused_chain`` (24 K2 launches per forward, 7 int8-out, no weight
      packs) and ``--tta hflip``; then the int8 posture at batch 16 through
      K2 and through its plain version (heads and mAP), and the eval layer's
-     host and device ms per batch.
+     host and device ms per batch;
+ 12. dense serving, each model at batch 8 (and semseg at batch 1): fp with
+     BN folded and ``w8a8_fused_chain`` after 3 calibration batches, K2's
+     launches per int8 forward (24 semseg, 27 depth, 28 multitask), the
+     int8 posture through K2 vs its plain version (mean |d| of logits and
+     depth, class-map agreement), and batch latencies;
+ 13. dense training through ``cli.train.main``: 20 multitask steps (one K1
+     launch per step, finite and falling loss), then 20 semseg steps with
+     an eval (mIoU);
+ 14. ``cli.benchmark --configs A,B,C,D --iters 6``: one JSON line each.
 
 Device times come from CUDA events around 20 back-to-back calls while the
 card first sleeps through the host's enqueueing (``cuda_ms``). Any failure
@@ -134,6 +150,16 @@ _ESIZE = {"f32": 4, "bf16": 2, "int8": 1}
 # mode -> (input, output)
 MODES = {"f32->f32": ("f32", "f32"), "bf16->bf16": ("bf16", "bf16"),
          "int8->bf16": ("int8", "bf16"), "bf16->int8": ("bf16", "int8")}
+_KIND = {"torch.float32": "f32", "torch.bfloat16": "bf16", "torch.int8": "int8"}
+
+# The dense zoo's serving paths: (path, model, batch, K2 launches per int8
+# forward). Config A is semseg at batch 1.
+DENSE_PATHS = [("semseg", "semseg", 8, 24), ("semseg b1", "semseg", 1, 24),
+               ("depth", "depth", 8, 27), ("multitask", "multitask", 8, 28)]
+DENSE_PAD = (384, 960)  # the loaders' default: 1.5x the 256x640 input
+DENSE_TRAIN_FLAGS = ["--data", "synthetic", "--batch_size", "8", "--warmup_steps", "5",
+                     "--log_every", "1", "--checkpoint_every", "1000", "--seed", "0",
+                     "--steps", "20", "--device", "cuda"]
 
 
 def log(msg: str) -> None:
@@ -235,7 +261,10 @@ def kernel_case(dev, gen, k, b, h, w, cin, cout, act, x_kind, out_kind):
     return (x, wq, scale, bias), kw
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, dense_calls):
+    """K2 against its plain version, then its times. ``dense_calls`` maps
+    each dense path to the K2 calls of one int8 forward, as recorded by
+    ``record_k2_calls``."""
     import torch
 
     from cvm_tpu_torch.ops.cuda.fused_qconv import fused_qconv, fused_qconv_reference
@@ -252,6 +281,16 @@ def phase_kernels(dev):
     shapes += [("b16 stem", 3, 16, 256, 256, 12, 32, "silu"),
                ("b16 s5", 3, 16, 16, 16, 512, 512, "silu"),
                ("b16 up0", 3, 16, 32, 32, 768, 128, "silu")]
+    # Every distinct shape of the dense models' int8 forwards (256x640:
+    # ragged 8x20 maps at stride 32, batch 1 with its 4-way Cin split, the
+    # concatenated Cin 160 / 320 of the decoders).
+    seen = {s[1:] for s in shapes}
+    for path, calls in dense_calls.items():
+        for c in calls:
+            key = (c["k"], c["B"], c["H"], c["W"], c["cin"], c["cout"], c["act"])
+            if key not in seen:
+                seen.add(key)
+                shapes.append((path.replace(" ", "-"), *key))
     log("[kernel] tolerance vs plain: f32 out |d| <= 1e-4*|ref| + 1e-4; bf16 out "
         "|d| <= 2^-7*|ref| + 1e-5; int8 out |d| <= 1 lattice step on <= 0.1% of outputs")
     worst, failures = 0.0, []
@@ -315,7 +354,68 @@ def phase_kernels(dev):
         f"bound {tot['bound']:.3f} ms ({tot['bound'] / tot['ms']:.1%} of it; "
         f"{tot['ops_bound']:.3f} ms of it ops-bound), cuDNN bf16 {tot['lib']:.3f} ms, "
         f"plain {tot['plain']:.3f} ms")
-    return worst, tot
+    return worst, tot, dense_kernel_times(dev, gen, dense_calls, sms)
+
+
+def dense_kernel_times(dev, gen, dense_calls, sms):
+    """Per distinct dense call (in its main-path mode): the kernel, its
+    bound, cuDNN's bf16 conv and the plain version (fewer repeats: at
+    these shapes its f64 conv takes milliseconds); then each path's sum
+    over one int8 forward."""
+    import torch
+    import torch.nn.functional as F
+
+    from cvm_tpu_torch.ops.cuda.fused_qconv import (cin_split, fused_qconv,
+                                                    fused_qconv_reference, pack_qconv_weights,
+                                                    qconv_plan)
+
+    times = {}
+    for calls in dense_calls.values():
+        for c in calls:
+            key = (c["k"], c["B"], c["H"], c["W"], c["cin"], c["cout"], c["x"], c["out"],
+                   c["act"])
+            if key in times:
+                continue
+            k, b, h, w, cin, cout, xk, ok_, act = key
+            args, kw = kernel_case(dev, gen, k, b, h, w, cin, cout, act, xk, ok_)
+            wp = pack_qconv_weights(args[1])
+            t_k = cuda_ms(lambda: fused_qconv(*args, **kw, w_packed=wp))
+            t_p = cuda_ms(lambda: fused_qconv_reference(*args, **kw), reps=3, warmup=1,
+                          rounds=1)
+            xb = torch.randn(b, cin, h, w, generator=gen, device=dev).to(
+                torch.bfloat16, memory_format=torch.channels_last)
+            wb = torch.randn(cout, cin, k, k, generator=gen, device=dev).to(
+                torch.bfloat16, memory_format=torch.channels_last)
+            t_l = cuda_ms(lambda: F.conv2d(xb, wb, padding=k // 2))
+            ops = 2.0 * b * h * w * k * k * cin * cout
+            nbytes = (b * h * w * (cin * _ESIZE[xk] + cout * _ESIZE[ok_]) + k * k * cin * cout
+                      + 8 * cout)
+            t_ops, t_bytes = ops / PEAK_INT8_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            bound = max(t_ops, t_bytes)
+            plan = qconv_plan(k, cin, cout)
+            path = ("fold" if plan.fold else f"split {cin_split(plan, b, h, w, sms)}") + \
+                f", bn {plan.bn}"
+            times[key] = dict(ms=t_k, plain=t_p, lib=t_l, bound=bound,
+                              ops_bound=bound if t_ops >= t_bytes else 0.0)
+            log(f"[kernel-time] dense B{b} {h}x{w} {cin}->{cout} {xk}->{ok_} act={act} ({path}): "
+                f"kernel {t_k:.4f} ms ({ops / t_k / 1e9:.1f} TOP/s), bound {bound * 1e3:.1f} us "
+                f"({'ops' if t_ops >= t_bytes else 'bytes'}; {bound / t_k:.1%} of it), cuDNN "
+                f"bf16 {t_l:.4f} ms, plain {t_p:.4f} ms")
+    per_path = {}
+    for path, calls in dense_calls.items():
+        tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "ops_bound": 0.0}
+        for c in calls:
+            t = times[(c["k"], c["B"], c["H"], c["W"], c["cin"], c["cout"], c["x"], c["out"],
+                       c["act"])]
+            for k in tot:
+                tot[k] += t[k]
+        tot["calls"] = len(calls)
+        per_path[path] = tot
+        log(f"[kernel-time] one {path} int8 forward's {len(calls)} calls: kernel "
+            f"{tot['ms']:.3f} ms, bound {tot['bound']:.3f} ms ({tot['bound'] / tot['ms']:.1%} of "
+            f"it; {tot['ops_bound']:.3f} ms of it ops-bound), cuDNN bf16 {tot['lib']:.3f} ms, "
+            f"plain {tot['plain']:.3f} ms")
+    return per_path
 
 
 def build_model(dev):
@@ -339,6 +439,59 @@ def build_model(dev):
     return cfg, model.to(dev).eval()
 
 
+def build_dense(name, batch_size, dev):
+    """A dense model of the zoo at its full width (256x640, ``small``),
+    seeded weights and non-trivial BN statistics."""
+    import torch
+
+    from cvm_tpu_torch.models.layers import BatchNorm
+    from cvm_tpu_torch.models.registry import get_model
+
+    spec = get_model(name)
+    cfg = spec.params_cls(batch_size=batch_size)
+    gen = torch.Generator().manual_seed(0)
+    model = spec.create_model(cfg, "cpu", gen)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+    return cfg, model.to(dev).eval()
+
+
+def record_k2_calls(cfg, model, dev):
+    """The K2 calls of one int8 forward (``w8a8_fused_chain`` with
+    placeholder scales): shape, input and output type, activation."""
+    import torch
+
+    from cvm_tpu_torch.infer import quantize as qz
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.models.layers import Conv
+
+    scales = {n: 0.05 for n, m in model.named_modules() if isinstance(m, Conv)}
+    pipe = InferencePipeline(cfg, model, dev, input_format="rgb", w8a8=scales,
+                             w8a8_fused=True, w8a8_chain=True)
+    calls, real = [], qz.fused_qconv
+
+    def record(x, w_q, *a, **kw):
+        B, H, W, cin = x.shape
+        calls.append(dict(k=w_q.shape[0], B=B, H=H, W=W, cin=cin, cout=w_q.shape[-1],
+                          x=_KIND[str(x.dtype)], out=_KIND[str(kw["out_dtype"])],
+                          act=kw["act"]))
+        return real(x, w_q, *a, **kw)
+
+    qz.fused_qconv = record
+    try:
+        with torch.no_grad():
+            pipe.heads(torch.zeros(cfg.batch_size, *cfg.input_hw, 3, device=dev,
+                                   dtype=torch.bfloat16))
+    finally:
+        qz.fused_qconv = real
+    return calls
+
+
 def batch_to(batch, dev):
     import torch
 
@@ -360,6 +513,7 @@ def splat_cases(dev):
     # invalid, rows wider than a tile (flat chunks)
     for name, (b, k, hs, ws, c) in (("flagship", (16, 8, 128, 128, 10)),
                                     ("config-B", (8, 128, 128, 128, 80)),
+                                    ("multitask", (8, 128, 64, 160, 10)),
                                     ("24x40", (2, 6, 24, 40, 3)), ("ragged", (3, 7, 13, 17, 5)),
                                     ("K=0", (2, 0, 32, 32, 3)),
                                     ("all-invalid", (4, 16, 128, 128, 10)),
@@ -446,7 +600,7 @@ def phase_splat(dev):
                 f"device kernel(s): {kernels}")
             if len(kernels) != 1 or "splat" not in kernels[0]:
                 failures.append(f"expected one device kernel, the splat; got {kernels}")
-        if name in ("flagship", "config-B"):
+        if name in ("flagship", "config-B", "multitask"):
             t_k = cuda_ms(lambda: render_heatmap(*args, map_hw, c))
             t_p = cuda_ms(lambda: render_heatmap_reference(*args, map_hw, c))
             times[name] = (t_k, t_p)
@@ -459,6 +613,8 @@ def phase_splat(dev):
             bound = max(nbytes / 3.35e12, ops / 67e12) * 1e3
             if name == "flagship":
                 times["bound_ms"] = bound
+            if name == "multitask":
+                times["multitask_bound_ms"] = bound
             plan = splat_plan(B, *map_hw, c)
             note = (f"; kernel {t_k:.4f} ms (one kernel, no fill; {plan.blocks} blocks of "
                     f"{plan.rows} rows, {plan.smem_bytes} B shared), bound {bound * 1e3:.1f} us "
@@ -691,6 +847,172 @@ def phase_evaluate(dev, workdir, smi):
     return maps, launches
 
 
+def _rel_mean_diff(a, b) -> float:
+    return float((a.float() - b.float()).abs().mean() / b.float().abs().mean().clamp_min(1e-12))
+
+
+def phase_dense_serve(dev, smi):
+    """Each dense path at full width: calibration, the fp (BN folded) and
+    int8 (fused, chained) pipelines, K2's launches per int8 forward, the
+    int8 posture through K2 vs its plain version, latencies."""
+    import torch
+
+    from cvm_tpu_torch.data.synthetic import synthetic_batch
+    from cvm_tpu_torch.infer import quantize as qz
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+    from cvm_tpu_torch.pipeline.preprocess import preprocess_image_batch
+
+    log("[dense] tolerance, int8 through K2 vs through its plain version: mean |d| of "
+        "logits / depth <= 1% of the plain output's mean |value|; class maps agree on >= "
+        "99.5% of pixels")
+    launches = {}
+    for path, name, b, want in DENSE_PATHS:
+        t0 = time.perf_counter()
+        cfg, model = build_dense(name, b, dev)
+        rng = np.random.default_rng(0)
+        cal = []
+        for _ in range(3):
+            cb = synthetic_batch(rng, b, DENSE_PAD, num_classes=5)
+            cal.append(preprocess_image_batch(torch.from_numpy(cb["image"]).to(dev),
+                                              torch.from_numpy(cb["image_hw"]).to(dev),
+                                              cfg.input_hw)[0])
+        scales = qz.calibrate_activation_scales(model, cal)
+        t_cal = time.perf_counter() - t0
+        pipe_fp = InferencePipeline(cfg, model, dev, input_format="rgb", fold_bn=True)
+        pipe_q = InferencePipeline(cfg, model, dev, input_format="rgb", w8a8=scales,
+                                   w8a8_fused=True, w8a8_chain=True)
+        batch = synthetic_batch(np.random.default_rng(1), b, DENSE_PAD, num_classes=5)
+        out_fp = pipe_fp(batch)
+        fq.reset_counts()
+        out_q = pipe_q(batch)                  # a main path: the dense int8 posture
+        torch.cuda.synchronize()
+        counts = (fq.fused_qconv.launches, fq.fused_qconv.int8_out_launches,
+                  fq.fused_qconv.weight_packs)
+        launches[path] = counts[0]
+        if counts != (want, 7, 0):
+            raise AssertionError(f"{path}: expected K2 launches / int8-out / packs "
+                                 f"({want}, 7, 0) per int8 forward, got {counts}")
+        H, W = cfg.input_hw
+        want_shapes = {"class_map": (b, H, W), "depth": (b, H, W, 1), "boxes": (b, 100, 4),
+                       "scores": (b, 100)}
+        for posture, out in (("fp", out_fp), ("int8", out_q)):
+            for k, v in out.items():
+                if k in want_shapes and tuple(v.shape) != want_shapes[k]:
+                    raise AssertionError(f"{path} {posture}: {k} shape {tuple(v.shape)}")
+                if v.is_floating_point() and not torch.isfinite(v).all():
+                    raise AssertionError(f"{path} {posture}: non-finite {k}")
+        data = [torch.from_numpy(batch[k]).to(dev) for k in ("image", "image_hw")]
+        proc, _ = preprocess_image_batch(*data, cfg.input_hw, out_dtype=torch.bfloat16)
+        with torch.no_grad():
+            h_fp, h_k = pipe_fp.heads(proc), pipe_q.heads(proc)
+            real = qz.fused_qconv
+            qz.fused_qconv = lambda *a, w_packed=None, **k: fq.fused_qconv_reference(*a, **k)
+            try:
+                h_p = pipe_q.heads(proc)
+            finally:
+                qz.fused_qconv = real
+        notes, bad = [], []
+        for key in ("logits", "depth", "heatmap"):
+            if key not in h_k:
+                continue
+            d_kp = _rel_mean_diff(h_k[key], h_p[key])
+            d_fp = _rel_mean_diff(h_k[key], h_fp[key])
+            notes.append(f"{key}: kernel vs plain mean |d| {d_kp:.2e} of mean |plain|, int8 vs "
+                         f"fp {d_fp:.2e}")
+            if key in ("logits", "depth") and not d_kp <= 1e-2:
+                bad.append(f"{key} {d_kp}")
+        if "logits" in h_k:
+            agree = float((h_k["logits"].argmax(-1) == h_p["logits"].argmax(-1)).float().mean())
+            agree_fp = float((h_k["logits"].argmax(-1) == h_fp["logits"].argmax(-1))
+                             .float().mean())
+            notes.append(f"class maps: kernel vs plain agree on {agree:.4%}, int8 vs fp "
+                         f"{agree_fp:.4%}")
+            if not agree >= 0.995:
+                bad.append(f"class-map agreement {agree}")
+        lat_fp = host_ms(lambda: pipe_fp.predict(*data))
+        lat_q = host_ms(lambda: pipe_q.predict(*data))
+        log(f"[dense] {path:10s} B{b} {H}x{W}: K2 launches / int8-out / packs {counts}; "
+            + "; ".join(notes) + f"; calibration {t_cal:.1f} s; predict median of 20 on {smi}: "
+            f"fp (BN folded) {lat_fp:.3f} ms, int8 (fused, chained) {lat_q:.3f} ms")
+        if bad:
+            raise AssertionError(f"{path}: int8 posture through K2 disagrees with its plain "
+                                 f"version: {bad}")
+        del model, pipe_fp, pipe_q
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dense_train(smi):
+    """20 multitask steps through the CLI (one K1 launch per step), then 20
+    semseg steps with an eval."""
+    import torch
+
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        gs.reset_counts()
+        train_main(["--model", "multitask", "--workdir", wd] + DENSE_TRAIN_FLAGS)  # main path
+        torch.cuda.synchronize()
+        k1 = gs.render_heatmap.launches
+        rows = read_metrics(os.path.join(wd, "metrics.jsonl"))
+        losses = [r["loss"] for r in rows]
+        step_ms = statistics.median(1e3 / r["steps_per_sec"] for r in rows[5:])
+        log(f"[dense-train] multitask 20 steps (B8, 256x640, full width) in "
+            f"{time.perf_counter() - t0:.1f} s: {k1} K1 launches; loss first 5 "
+            f"{np.round(losses[:5], 4).tolist()}, last 5 {np.round(losses[-5:], 4).tolist()}; "
+            f"median {step_ms:.3f} ms/step on {smi} (host clock, a sync per step, steps 6-20)")
+        if [r["step"] for r in rows] != list(range(1, 21)):
+            raise AssertionError(f"multitask: expected 20 logged steps, got {len(rows)}")
+        if not all(np.isfinite(r[k]) for r in rows for k in ("loss", "grad_norm")):
+            raise AssertionError("multitask: non-finite loss or grad_norm")
+        if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            raise AssertionError(f"multitask: loss did not fall: {losses}")
+        if k1 != 20:
+            raise AssertionError(f"multitask: expected one K1 launch per step (20), got {k1}")
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        train_main(["--model", "semseg", "--workdir", wd, "--eval_every", "20",
+                    "--eval_batches", "2"] + DENSE_TRAIN_FLAGS)                 # main path
+        torch.cuda.synchronize()
+        rows = read_metrics(os.path.join(wd, "metrics.jsonl"))
+        train = [r for r in rows if "loss" in r]
+        evals = [r for r in rows if "val_miou" in r]
+        log(f"[dense-train] semseg 20 steps (B8, 256x640) with an eval in "
+            f"{time.perf_counter() - t0:.1f} s: loss first {train[0]['loss']:.4f}, last "
+            f"{train[-1]['loss']:.4f}; " + "; ".join(
+                f"step {r['step']}: val_miou {r['val_miou']:.4f}, val_pixel_acc "
+                f"{r['val_pixel_acc']:.4f}, {r['eval_seconds']:.2f} s" for r in evals))
+        if not all(np.isfinite(r["loss"]) for r in train):
+            raise AssertionError("semseg: non-finite loss")
+        if [r["step"] for r in evals] != [20] or not 0.0 <= evals[0]["val_miou"] <= 1.0:
+            raise AssertionError(f"semseg: expected val_miou in [0, 1] at step 20, got {evals}")
+    return k1
+
+
+def phase_benchmark():
+    """``cli.benchmark --configs A,B,C,D --iters 6`` in this process."""
+    import contextlib
+    import io
+
+    from cvm_tpu_torch.cli import benchmark
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        benchmark.main(["--configs", "A,B,C,D", "--iters", "6"])
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    for r in lines:
+        log(f"[benchmark] {json.dumps(r)}")
+    if [r["config"] for r in lines] != ["A", "B", "C", "D"]:
+        raise AssertionError(f"cli.benchmark: expected configs A-D, got {lines}")
+    for r in lines:
+        if not (np.isfinite(r["images_per_sec"]) and r["images_per_sec"] > 0
+                and r["p50_latency_ms"] > 0 and "mfu_pct" in r):
+            raise AssertionError(f"cli.benchmark: bad line {r}")
+
+
 def main() -> int:
     import torch
 
@@ -717,8 +1039,14 @@ def main() -> int:
         f"{_build.BUILD_SECONDS['gaussian_splat']:.1f} s, together "
         f"{time.perf_counter() - t0:.1f} s, into {_build.BUILD_DIR}")
 
-    # Phase 2: kernel vs plain.
-    max_err, k2 = phase_kernels(dev)
+    # Phase 2: kernel vs plain, at config B's shapes and at every shape of
+    # the dense models' int8 forwards (recorded from one forward each).
+    t0 = time.perf_counter()
+    dense_calls = {}
+    for path, name, b, _ in DENSE_PATHS:
+        dense_calls[path] = record_k2_calls(*build_dense(name, b, dev), dev)
+    max_err, k2, k2_dense = phase_kernels(dev, dense_calls)
+    log(f"[kernel] phase 2 took {time.perf_counter() - t0:.1f} s")
 
     # Phase 3: model, calibration, both pipelines.
     from cvm_tpu_torch.data.synthetic import synthetic_yuv420_batch
@@ -858,16 +1186,45 @@ def main() -> int:
         log(f"[evaluate] phase 11 took {time.perf_counter() - t0:.1f} s: mAP by posture {maps}, "
             f"{eval_launches} K2 launches")
 
+    # Phases 12-14: the dense zoo served, trained and timed.
+    t0 = time.perf_counter()
+    dense_launches = phase_dense_serve(dev, smi)
+    log(f"[dense] phase 12 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    dense_k1 = phase_dense_train(smi)
+    log(f"[dense-train] phase 13 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_benchmark()
+    log(f"[benchmark] phase 14 took {time.perf_counter() - t0:.1f} s")
+
     log(f"[card] {nvidia_smi()}")
+    # K2's numbers are those of one config-B int8 forward; launches count
+    # every main-path run (config B and each dense path), with each path's
+    # launches and per-forward times beside them.
+    k2_paths = {"config-B": dict(launches=launches, ms=k2["ms"], plain_ms=k2["plain"],
+                                 bound_ms=k2["bound"], library_ms=k2["lib"])}
+    for path, t in k2_dense.items():
+        k2_paths[path] = dict(launches=dense_launches[path], ms=t["ms"], plain_ms=t["plain"],
+                              bound_ms=t["bound"], library_ms=t["lib"])
+    k2_shapes = sorted({f"k{c['k']} B{c['B']} {c['H']}x{c['W']} {c['cin']}->{c['cout']}"
+                        for calls in dense_calls.values() for c in calls})
     print(json.dumps({"kernels": [{
         "name": "fused_qconv", "route": "cuda", "source": KERNEL_SOURCE,
-        "replaces": KERNEL_REPLACES, "launches": launches, "max_abs_err": max_err,
+        "replaces": KERNEL_REPLACES, "launches": sum(p["launches"] for p in k2_paths.values()),
+        "max_abs_err": max_err,
         "ms": k2["ms"], "plain_ms": k2["plain"], "bound_ms": k2["bound"],
-        "bound_by": k2["bound_by"], "library_ms": k2["lib"]}, {
+        "bound_by": k2["bound_by"], "library_ms": k2["lib"], "paths": k2_paths,
+        "dense_shapes_checked": k2_shapes}, {
         "name": "gaussian_splat", "route": "cuda", "source": SPLAT_SOURCE,
-        "replaces": SPLAT_REPLACES, "launches": splat_launches, "max_abs_err": splat_err,
+        "replaces": SPLAT_REPLACES, "launches": splat_launches + dense_k1,
+        "max_abs_err": splat_err,
         "ms": splat_times["flagship"][0], "plain_ms": splat_times["flagship"][1],
-        "bound_ms": splat_times["bound_ms"], "bound_by": "bytes", "library_ms": None}]}))
+        "bound_ms": splat_times["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        "paths": {"flagship training": dict(launches=splat_launches),
+                  "multitask training": dict(launches=dense_k1,
+                                             ms=splat_times["multitask"][0],
+                                             plain_ms=splat_times["multitask"][1],
+                                             bound_ms=splat_times["multitask_bound_ms"])}}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

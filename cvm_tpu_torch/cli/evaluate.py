@@ -1,5 +1,5 @@
 """Standalone evaluation: ``python -m cvm_tpu_torch.cli.evaluate --model
-centernet --workdir D [--device cuda]``.
+centernet|semseg|depth|multitask --workdir D [--device cuda]``.
 
 Mirrors ``cvm_tpu/cli/evaluate.py`` (``_build_val``, ``_emit``, ``main``)
 for a checkpoint: it loads the newest checkpoint of ``<workdir>/checkpoints``
@@ -8,7 +8,10 @@ for a checkpoint: it loads the newest checkpoint of ``<workdir>/checkpoints``
 asked for: fp, ``--fold_bn``, ``--tta hflip``, weight-only ``--quantize
 int8``, or calibrated W8A8 through the fused int8 kernel (``--quantize
 w8a8_fused[_chain]``), optionally on the mean of the last N checkpoints
-(``--average_last``). ``--artifact``, the XLA-composed int8 modes and
+(``--average_last``). Detection models report mAP, segmentation models
+mIoU and pixel accuracy (``--confusion`` adds the row-normalised confusion
+matrix), depth models abs_rel, rmse and the delta thresholds; multitask
+all three. ``--artifact``, the XLA-composed int8 modes, ``dmds`` and
 ``.cvrec`` data raise "not ported yet" with their ROADMAP item.
 """
 
@@ -31,8 +34,14 @@ def _build_val(args, cfg, pad_hw):
     from cvm_tpu_torch.data.synthetic import synthetic_batch
 
     rng = np.random.default_rng(999)
-    return [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=min(cfg.num_classes, 10))
+    return [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=_num_classes(cfg))
             for _ in range(args.batches)]
+
+
+def _num_classes(cfg) -> int:
+    """The synthetic scenes' class count: the model's (detection classes
+    for multitask, 3 for depth), at most 10."""
+    return min(getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 3)), 10)
 
 
 def _emit(args, m, step):
@@ -62,8 +71,7 @@ def _calibrate(args, cfg, model, pad_hw, device):
     rng = np.random.default_rng(0)
     procs = []
     for _ in range(max(args.calib_batches, 1)):
-        b = synthetic_batch(rng, max(cfg.batch_size, 2), pad_hw,
-                            num_classes=min(cfg.num_classes, 10))
+        b = synthetic_batch(rng, max(cfg.batch_size, 2), pad_hw, num_classes=_num_classes(cfg))
         proc, _ = preprocess_image_batch(torch.from_numpy(b["image"]).to(device),
                                          torch.from_numpy(b["image_hw"]).to(device),
                                          cfg.input_hw)
@@ -76,7 +84,8 @@ def _calibrate(args, cfg, model, pad_hw, device):
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--model", default=None, help="model-zoo name (centernet is ported)")
+    parser.add_argument("--model", default=None,
+                        help="model-zoo name: centernet, semseg, depth or multitask")
     parser.add_argument("--workdir", default="runs/default",
                         help="training workdir containing checkpoints/")
     parser.add_argument("--checkpoint_dir", default=None,
@@ -96,6 +105,9 @@ def main(argv=None):
     parser.add_argument("--tta", default="none", choices=("none", "hflip"),
                         help="test-time augmentation: hflip merges the flipped pass at "
                              "the head level (2x forward cost)")
+    parser.add_argument("--confusion", action="store_true",
+                        help="semseg/multitask: also emit the row-normalized confusion "
+                             "matrix (confusion[gt][pred])")
     parser.add_argument("--size_ap", action="store_true",
                         help="report COCO-style mAP_small/medium/large")
     parser.add_argument("--pr_out", default=None, metavar="FILE",
@@ -127,8 +139,8 @@ def main(argv=None):
     if args.pr_out and args.model not in ("centernet", "multitask"):
         parser.error(f"--pr_out needs a detection-capable model "
                      f"(centernet/multitask), got {args.model!r}")
-    if args.model != "centernet":
-        raise _not_ported(f"--model {args.model}", "15")
+    if args.model == "dmds":
+        raise _not_ported("--model dmds", "15")
     if args.data != "synthetic":
         raise SystemExit("--data: .cvrec record data is not ported yet (ROADMAP Queue 1 "
                          "item 11, the record loader); use --data synthetic")
@@ -142,7 +154,7 @@ def main(argv=None):
 
     import torch
 
-    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.models.registry import get_model
     from cvm_tpu_torch.train.checkpoints import load_params_cfg
     from cvm_tpu_torch.train.evaluate import evaluate_model
     from cvm_tpu_torch.train.loop import Trainer
@@ -151,18 +163,22 @@ def main(argv=None):
     # The checkpoint is self-describing: use the SAVED config, with only the
     # flags the user TYPED overriding it (a value equal to the class default
     # must still override, e.g. --ema_decay 0.0 to score the raw weights).
+    try:
+        params_cls = get_model(args.model).params_cls
+    except KeyError as e:
+        parser.error(str(e))
     ckpt_dir = args.checkpoint_dir or f"{args.workdir}/checkpoints"
     try:
-        cfg_saved = load_params_cfg(ckpt_dir, CenternetParams)
+        cfg_saved = load_params_cfg(ckpt_dir, params_cls)
     except (FileNotFoundError, OSError):
-        cfg_saved = CenternetParams()
+        cfg_saved = params_cls()
     cfg = cfg_saved
     if overrides:
         passed = {t.lstrip("-").split("=", 1)[0] for t in overrides if t.startswith("--")}
         base = cfg.to_dict()
-        cli_cfg = CenternetParams.from_cli(overrides).to_dict()
+        cli_cfg = params_cls.from_cli(overrides).to_dict()
         base.update({k: v for k, v in cli_cfg.items() if k in passed})
-        cfg = CenternetParams.from_dict(base)
+        cfg = params_cls.from_dict(base)
     pad_hw = (parse_hw(args.pad_hw, "--pad_hw") if args.pad_hw
               else (int(cfg.input_hw[0] * 1.5), int(cfg.input_hw[1] * 1.5)))
 
@@ -207,9 +223,10 @@ def main(argv=None):
     elif w8a8_fused:
         w8a8 = _calibrate(args, cfg, model, pad_hw, trainer.device)
 
-    m = evaluate_model("centernet", cfg, model, val, max_batches=args.batches,
+    m = evaluate_model(args.model, cfg, model, val, max_batches=args.batches,
                        device=trainer.device, per_class=args.per_class,
-                       size_buckets=args.size_ap, pr_curves=args.pr_out is not None,
+                       size_buckets=args.size_ap, confusion=args.confusion,
+                       pr_curves=args.pr_out is not None,
                        tta=args.tta, w8a8=w8a8, w8a8_fused=w8a8_fused,
                        w8a8_chain=args.quantize == "w8a8_fused_chain", fold_bn=args.fold_bn)
     if args.pr_out:

@@ -1,8 +1,9 @@
-"""Training entry point: ``python -m cvm_tpu_torch.cli.train --model centernet
---data synthetic --device cuda ...``.
+"""Training entry point: ``python -m cvm_tpu_torch.cli.train --model
+centernet|semseg|depth|multitask --data synthetic --device cuda ...``.
 
-Mirrors ``cvm_tpu/cli/train.py::main``: every ``CenternetParams`` field is a
-``--field value`` flag; ``--steps`` is the TOTAL step target, so a run that
+Mirrors ``cvm_tpu/cli/train.py::main``: every field of the model's params
+class (``models/registry.py``) is a ``--field value`` flag, with the
+class's defaults; ``--steps`` is the TOTAL step target, so a run that
 resumes from ``<workdir>/checkpoints`` trains only the remainder; SIGTERM
 and ``--max_seconds`` stop cleanly after the current step with a checkpoint
 of it. Metrics go to ``<workdir>/metrics.jsonl``.
@@ -31,7 +32,8 @@ import time
 _NOT_PORTED = {
     "auto_restart": (0, "11 (the stall watchdog)"), "tensorboard": (False, "16"),
     "eval_images": (0, "16"), "model_parallel": (1, "17"), "dcn_slices": (1, "17"),
-    "coordinator": (None, "17"),
+    "coordinator": (None, "17"), "num_processes": (None, "17"), "process_id": (None, "17"),
+    "profile_steps": (0, "16"), "debug_nans": (False, "16"), "decode_target": ("auto", "11"),
 }
 _NOT_PORTED_CFG = {"qat": (False, "13"), "remat": (False, "16"),
                    "aug_rotate_deg": (0.0, "16"), "tensor_parallel": (False, "17"),
@@ -44,7 +46,8 @@ def _not_ported(flag: str, item: str) -> SystemExit:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--model", required=True, help="zoo name (centernet is ported)")
+    parser.add_argument("--model", required=True,
+                        help="zoo name: centernet, semseg, depth or multitask")
     parser.add_argument("--data", default="synthetic",
                         help="'synthetic' (.cvrec record data is not ported yet)")
     parser.add_argument("--steps", type=int, default=1000,
@@ -65,7 +68,7 @@ def main(argv=None) -> int:
     parser.add_argument("--eval_batches", type=int, default=20)
     parser.add_argument("--keep_best", default=None, metavar="METRIC",
                         help="with --eval_every: keep the best checkpoint by this eval "
-                             "metric (e.g. mAP) in <workdir>/best")
+                             "metric (e.g. mAP, miou, delta1) in <workdir>/best")
     parser.add_argument("--keep_best_mode", default="max", choices=["max", "min"],
                         help="whether higher (max) or lower (min) is better")
     parser.add_argument("--early_stop", type=int, default=0, metavar="PATIENCE",
@@ -77,6 +80,11 @@ def main(argv=None) -> int:
     parser.add_argument("--model_parallel", type=int, default=1)
     parser.add_argument("--dcn_slices", type=int, default=1)
     parser.add_argument("--coordinator", default=None)
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--profile_steps", type=int, default=0)
+    parser.add_argument("--debug_nans", action="store_true")
+    parser.add_argument("--decode_target", default="auto")
     args, overrides = parser.parse_known_args(argv)
 
     if args.keep_best and args.eval_every <= 0:
@@ -91,9 +99,8 @@ def main(argv=None) -> int:
     for flag, (off, item) in _NOT_PORTED.items():
         if getattr(args, flag) != off:
             raise _not_ported(flag, item)
-    if args.model != "centernet":
-        raise SystemExit(f"--model {args.model} is not ported yet (ROADMAP Queue 1 "
-                         "item 15); centernet is")
+    if args.model == "dmds":
+        raise SystemExit("--model dmds is not ported yet (ROADMAP Queue 1 item 15)")
     if args.data != "synthetic":
         raise SystemExit("--data: .cvrec record data is not ported yet (ROADMAP Queue 1 "
                          "item 11, the record loader); use --data synthetic")
@@ -101,20 +108,24 @@ def main(argv=None) -> int:
     import numpy as np
 
     from cvm_tpu_torch.data.synthetic import SyntheticIterator, synthetic_batch
-    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.models.registry import get_model
     from cvm_tpu_torch.train.checkpoints import BestCheckpoint
     from cvm_tpu_torch.train.early_stop import EarlyStopper
     from cvm_tpu_torch.train.evaluate import evaluate_model
     from cvm_tpu_torch.train.loop import Trainer
     from cvm_tpu_torch.utils.config import parse_hw
 
-    cfg = CenternetParams.from_cli(overrides)
+    try:
+        spec = get_model(args.model)
+    except KeyError as e:
+        parser.error(str(e))
+    cfg = spec.params_cls.from_cli(overrides)
     for field, (off, item) in _NOT_PORTED_CFG.items():
-        if getattr(cfg, field) != off:
+        if getattr(cfg, field, off) != off:
             raise _not_ported(field, item)
     pad_hw = (parse_hw(args.pad_hw, "--pad_hw") if args.pad_hw
               else (int(cfg.input_hw[0] * 1.5), int(cfg.input_hw[1] * 1.5)))
-    nc = min(cfg.num_classes, 10)
+    nc = min(getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 3)), 10)
 
     trainer = Trainer(cfg, args.device, checkpoint_dir=f"{args.workdir}/checkpoints",
                       metrics_path=f"{args.workdir}/metrics.jsonl",
@@ -132,7 +143,7 @@ def main(argv=None) -> int:
         val = [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=nc)
                for _ in range(args.eval_batches)]
         t0 = time.perf_counter()
-        m = evaluate_model("centernet", cfg, trainer.eval_model(), val,
+        m = evaluate_model(args.model, cfg, trainer.eval_model(), val,
                            max_batches=args.eval_batches, device=trainer.device)
         seconds = time.perf_counter() - t0
         step = trainer.state.step

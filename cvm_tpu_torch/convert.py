@@ -8,7 +8,8 @@ flax ``{"params": ..., "batch_stats": ...}`` tree as numpy arrays (e.g. from
 Flax auto-names the backbone ``Backbone_0``; the port calls it ``backbone``.
 Every other module name is the same on both sides, so a path such as
 ``"Backbone_0/s2b0/c1/conv"`` (a calibration key) becomes
-``"backbone.s2b0.c1.conv"``.
+``"backbone.s2b0.c1.conv"``. A parameter that is a bare array rather than
+a module's (multitask's ``task_log_vars``) keeps its path as its name.
 """
 
 from __future__ import annotations
@@ -36,7 +37,9 @@ def convert_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
 
     def visit_params(node, path):
         name = flax_path_to_module_name("/".join(path))
-        if "kernel" in node:                      # nn.Conv: HWIO -> OIHW
+        if not isinstance(node, Mapping):         # a bare parameter (task_log_vars)
+            sd[name] = t(node)
+        elif "kernel" in node:                      # nn.Conv: HWIO -> OIHW
             sd[f"{name}.weight"] = t(node["kernel"]).permute(3, 2, 0, 1).contiguous()
             if "bias" in node:
                 sd[f"{name}.bias"] = t(node["bias"])

@@ -1,8 +1,11 @@
-"""End-to-end serving: RGB buffers or planar YUV420 -> preprocess ->
-CenterNet -> NMS-free decode -> boxes in source-image coordinates.
+"""End-to-end serving: RGB buffers or planar YUV420 -> preprocess -> model
+-> postprocess: for CenterNet and multitask the NMS-free decode with boxes
+in source-image coordinates; for semseg and multitask the class map; for
+depth and multitask the full-resolution depth.
 
-Mirrors ``cvm_tpu/infer/pipeline.py::InferencePipeline`` for CenterNet (2D
-heads) in its deploy postures:
+Mirrors ``cvm_tpu/infer/pipeline.py`` (``InferencePipeline``,
+``_postprocess``) for centernet (2D heads), semseg, depth and multitask in
+the deploy postures:
   * fp, optionally with BN folded (``fold_bn=True``);
   * static W8A8 through the fused int8 kernel (``w8a8=<scales>``,
     ``w8a8_fused=True``), optionally with int8-resident ResBlocks
@@ -23,8 +26,7 @@ from typing import Any, Dict, Mapping, Optional
 import torch
 import torch.nn as nn
 
-from cvm_tpu_torch.models.centernet.params import CenternetParams
-from cvm_tpu_torch.ops.decode import decode_centernet
+from cvm_tpu_torch.ops.decode import decode_centernet, semseg_argmax
 from cvm_tpu_torch.ops.image import map_boxes_to_input
 from cvm_tpu_torch.pipeline.preprocess import preprocess_image_batch, preprocess_yuv420_batch
 from cvm_tpu_torch.utils.batch import pad_rows
@@ -32,10 +34,33 @@ from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # The batch keys each input format reads, in ``predict``'s argument order.
 _KEYS = {"yuv420": ("y", "u", "v", "image_hw"), "rgb": ("image", "image_hw")}
+_MODELS = ("centernet", "semseg", "depth", "multitask")
+# The outputs hflip TTA flips back and averages: CenterNet's heatmap and
+# size (the sub-pixel offset keeps the plain pass's), and the dense maps.
+_TTA_KEYS = ("heatmap", "size", "logits", "depth")
+
+
+def postprocess(cfg, out: Dict[str, torch.Tensor], rois) -> Dict[str, torch.Tensor]:
+    """The model's outputs -> what the pipeline serves, by model name:
+    ``boxes`` (source-image coordinates), ``scores`` and ``classes`` for
+    centernet/multitask, ``class_map`` for semseg/multitask, ``depth``
+    (B, H, W, 1) for depth/multitask."""
+    res: Dict[str, torch.Tensor] = {}
+    if cfg.name in ("centernet", "multitask"):
+        stride = getattr(cfg, "stride", getattr(cfg, "det_stride", 4))
+        det = decode_centernet(out["heatmap"], out["offset"], out["size"], stride=stride,
+                               top_k=cfg.top_k)
+        res.update(boxes=map_boxes_to_input(det.boxes, rois), scores=det.scores,
+                   classes=det.classes)
+    if cfg.name in ("semseg", "multitask"):
+        res["class_map"] = semseg_argmax(out["logits"])
+    if cfg.name in ("depth", "multitask"):
+        res["depth"] = out["depth"]
+    return res
 
 
 class InferencePipeline:
-    """Predict for a CenterNet model on one device, from planar YUV420
+    """Predict for a model of the zoo on one device, from planar YUV420
     (``input_format="yuv420"``: y (B, Hm, Wm), u/v (B, Hm/2, Wm/2) uint8) or
     from padded RGB buffers (``"rgb"``: image (B, Hm, Wm, 3) uint8), each
     with the valid sizes image_hw (B, 2).
@@ -46,10 +71,13 @@ class InferencePipeline:
     back.
     """
 
-    def __init__(self, params: CenternetParams, model: nn.Module, device: DeviceLike,
+    def __init__(self, params, model: nn.Module, device: DeviceLike,
                  input_format: str = "yuv420", tta: str = "none",
                  w8a8: Optional[Dict[str, float]] = None, w8a8_fused: bool = False,
                  w8a8_chain: bool = False, fold_bn: bool = False):
+        if params.name not in _MODELS:
+            raise NotImplementedError(f"InferencePipeline: {params.name} is not ported yet "
+                                      "(ROADMAP Queue 1 item 15)")
         if input_format not in _KEYS:
             raise ValueError(f"input_format must be rgb|yuv420, got {input_format!r}")
         if tta not in ("none", "hflip"):
@@ -108,16 +136,18 @@ class InferencePipeline:
         self.model.load_state_dict(state_dict, strict=True)
 
     def heads(self, proc: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The model's heads on a preprocessed batch. With ``tta="hflip"``
-        the mirrored input's heatmap and size are flipped back and averaged
-        with the plain pass's (the standard CenterNet flip test); the
-        sub-pixel offset keeps the plain pass's."""
+        """The model's outputs on a preprocessed batch. With
+        ``tta="hflip"`` the mirrored input's heatmap, size, logits and depth
+        (those the model has) are flipped back and averaged with the plain
+        pass's (the standard CenterNet flip test); the sub-pixel offset
+        keeps the plain pass's."""
         out = self.model(proc)
         if self.tta == "hflip":
             flipped = self.model(torch.flip(proc, dims=(2,)))
             out = dict(out)
-            for k in ("heatmap", "size"):
-                out[k] = 0.5 * (out[k] + torch.flip(flipped[k], dims=(2,)))
+            for k in _TTA_KEYS:
+                if k in out:
+                    out[k] = 0.5 * (out[k] + torch.flip(flipped[k], dims=(2,)))
         return out
 
     @torch.no_grad()
@@ -129,11 +159,7 @@ class InferencePipeline:
             proc, rois = preprocess_yuv420_batch(*data, cfg.input_hw, out_dtype=torch.bfloat16)
         else:
             proc, rois = preprocess_image_batch(*data, cfg.input_hw, out_dtype=torch.bfloat16)
-        out = self.heads(proc)
-        det = decode_centernet(out["heatmap"], out["offset"], out["size"],
-                               stride=cfg.stride, top_k=cfg.top_k)
-        return {"boxes": map_boxes_to_input(det.boxes, rois), "scores": det.scores,
-                "classes": det.classes}
+        return postprocess(cfg, self.heads(proc), rois)
 
     def __call__(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         """batch: the format's keys (numpy arrays or tensors); other keys

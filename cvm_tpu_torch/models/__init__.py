@@ -1,1 +1,4 @@
-"""Counterpart of ``cvm_tpu.models``: layers, backbones and CenterNet."""
+"""Counterpart of ``cvm_tpu.models``: layers, backbones, the zoo (CenterNet,
+semseg, depth, multitask) and its registry."""
+
+from cvm_tpu_torch.models.registry import ModelSpec, get_model, get_model_zoo  # noqa: F401

@@ -17,7 +17,7 @@ import torch.nn as nn
 
 from cvm_tpu_torch.models.backbones import make_backbone, validate_input_hw
 from cvm_tpu_torch.models.centernet.params import CenternetParams
-from cvm_tpu_torch.models.layers import Conv, Head, UpBlock
+from cvm_tpu_torch.models.layers import Head, UpBlock, init_weights
 from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # Focal-loss prior: initial heatmap prob ~0.1 everywhere.
@@ -49,29 +49,6 @@ class CenterNet(nn.Module):
             s //= 2
             h = getattr(self, f"up{i}")(h, skips[s])
         return {"heatmap": self.hm(h), "offset": self.off(h), "size": self.size(h)}
-
-
-@torch.no_grad()
-def init_weights(model: nn.Module, generator: torch.Generator) -> None:
-    """Flax's default init, drawn from ``generator`` (a CPU generator):
-    conv kernels lecun-normal (truncated normal, variance 1/fan_in), conv
-    biases zero except each head's projection (its ``bias_init_value``),
-    BatchNorm scale 1, bias 0, mean 0, var 1."""
-    # flax truncates at +-2 std and rescales so the variance stays 1/fan_in.
-    std_fix = 0.87962566103423978
-    for mod in model.modules():
-        if isinstance(mod, Conv):
-            fan_in = mod.weight[0].numel()
-            w = torch.empty(mod.weight.shape)
-            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
-            mod.weight.copy_(w * (math.sqrt(1.0 / fan_in) / std_fix))
-            if mod.bias is not None:
-                mod.bias.zero_()
-        elif isinstance(mod, nn.BatchNorm2d):
-            mod.reset_parameters()
-    for mod in model.modules():
-        if isinstance(mod, Head):
-            mod.out.bias.fill_(mod.bias_init_value)
 
 
 def create_model(params: CenternetParams, device: DeviceLike,

@@ -20,8 +20,7 @@ from cvm_tpu_torch.models.centernet.params import CenternetParams
 from cvm_tpu_torch.ops.cuda.gaussian_splat import render_heatmap, render_heatmap_reference
 from cvm_tpu_torch.ops.heatmap import CenternetTargets, render_centernet_targets_batch
 from cvm_tpu_torch.ops.image import map_boxes_to_output
-from cvm_tpu_torch.pipeline.preprocess import (AugDraws, aug_from_params, draw_augmentation,
-                                               preprocess_batch)
+from cvm_tpu_torch.pipeline.preprocess import AugDraws, preprocess_with_rois, refuse_rotation
 
 Processor = Callable[..., Tuple[torch.Tensor, CenternetTargets]]
 
@@ -35,22 +34,15 @@ def make_processor(params: CenternetParams, train: bool) -> Processor:
     numbers are ``draws`` when given, else drawn from ``generator`` (on the
     batch's device); eval takes neither.
     """
-    aug = aug_from_params(params)
     if params.with_3d:
         raise NotImplementedError("with_3d: the 3D heads and targets are not ported yet "
                                   "(ROADMAP Queue 1 item 15)")
-    if aug.rotate_deg > 0.0:
-        raise NotImplementedError("aug_rotate_deg > 0: rotation augmentation is not "
-                                  "ported yet (ROADMAP Queue 1 item 16)")
+    refuse_rotation(params)
     splat = render_heatmap if params.use_pallas_splat else render_heatmap_reference
 
     def process(generator: Optional[torch.Generator], batch,
                 draws: Optional[AugDraws] = None) -> Tuple[torch.Tensor, CenternetTargets]:
-        B = batch["image_hw"].shape[0]
-        if train and draws is None:
-            draws = draw_augmentation(generator, B, params.input_hw, aug)
-        images, rois = preprocess_batch(batch, params.input_hw,
-                                        draws=draws if train else None)
+        images, rois = preprocess_with_rois(params, train, generator, batch, draws)
         boxes = map_boxes_to_output(batch["boxes"], rois) / params.stride
         K = boxes.shape[1]
         valid = (torch.arange(K, device=boxes.device)[None, :]

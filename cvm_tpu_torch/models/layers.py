@@ -20,6 +20,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import math
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -177,3 +179,26 @@ class Head(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = torch.float32 if self.training else None
         return self.out(self.c1(x), dtype=dtype).to(torch.float32)
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Flax's default init, drawn from ``generator`` (a CPU generator):
+    conv kernels lecun-normal (truncated normal, variance 1/fan_in), conv
+    biases zero except each head's projection (its ``bias_init_value``),
+    BatchNorm scale 1, bias 0, mean 0, var 1."""
+    # flax truncates at +-2 std and rescales so the variance stays 1/fan_in.
+    std_fix = 0.87962566103423978
+    for mod in model.modules():
+        if isinstance(mod, Conv):
+            fan_in = mod.weight[0].numel()
+            w = torch.empty(mod.weight.shape)
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+            mod.weight.copy_(w * (math.sqrt(1.0 / fan_in) / std_fix))
+            if mod.bias is not None:
+                mod.bias.zero_()
+        elif isinstance(mod, nn.BatchNorm2d):
+            mod.reset_parameters()
+    for mod in model.modules():
+        if isinstance(mod, Head):
+            mod.out.bias.fill_(mod.bias_init_value)

@@ -1,7 +1,9 @@
-"""NMS-free CenterNet decode on the device.
+"""NMS-free CenterNet decode on the device, and the dense models' class
+argmax, palette lookup and bilinear upsample.
 
 Mirrors ``cvm_tpu/ops/decode.py`` (``Detections``, ``decode_centernet``,
-``_decode_core``): sigmoid, a 3x3 SAME max-pool padded with -inf whose
+``_decode_core``, ``semseg_argmax``, ``colorize_semseg``,
+``upsample_bilinear``): sigmoid, a 3x3 SAME max-pool padded with -inf whose
 equality marks peaks, the two-stage exact top-k, and the offset/size gather.
 Heads are NHWC and are flattened as NHWC, so candidates rank in the
 reference's (pixel, class) order. ``torch.topk`` may order exactly equal
@@ -10,7 +12,7 @@ scores differently from ``lax.top_k``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -67,3 +69,28 @@ def _decode_core(heatmap, offset, size, stride, top_k, from_logits):
     h = sz[..., 1] * stride
     boxes = torch.stack([cx - w * 0.5, cy - h * 0.5, cx + w * 0.5, cy + h * 0.5], -1)
     return Detections(boxes, scores, cls), pix
+
+
+def semseg_argmax(logits: torch.Tensor) -> torch.Tensor:
+    """(B, H, W, C) logits -> (B, H, W) int32 class map; the first maximum
+    wins a tie, as ``jnp.argmax``."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
+
+
+def colorize_semseg(class_map: torch.Tensor, palette: torch.Tensor) -> torch.Tensor:
+    """(..., H, W) int class map + (C, 3) uint8 palette -> (..., H, W, 3)
+    RGB: one lookup-table gather on the class map's device."""
+    return palette.to(class_map.device)[class_map.long()]
+
+
+def upsample_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear upsample (B, h, w, C) -> (B, H, W, C) float32 with half-pixel
+    centres and border-replicate edges: ``sample_bilinear`` through
+    ``full_roi``, as the reference (``F.interpolate`` treats the edges
+    otherwise)."""
+    from cvm_tpu_torch.ops.image import full_roi, sample_bilinear
+
+    B, h, w = x.shape[:3]
+    hw = torch.tensor([h, w], dtype=torch.float32, device=x.device).expand(B, 2)
+    roi = full_roi(hw[:, 0], hw[:, 1], out_hw[0], out_hw[1])
+    return sample_bilinear(x, roi, out_hw)

@@ -2,7 +2,8 @@
 mapping, photometric augmentation.
 
 Mirrors ``cvm_tpu/ops/image.py`` (``Roi``, ``full_roi``, ``letterbox_roi``,
-``jittered_roi``, ``_axis_coords``, ``sample_bilinear``, ``yuv_to_rgb``,
+``jittered_roi``, ``_axis_coords``, ``sample_bilinear``, ``sample_nearest``,
+``yuv_to_rgb``,
 ``chroma_roi``, ``normalize_pm1``, ``map_points_to_input``,
 ``map_boxes_to_input``, ``map_points_to_output``, ``map_boxes_to_output``,
 ``clip_boxes``, ``photometric_augment``) with the same geometry: cv2
@@ -179,6 +180,33 @@ def sample_bilinear(image: torch.Tensor, roi: Roi, out_hw: Tuple[int, int],
     inside = in_y[:, :, None] & in_x[:, None, :]
     return torch.where(inside[..., None], out, torch.tensor(pad_value, dtype=torch.float32,
                                                             device=out.device))
+
+
+def sample_nearest(image: torch.Tensor, roi: Roi, out_hw: Tuple[int, int],
+                   valid_hw=None, pad_value=0) -> torch.Tensor:
+    """Nearest-neighbour resample of a batch through per-image ROIs (class
+    masks, sparse depth): the bilinear plan's lower neighbour where its
+    fraction is strictly below 0.5, else the upper one, so a mask's geometry
+    matches the image's. Keeps ``image``'s dtype.
+
+    image : (B, H, W) or (B, H, W, C); returns (B, out_h, out_w[, C]).
+    """
+    out_h, out_w = out_hw
+    B, H, W = image.shape[:3]
+    vh, vw = (H, W) if valid_hw is None else valid_hw
+    ylo, yhi, fy, in_y = _axis_coords(out_h, roi.dst_y0, roi.dst_h, roi.src_y0,
+                                      roi.src_h, vh)
+    xlo, xhi, fx, in_x = _axis_coords(out_w, roi.dst_x0, roi.dst_w, roi.src_x0,
+                                      roi.src_w, vw, flip=roi.flip_x)
+    yi = torch.where(fy < 0.5, ylo, yhi)
+    xi = torch.where(fx < 0.5, xlo, xhi)
+    b = torch.arange(B, device=image.device)[:, None, None]
+    out = image[b, yi[:, :, None], xi[:, None, :]]
+    inside = in_y[:, :, None] & in_x[:, None, :]
+    if out.dim() == 4:
+        inside = inside[..., None]
+    return torch.where(inside, out, torch.tensor(pad_value, dtype=image.dtype,
+                                                 device=image.device))
 
 
 def yuv_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,9 @@ deterministic part can be tested with numbers drawn by ``jax.random``.
 The reference's ``_materialize`` (an XLA ``optimization_barrier`` that stops
 a fusion on the TPU) has no counterpart: PyTorch runs eagerly and
 materializes every result. Rotation (``rotate_image_batch``) is not ported.
+``preprocess_with_rois`` and ``resample_labels`` are what the models'
+processors share: the images through the ROIs, then each per-pixel label
+map (class mask, sparse depth) through the same ROIs, nearest-neighbour.
 """
 
 from __future__ import annotations
@@ -23,7 +26,8 @@ import torch
 
 from cvm_tpu_torch.ops.image import (PhotoDraws, Roi, RoiDraws, chroma_roi, draw_photometric,
                                      draw_roi, jittered_roi, letterbox_roi, normalize_pm1,
-                                     photometric_augment, sample_bilinear, yuv_to_rgb)
+                                     photometric_augment, sample_bilinear, sample_nearest,
+                                     yuv_to_rgb)
 
 
 class AugConfig(NamedTuple):
@@ -141,3 +145,31 @@ def preprocess_yuv420_batch(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     rois = make_rois(image_hw, out_hw, None if draws is None else draws.roi)
     out = resample_yuv420_frame(y, u, v, image_hw, rois, out_hw)
     return _finish(out, draws, out_dtype), rois
+
+
+def refuse_rotation(params) -> None:
+    """Processors refuse rotation augmentation, which is not ported."""
+    if getattr(params, "aug_rotate_deg", 0.0) > 0.0:
+        raise NotImplementedError("aug_rotate_deg > 0: rotation augmentation is not "
+                                  "ported yet (ROADMAP Queue 1 item 16)")
+
+
+def preprocess_with_rois(params, train: bool, generator: Optional[torch.Generator], batch,
+                         draws: Optional[AugDraws]):
+    """The image half of every model's processor: (inputs, rois) through
+    the eval letterbox or, with ``train``, the training jitter and
+    photometric augmentation, its numbers ``draws`` when given, else drawn
+    from ``generator``."""
+    if train and draws is None:
+        draws = draw_augmentation(generator, batch["image_hw"].shape[0], params.input_hw,
+                                  aug_from_params(params))
+    return preprocess_batch(batch, params.input_hw, draws=draws if train else None)
+
+
+def resample_labels(batch, key: str, rois, out_hw, pad_value) -> torch.Tensor:
+    """A per-pixel label map of ``batch`` (mask or depth) through the
+    image's ROIs, nearest-neighbour, clamped to each image's valid extent."""
+    hw = batch["image_hw"]
+    src = batch[key].to(torch.int32) if key == "mask" else batch[key]
+    return sample_nearest(src, rois, out_hw, valid_hw=(hw[:, 0], hw[:, 1]),
+                          pad_value=pad_value)

@@ -6,9 +6,10 @@ Mirrors ``cvm_tpu/train/evaluate.py``. ``box_iou_matrix``,
 ``DetectionEvaluator``, ``Detection3dEvaluator``, ``SemsegEvaluator``,
 ``DepthEvaluator``, ``COCO_IOU_THRESHOLDS`` and ``_COCO_AREA_BUCKETS`` are
 numpy only and copied verbatim (``tests/test_torch_vendored.py`` holds them
-identical to the originals). ``evaluate_model`` is ported for 2D CenterNet;
-the other models, the 3D heads and the GT-mask resample wait with ROADMAP
-Queue 1 item 15.
+identical to the originals). ``evaluate_model`` is ported for 2D CenterNet,
+semseg, depth and multitask, with the GT masks and depth resampled through
+the eval letterbox (``sample_nearest``); the 3D heads and DMDS wait with
+ROADMAP Queue 1 item 15.
 """
 
 from __future__ import annotations
@@ -325,6 +326,7 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
                    device: DeviceLike = "cuda", input_format: str = "auto",
                    per_class: bool = False,
                    size_buckets: bool = False,
+                   confusion: bool = False,
                    pr_curves: bool = False,
                    tta: str = "none",
                    w8a8: Optional[Dict[str, float]] = None,
@@ -335,33 +337,53 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
                    stats: Optional[Dict[str, float]] = None) -> Dict[str, float]:
     """Run the end-to-end pipeline over a loader and compute the metrics.
 
-    ``spec`` is the model's zoo name (``"centernet"``); ``model`` the
-    eval-mode model (the pipeline serves a copy, so it is left untouched);
+    ``spec`` is the model's zoo name (centernet, semseg, depth or
+    multitask); ``model`` the eval-mode model (the pipeline serves a copy,
+    so it is left untouched);
     ``device`` where the pipeline runs. ``input_format``: "rgb", "yuv420",
     or "auto" (from the first batch's keys). ``w8a8`` (calibrated
     ``{conv module name: scale}``), ``w8a8_fused``, ``w8a8_chain``,
     ``fold_bn`` and ``tta`` are the ``InferencePipeline`` knobs, so the
     deployed numerics are what is scored. ``predict_fn(batch) -> output
-    dict`` replaces the pipeline; ``model`` may then be None.
+    dict`` replaces the pipeline; ``model`` may then be None. Detection
+    models report mAP (``per_class``, ``size_buckets``, ``pr_curves``),
+    segmentation models mIoU and pixel accuracy (``per_class``,
+    ``confusion``), depth models abs_rel, sq_rel, rmse and delta1-3.
 
     ``stats``, when given, receives ``batches``, ``predict_s`` (host seconds
     in the pipeline, copies to and from the device included) and
     ``evaluator_s`` (host seconds in the evaluators).
     """
-    if spec != "centernet" or getattr(cfg, "with_3d", False):
+    if (spec not in ("centernet", "semseg", "depth", "multitask")
+            or getattr(cfg, "with_3d", False)):
         what = f"{spec} with_3d" if spec == "centernet" else spec
         raise NotImplementedError(f"evaluate_model: {what} is not ported yet "
                                   "(ROADMAP Queue 1 item 15)")
     from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.pipeline.preprocess import make_rois, resample_labels
 
     pipe = None  # built on the first batch once the format is known
-    det_eval = DetectionEvaluator(cfg.num_classes)
+    det_eval = seg_eval = dep_eval = None
     bucket_evals: Dict[str, DetectionEvaluator] = {}
-    if size_buckets:
-        # COCO-style area breakdown: out-of-bucket GTs are IGNORED (match
-        # neither TP nor FP) per the standard protocol.
-        bucket_evals = {name: DetectionEvaluator(cfg.num_classes)
-                        for name in _COCO_AREA_BUCKETS}
+    if spec in ("centernet", "multitask"):
+        n_det = getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 0))
+        det_eval = DetectionEvaluator(n_det)
+        if size_buckets:
+            # COCO-style area breakdown: out-of-bucket GTs are IGNORED
+            # (match neither TP nor FP) per the standard protocol.
+            bucket_evals = {name: DetectionEvaluator(n_det) for name in _COCO_AREA_BUCKETS}
+    if spec in ("semseg", "multitask"):
+        seg_eval = SemsegEvaluator(getattr(cfg, "num_classes", getattr(cfg, "num_seg_classes", 0)),
+                                   getattr(cfg, "ignore_index", 255))
+    if spec in ("depth", "multitask"):
+        dep_eval = DepthEvaluator()
+
+    def resample_gt(key, pad_value):
+        # The GT map through the eval letterbox on the CPU: it goes to the
+        # numpy evaluators.
+        gt = {k: torch.as_tensor(np.asarray(batch[k])) for k in ("image_hw", key)}
+        rois = make_rois(gt["image_hw"], cfg.input_hw)
+        return resample_labels(gt, key, rois, cfg.input_hw, pad_value).numpy()
 
     predict_s = evaluator_s = 0.0
     n = 0
@@ -382,8 +404,17 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
         out = {k: _to_numpy(v) for k, v in pipe(batch).items()}
         t1 = time.perf_counter()
         B = batch["image_hw"].shape[0]
+        gt_masks = gt_depths = None
+        if seg_eval is not None and "mask" in batch:
+            gt_masks = resample_gt("mask", getattr(cfg, "ignore_index", 255))
+        if dep_eval is not None and "depth" in batch and "depth" in out:
+            gt_depths = resample_gt("depth", 0.0)
         for i in range(B):
-            if "boxes" not in batch:
+            if gt_masks is not None:
+                seg_eval.add(out["class_map"][i], gt_masks[i])
+            if gt_depths is not None:
+                dep_eval.add(out["depth"][i][..., 0], gt_depths[i])
+            if det_eval is None or "boxes" not in batch:
                 continue
             ng = int(batch["num_objects"][i])
             gt_b = np.asarray(batch["boxes"][i][:ng])
@@ -404,11 +435,16 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
 
     t0 = time.perf_counter()
     metrics: Dict[str, float] = {}
-    metrics.update(det_eval.compute(per_class=per_class))
-    if pr_curves:
-        metrics["pr_curves"] = det_eval.pr_curves()
+    if det_eval is not None:
+        metrics.update(det_eval.compute(per_class=per_class))
+        if pr_curves:
+            metrics["pr_curves"] = det_eval.pr_curves()
     for name, ev in bucket_evals.items():
         metrics[f"mAP_{name}"] = ev.compute()["mAP"]
+    if seg_eval is not None:
+        metrics.update(seg_eval.compute(per_class=per_class, confusion=confusion))
+    if dep_eval is not None:
+        metrics.update(dep_eval.compute())
     if stats is not None:
         stats.update(batches=n, predict_s=predict_s,
                      evaluator_s=evaluator_s + time.perf_counter() - t0)

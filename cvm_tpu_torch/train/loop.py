@@ -1,10 +1,12 @@
-"""CenterNet training loop: train state, train/eval steps, ``Trainer``.
+"""Training loop: train state, train/eval steps, ``Trainer``.
 
 Mirrors ``cvm_tpu/train/loop.py`` (``TrainState``, ``create_train_state``,
-``make_train_step``, ``make_eval_step``, ``Trainer``) for CenterNet on one
-device. The reference compiles one program per step; here the same steps
-run eagerly: processor (with kernel K1 for the GT heatmap on the card),
-forward in training mode, loss, backward, optimizer update, EMA. Nothing in
+``make_train_step``, ``make_eval_step``, ``Trainer``) on one device, for
+any model of the registry (``models/registry.py``; the params' ``name``
+picks its model, loss and processor). The reference compiles one program
+per step; here the same steps run eagerly: processor (with kernel K1 for
+the GT heatmap of CenterNet and multitask on the card), forward in
+training mode, loss, backward, optimizer update, EMA. Nothing in
 a step reads a device value on the host; ``fit`` does so only at its log
 points.
 
@@ -33,10 +35,7 @@ import torch
 import torch.nn as nn
 
 from cvm_tpu_torch.data.loader import prefetch_to_device
-from cvm_tpu_torch.models.centernet.loss import centernet_loss
-from cvm_tpu_torch.models.centernet.model import create_model
-from cvm_tpu_torch.models.centernet.params import CenternetParams
-from cvm_tpu_torch.models.centernet.processor import make_processor
+from cvm_tpu_torch.models.registry import build_model, get_model
 from cvm_tpu_torch.train.checkpoints import CheckpointManager
 from cvm_tpu_torch.train.metrics import JsonlMetricsWriter
 from cvm_tpu_torch.train.optim import Optimizer, global_norm, make_optimizer
@@ -123,17 +122,19 @@ def step_generator(device: torch.device, seed: int, step: int) -> torch.Generato
 
 
 class Trainer:
-    """Steps, checkpoints and metrics for CenterNet on one device; the
-    counterpart of the reference's ``Trainer`` (without the mesh)."""
+    """Steps, checkpoints and metrics for one model on one device; the
+    counterpart of the reference's ``Trainer`` (without the mesh). The
+    model is the registry's entry named ``params_cfg.name``."""
 
-    def __init__(self, params_cfg: CenternetParams, device: DeviceLike,
+    def __init__(self, params_cfg, device: DeviceLike,
                  checkpoint_dir: Optional[str] = None, metrics_path: Optional[str] = None,
                  keep_checkpoints: int = 3, checkpoint_every: int = 1000, log_every: int = 50,
                  seed: int = 0):
         self.cfg = params_cfg
         self.device = resolve_device(device)
-        self.processor = make_processor(params_cfg, train=True)
-        self.train_step = make_train_step(centernet_loss, params_cfg, self.processor)
+        self.spec = get_model(params_cfg.name)
+        self.processor = self.spec.make_processor(params_cfg, train=True)
+        self.train_step = make_train_step(self.spec.loss_fn, params_cfg, self.processor)
         self.log_every, self.checkpoint_every, self.seed = log_every, checkpoint_every, seed
         self.data_state = None      # data stream state restored from a checkpoint
         self._stop_requested = False
@@ -177,7 +178,7 @@ class Trainer:
         """Build the model (weights drawn from ``seed``) and optimizer, and
         restore the newest checkpoint when there is one."""
         cfg = self.cfg
-        model = create_model(cfg, self.device, torch.Generator().manual_seed(self.seed))
+        model = build_model(self.spec, cfg, self.device, torch.Generator().manual_seed(self.seed))
         opt = make_optimizer(list(model.parameters()), cfg.learning_rate, cfg.total_steps,
                              cfg.warmup_steps, cfg.weight_decay,
                              grad_accum_steps=getattr(cfg, "grad_accum_steps", 1),

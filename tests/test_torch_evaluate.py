@@ -258,7 +258,7 @@ def test_pipeline_update_variables_and_refusals(trained):
     with pytest.raises(ValueError, match="rebuild the pipeline"):
         InferencePipeline(cfg, model, "cpu", fold_bn=True).update_variables(fresh.state_dict())
     with pytest.raises(NotImplementedError, match="item 15"):
-        t_eval.evaluate_model("semseg", cfg, model, [b], device="cpu")
+        t_eval.evaluate_model("dmds", cfg, model, [b], device="cpu")
     with pytest.raises(NotImplementedError, match="item 15"):
         t_eval.evaluate_model("centernet", cfg.replace(with_3d=True), model, [b], device="cpu")
 

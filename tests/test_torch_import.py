@@ -45,7 +45,10 @@ def test_every_module_imports_with_jax_blocked():
             "cvm_tpu_torch.ops.cuda.gaussian_splat", "cvm_tpu_torch.cli.evaluate",
             "cvm_tpu_torch.train.evaluate", "cvm_tpu_torch.train.early_stop",
             "cvm_tpu_torch.train.average", "cvm_tpu_torch.models.centernet.evaluate",
-            "cvm_tpu_torch.infer.quantize"} <= set(_module_names())
+            "cvm_tpu_torch.infer.quantize", "cvm_tpu_torch.models.registry",
+            "cvm_tpu_torch.cli.benchmark"} | {
+                f"cvm_tpu_torch.models.{m}.{part}" for m in ("semseg", "depth", "multitask")
+                for part in ("params", "model", "loss", "processor")} <= set(_module_names())
 
 
 def test_no_source_file_imports_jax_flax_or_the_jax_package():

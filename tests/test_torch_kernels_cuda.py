@@ -153,13 +153,44 @@ def test_fused_qconv_kernel_special_paths(cuda_device, name):
     _run_case(cuda_device, shape, mode, np.random.default_rng(len(name)), packed=True)
 
 
+# The dense models' new paths at 256x640 (config A at batch 1, C and D at
+# batch 8): name -> (B, H, W, Cin, Cout, mode, act). Stride 32 gives an 8x20
+# map, ragged in both H and W against the 16x8 pixel tile; at batch 1 its
+# Cin splits four ways over a cluster. The decoders concatenate skips into
+# Cin 160, 192 and 320, and run at stride 2 (128x320).
+DENSE = {
+    "b1_s5_c1": (1, 8, 20, 512, 512, "int8_out", "silu"),
+    "b1_s5_c2": (1, 8, 20, 512, 512, "int8_in", None),
+    "b1_up16_c1": (1, 16, 40, 768, 256, "bf16_in", "silu"),
+    "b1_stem": (1, 128, 320, 12, 32, "bf16_in", "silu"),
+    "b8_s5_c1": (8, 8, 20, 512, 512, "int8_out", "silu"),
+    "b8_up16_c1": (8, 16, 40, 768, 256, "bf16_in", "silu"),
+    "b8_up4_c1_semseg": (8, 64, 160, 192, 128, "bf16_in", "silu"),
+    "b8_up4_c1_multitask": (8, 64, 160, 320, 128, "bf16_in", "silu"),
+    "b8_up2_c1": (8, 128, 320, 160, 64, "bf16_in", "silu"),
+    "b8_head_c1": (8, 128, 320, 64, 64, "bf16_in", "silu"),
+}
+
+
+@pytest.mark.parametrize("name", list(DENSE))
+def test_fused_qconv_kernel_dense_paths(cuda_device, name):
+    B, H, W, cin, cout, mode, act = DENSE[name]
+    plan = qconv_plan(3, cin, cout)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if name.startswith("b1_s5"):
+        assert cin_split(plan, B, H, W, sms) == 4
+    _run_case(cuda_device, (3, B, H, W, cin, cout, act), mode,
+              np.random.default_rng(len(name) + cin), packed=True)
+
+
 def splat_case(dev, name):
     """Per-object inputs of the Gaussian splat K1 for one named case."""
-    # name -> (B, K, Hs, Ws, C) of the random cases: the main path's two
-    # shapes, a non-square map, a row length Ws*C that is not a multiple of
+    # name -> (B, K, Hs, Ws, C) of the random cases: the main paths' three
+    # shapes (multitask's stride-4 map of 256x640), a non-square map, a row length Ws*C that is not a multiple of
     # 4 floats, a 1x1 map with one class, no objects at all, objects that
     # are all invalid, and rows wider than a tile (flat chunks)
     shapes = {"flagship": (16, 8, 128, 128, 10), "config_b": (8, 128, 128, 128, 80),
+              "multitask": (8, 128, 64, 160, 10),
               "non_square": (2, 6, 24, 40, 3), "ragged": (3, 7, 13, 17, 5),
               "one_pixel": (2, 3, 1, 1, 1), "k0": (2, 0, 32, 32, 3),
               "all_invalid": (4, 16, 128, 128, 10), "wide_row": (1, 6, 8, 1024, 80)}
@@ -202,7 +233,7 @@ def splat_case(dev, name):
     return (iy, ix, sigma, radius, cls, v), (hs, ws), C
 
 
-SPLAT_CASES = ["flagship", "config_b", "empty", "border", "radius0", "overlap", "class_c",
+SPLAT_CASES = ["flagship", "config_b", "multitask", "empty", "border", "radius0", "overlap", "class_c",
                "non_square", "ragged", "one_pixel", "k0", "all_invalid", "huge_radius",
                "wide_row"]
 

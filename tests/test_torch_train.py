@@ -384,4 +384,4 @@ def test_cli_trains_resumes_and_refuses_unported_flags(tmp_path, capsys):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli_main(base + extra)
     with pytest.raises(SystemExit, match="not ported yet"):
-        cli_main(["--model", "semseg", "--device", "cpu"])
+        cli_main(["--model", "dmds", "--device", "cpu"])
