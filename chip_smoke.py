@@ -11,7 +11,10 @@ through ``cvm_tpu_torch.cli.train``, and evaluating it (with evals during
 training, then ``cvm_tpu_torch.cli.evaluate`` in four postures); then the
 dense zoo at full width (256x640, ``small`` backbone, space-to-depth
 stem): semseg (config A at batch 1, and batch 8), depth (config C) and
-multitask (config D), served, trained and timed by ``cli.benchmark``:
+multitask (config D), served, trained and timed by ``cli.benchmark``; then
+the int8 deployment slice: config B in W8A8 on ``torch._int_mm``, the
+trained model exported in five postures and each artifact served, and a
+QAT fine-tune of it:
 
   1. card, versions, both kernel builds (one nvcc each, started together);
   2. the fused W8A8 ConvBN kernel K2 vs its plain PyTorch version at every
@@ -59,7 +62,26 @@ multitask (config D), served, trained and timed by ``cli.benchmark``:
  13. dense training through ``cli.train.main``: 20 multitask steps (one K1
      launch per step, finite and falling loss), then 20 semseg steps with
      an eval (mIoU);
- 14. ``cli.benchmark --configs A,B,C,D --iters 6``: one JSON line each.
+ 14. ``cli.benchmark --configs A,B,C,D --iters 6``: one JSON line each;
+ 15. int8 through ``torch._int_mm``: one config-B batch-8 forward in
+     ``w8a8`` (dynamic scales) and one in ``w8a8_static`` (phase 3's
+     scales), every ``Int8Conv`` call recorded and its int32 sums held to
+     their float64 plain version exactly (stem, stride-2 convs and heads
+     included); the int8 convs' device time beside cuDNN's bf16 convs of
+     the same shapes; batch-8 ``predict`` of fp, ``w8a8``,
+     ``w8a8_static`` and ``w8a8_fused_chain`` on the host clock;
+ 16. ``cli.export`` of phase 8's step-40 checkpoint in five postures
+     (``none`` with BN folded, ``int8``, ``w8a8``, ``w8a8_fused``,
+     ``w8a8_fused_chain``; yuv420, buckets 1 and 8), each loaded by
+     ``ServingModel(device="cuda")``: its selftest passes, its outputs equal
+     the eager pipeline's of the same posture (boxes and classes
+     identically in the int8 postures), the fused artifacts launch K2 24
+     times per batch-8 call, and ``cli.serve --selftest`` exits 3 on a
+     tampered ``weights.npz``; the artifact's ``predict`` beside the eager
+     pipeline's;
+ 17. QAT: ``cli.train --qat true`` resumes phase 8's fp run for 20 steps
+     with an eval every 10 (one K1 launch per step, finite loss, the evals
+     under fake-quant).
 
 Device times come from CUDA events around 20 back-to-back calls while the
 card first sleeps through the host's enqueueing (``cuda_ms``). Any failure
@@ -151,6 +173,14 @@ _ESIZE = {"f32": 4, "bf16": 2, "int8": 1}
 MODES = {"f32->f32": ("f32", "f32"), "bf16->bf16": ("bf16", "bf16"),
          "int8->bf16": ("int8", "bf16"), "bf16->int8": ("bf16", "int8")}
 _KIND = {"torch.float32": "f32", "torch.bfloat16": "bf16", "torch.int8": "int8"}
+
+# Phase 16: the postures cli.export writes, each with its eager twin's
+# InferencePipeline flags.
+EXPORT_POSTURES = {"none": dict(fold_bn=True), "int8": {}, "w8a8": {},
+                   "w8a8_fused": dict(w8a8_fused=True),
+                   "w8a8_fused_chain": dict(w8a8_fused=True, w8a8_chain=True)}
+# Phase 17: the QAT fine-tune of phase 8's run, 20 more steps, 2 evals.
+QAT_FLAGS = ["--qat", "true", "--steps", "60", "--eval_every", "10", "--eval_batches", "1"]
 
 # The dense zoo's serving paths: (path, model, batch, K2 launches per int8
 # forward). Config A is semseg at batch 1.
@@ -1013,6 +1043,257 @@ def phase_benchmark():
             raise AssertionError(f"cli.benchmark: bad line {r}")
 
 
+def phase_int8(dev, cfg, model, scales, planes, pipe_fp, pipe_q, smi):
+    """Config B at batch 8 in ``w8a8`` and ``w8a8_static``: every Int8Conv
+    call's ``_int_mm`` sums against its float64 plain version, the int8
+    convs' device time beside cuDNN bf16, and batch-8 predict of four
+    postures."""
+    import torch
+    import torch.nn.functional as F
+
+    from cvm_tpu_torch.infer import quantize as qz
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.pipeline.preprocess import preprocess_yuv420_batch
+
+    pipes = {"w8a8": InferencePipeline(cfg, model, dev, w8a8=True),
+             "w8a8_static": InferencePipeline(cfg, model, dev, w8a8=scales)}
+    proc, _ = preprocess_yuv420_batch(*planes, cfg.input_hw, out_dtype=torch.bfloat16)
+    real = qz.Int8Conv.int8_conv
+    calls = []
+
+    def record(mod, xq):
+        acc = real(mod, xq)
+        calls.append((mod, xq, acc))
+        return acc
+
+    int8_ms, lib_ms = {}, {}
+    for name, pipe in pipes.items():
+        counts = pipe.int8_counts
+        calls.clear()
+        qz.Int8Conv.int8_conv = record
+        qz.Int8Conv.mm_launches = 0
+        try:
+            with torch.no_grad():
+                out = pipe.predict(*planes)       # a main path: the XLA-composed int8 posture
+            torch.cuda.synchronize()
+        finally:
+            qz.Int8Conv.int8_conv = real
+        launches = qz.Int8Conv.mm_launches
+        if counts["fp"] or launches != counts["int8"] or len(calls) != counts["int8"]:
+            raise AssertionError(f"{name}: {counts}, {launches} _int_mm launches, "
+                                 f"{len(calls)} calls recorded")
+        if not (torch.isfinite(out["scores"]).all() and torch.isfinite(out["boxes"]).all()):
+            raise AssertionError(f"{name}: non-finite results")
+        bad, kinds = [], set()
+        t_mm = t_lib = 0.0
+        for mod, xq, acc in calls:
+            ref = qz.int8_conv_reference(mod, xq)
+            if acc.dtype != torch.int32 or not torch.equal(acc, ref):
+                bad.append(f"k{mod.k} s{mod.stride} {tuple(xq.shape)}->{mod.cout}: max |d| "
+                           f"{(acc.double() - ref.double()).abs().max().item()}")
+            kinds.add((mod.k, mod.stride, mod.cin == 12, mod.bias is not None))
+            if name == "w8a8_static":  # one timing pass: the product is the same
+                B, H, W, cin = xq.shape
+                xb = torch.randn(B, cin, H, W, device=dev).to(torch.bfloat16,
+                                                              memory_format=torch.channels_last)
+                wb = torch.randn(mod.cout, cin, mod.k, mod.k, device=dev).to(
+                    torch.bfloat16, memory_format=torch.channels_last)
+                t_mm += cuda_ms(lambda: qz.int8_conv_mm(mod, xq), reps=10)
+                t_lib += cuda_ms(lambda: F.conv2d(xb, wb, stride=mod.stride,
+                                                  padding=mod.k // 2), reps=10)
+        log(f"[int8] {name}: {len(calls)} Int8Conv calls ({counts}), {launches} _int_mm "
+            f"launches; int32 sums vs float64 plain: {len(calls) - len(bad)} of {len(calls)} "
+            f"exact; kinds (k, stride, stem, bias) {sorted(kinds)}")
+        if bad:
+            raise AssertionError(f"{name}: _int_mm sums differ from the plain version: {bad}")
+        if not {(3, 2, False, False), (3, 1, True, False), (1, 1, False, True)} <= kinds:
+            raise AssertionError(f"{name}: stride-2, stem or head convs missing: {kinds}")
+        if name == "w8a8_static":
+            int8_ms["mm"], lib_ms["conv"] = t_mm, t_lib
+    for name, pipe in pipes.items():
+        int8_ms[name] = cuda_ms(lambda: pipe.heads(proc), reps=5)
+    int8_ms["fp"] = cuda_ms(lambda: pipe_fp.heads(proc), reps=5)
+    log(f"[int8] device ms per config-B batch-8 forward on {smi}: the 31 convs' _int_mm "
+        f"products {int8_ms['mm']:.3f} (im2col + _int_mm, inputs quantized), cuDNN bf16 "
+        f"convs of the same shapes {lib_ms['conv']:.3f}; whole forward fp (BN folded) "
+        f"{int8_ms['fp']:.3f}, w8a8 {int8_ms['w8a8']:.3f}, w8a8_static "
+        f"{int8_ms['w8a8_static']:.3f}")
+    lat = {"fp": host_ms(lambda: pipe_fp.predict(*planes))}
+    for name, pipe in pipes.items():
+        lat[name] = host_ms(lambda: pipe.predict(*planes))
+    lat["w8a8_fused_chain"] = host_ms(lambda: pipe_q.predict(*planes))
+    log(f"[int8] batch-8 predict, median of 20 (host clock) on {smi}: " + ", ".join(
+        f"{k} {v:.3f} ms" for k, v in lat.items()))
+    return len(calls)
+
+
+def phase_export(dev, workdir, smi):
+    """cli.export of the step-40 checkpoint in five postures, each served
+    by ServingModel on the card against its eager pipeline."""
+    import shutil
+
+    import torch
+
+    from cvm_tpu_torch.cli.export import calibration_scales
+    from cvm_tpu_torch.cli.export import main as export_main
+    from cvm_tpu_torch.data.synthetic import synthetic_yuv420_batch
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.infer.quantize import dequantize_params, quantize_params
+    from cvm_tpu_torch.infer.runtime import ServingModel
+    from cvm_tpu_torch.infer.selftest import compare, fingerprint
+    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+    from cvm_tpu_torch.train.checkpoints import load_params_cfg
+    from cvm_tpu_torch.train.loop import Trainer
+
+    ckdir = os.path.join(workdir, "checkpoints")
+    cfg = load_params_cfg(ckdir, CenternetParams)
+    trainer = Trainer(cfg, dev, checkpoint_dir=ckdir)
+    trainer.init_state()
+    model = trainer.eval_model(use_ema=cfg.ema_decay > 0.0)
+    pad = (int(cfg.input_hw[0] * 1.5) // 2 * 2, int(cfg.input_hw[1] * 1.5) // 2 * 2)
+    scales = calibration_scales(cfg, model, pad, 3, 1, dev)  # cli.export's, --batch_size 1
+    batch = synthetic_yuv420_batch(np.random.default_rng(4), B, pad, num_classes=10)
+    data = [batch[k] for k in ("y", "u", "v", "image_hw")]
+    launches = {}
+    log("[export] tolerance, artifact vs eager pipeline of the same posture: the selftest's "
+        "(each output's mean and std within 5% of its scale + 1e-3); boxes and classes "
+        "identical in the int8 postures")
+    for q, flags in EXPORT_POSTURES.items():
+        art = os.path.join(workdir, f"art_{q}")
+        t0 = time.perf_counter()
+        export_main(["--model", "centernet", "--checkpoint_dir", ckdir, "--out", art,
+                     "--quantize", q, "--input_format", "yuv420", "--batch_sizes", "1,8",
+                     "--device", "cuda"])
+        t_export = time.perf_counter() - t0
+        sm = ServingModel(art, device="cuda")
+        problems = sm.selftest()
+        eager_model = model
+        if q == "int8":
+            eager_model = trainer.eval_model(use_ema=cfg.ema_decay > 0.0)
+            params = dict(eager_model.named_parameters())
+            deq = dequantize_params(quantize_params(params)[0])
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(deq[n])
+        eager = InferencePipeline(cfg.replace(batch_size=B), eager_model, dev,
+                                  w8a8=scales if q.startswith("w8a8") else None, **flags)
+        fq.reset_counts()
+        got = sm(*data)                           # a main path: the served artifact
+        torch.cuda.synchronize()
+        launches[q] = (fq.fused_qconv.launches, fq.fused_qconv.int8_out_launches)
+        want = eager(batch)
+        diff = compare(fingerprint(want), fingerprint(got))
+        same = all(torch.equal(got[k], want[k]) for k in ("boxes", "classes"))
+        d_scores = float((got["scores"] - want["scores"]).abs().max())
+        t_art = host_ms(lambda: sm(*data))
+        planes = [torch.from_numpy(a).to(dev) for a in data]
+        t_eager = host_ms(lambda: eager.predict(*planes))
+        log(f"[export] {q:16s}: exported in {t_export:.1f} s ({os.path.getsize(art + '/model.pt2')} "
+            f"B program, {os.path.getsize(art + '/weights.npz')} B weights); selftest "
+            f"{problems or 'ok'}; vs eager: {diff or 'within tolerance'}, boxes and classes "
+            f"{'identical' if same else 'differ'}, max |d score| {d_scores:.3g}; K2 launches / "
+            f"int8-out per batch-8 call {launches[q]}; predict median of 20 on {smi}: artifact "
+            f"{t_art:.3f} ms (host numpy in), eager pipeline {t_eager:.3f} ms (planes resident)")
+        if problems or diff:
+            raise AssertionError(f"{q}: selftest {problems}, vs eager {diff}")
+        if q != "none" and not same:
+            raise AssertionError(f"{q}: artifact boxes or classes differ from the eager pipeline")
+        want_k2 = {"w8a8_fused": (24, 0), "w8a8_fused_chain": (24, 7)}.get(q, (0, 0))
+        if launches[q] != want_k2:
+            raise AssertionError(f"{q}: expected K2 launches / int8-out {want_k2} per batch-8 "
+                                 f"call, got {launches[q]}")
+        b3 = sm(*(a[:3] for a in data))           # the b8 bucket, padded
+        if tuple(b3["boxes"].shape) != (3, cfg.top_k, 4) or not torch.equal(
+                b3["boxes"], got["boxes"][:3]):
+            raise AssertionError(f"{q}: a batch of 3 through the b8 bucket differs")
+        # The b1 bucket against the eager pipeline at batch 1: a batch-1
+        # program's fp convs may take other cuDNN algorithms than batch 8's,
+        # so b1 and b8 are compared for information only.
+        eager1 = InferencePipeline(cfg.replace(batch_size=1), eager_model, dev,
+                                   w8a8=scales if q.startswith("w8a8") else None, **flags)
+        b1 = sm(*(a[:1] for a in data))
+        want1 = eager1({k: v[:1] for k, v in batch.items()})
+        diff1 = compare(fingerprint(want1), fingerprint(b1))
+        same1 = all(torch.equal(b1[k], want1[k]) for k in ("boxes", "classes"))
+        d_b1_b8 = float((b1["scores"].sort(dim=1).values - got["scores"][:1].sort(dim=1).values)
+                        .abs().max())
+        log(f"[export] {q:16s}: batch 3 through the b8 bucket equals rows 0-2; batch 1 through "
+            f"the b1 bucket vs the eager pipeline at batch 1: {diff1 or 'within tolerance'}, "
+            f"boxes and classes {'identical' if same1 else 'differ'}; b1 vs b8 row 0: max |d "
+            f"sorted score| {d_b1_b8:.3g}")
+        if diff1 or (q != "none" and not same1):
+            raise AssertionError(f"{q}: the b1 bucket differs from the eager pipeline at "
+                                 f"batch 1: {diff1}")
+    # A tampered weights file fails cli.serve --selftest with exit 3.
+    art = os.path.join(workdir, "art_w8a8_fused_chain")
+    bad = os.path.join(workdir, "art_tampered")
+    shutil.copytree(art, bad)
+    with np.load(os.path.join(bad, "weights.npz")) as z:
+        flat = {k: z[k] for k in z.files}
+    key = "hm.out.bias"  # the heatmap logits' bias: every score moves
+    flat[key] = flat[key] + 1.0
+    np.savez(os.path.join(bad, "weights.npz"), **flat)
+    cmd = [sys.executable, "-m", "cvm_tpu_torch.cli.serve", "--selftest", "--device", "cuda"]
+    rc_good = subprocess.run(cmd + ["--artifact", art], timeout=300).returncode
+    proc = subprocess.run(cmd + ["--artifact", bad], timeout=300, capture_output=True, text=True)
+    log(f"[export] cli.serve --selftest: untouched artifact exit {rc_good}; {key} + 1 in "
+        f"weights.npz: exit {proc.returncode} ({proc.stderr.strip().splitlines()[-1:]})")
+    if rc_good != 0 or proc.returncode != 3:
+        raise AssertionError(f"cli.serve --selftest: exits {rc_good} / {proc.returncode}, "
+                             "expected 0 / 3")
+    return launches
+
+
+def phase_qat(workdir, smi):
+    """--qat true on phase 8's fp run: 20 steps, an eval every 10."""
+    import torch
+
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+    from cvm_tpu_torch.train import qat
+    from cvm_tpu_torch.train.checkpoints import load_params_cfg
+
+    real, modes = qat.fq_conv, {True: 0, False: 0}
+
+    def counted(conv, x, dtype=None):
+        modes[conv.training] += 1
+        return real(conv, x, dtype)
+
+    metrics_path = os.path.join(workdir, "metrics.jsonl")
+    n0 = len(read_metrics(metrics_path))
+    t0 = time.perf_counter()
+    gs.reset_counts()
+    qat.fq_conv = counted
+    try:
+        train_main(TRAIN_FLAGS + QAT_FLAGS + ["--workdir", workdir])  # main path, QAT slice
+        torch.cuda.synchronize()
+    finally:
+        qat.fq_conv = real
+    rows = read_metrics(metrics_path)[n0:]
+    train = [r for r in rows if "loss" in r]
+    evals = [r for r in rows if "val_mAP" in r]
+    launches = gs.render_heatmap.launches
+    saved = load_params_cfg(os.path.join(workdir, "checkpoints"), CenternetParams)
+    log(f"[qat] 20 fake-quant steps (40 -> 60) on {smi} in {time.perf_counter() - t0:.1f} s: "
+        f"{launches} K1 launches; loss {train[0]['loss']:.4f} -> {train[-1]['loss']:.4f}; "
+        f"fake-quant conv calls: {modes[True]} in training mode, {modes[False]} in eval mode; "
+        + "; ".join(f"step {r['step']}: val_mAP {r['val_mAP']:.4f}" for r in evals)
+        + f"; saved config qat={saved.qat}")
+    if [r["step"] for r in train] != list(range(41, 61)):
+        raise AssertionError(f"qat: expected steps 41-60, got {[r['step'] for r in train]}")
+    if not all(np.isfinite(r[k]) for r in train for k in ("loss", "grad_norm")):
+        raise AssertionError("qat: non-finite loss or grad_norm")
+    if launches != 20:
+        raise AssertionError(f"qat: expected one K1 launch per step (20), got {launches}")
+    if [r["step"] for r in evals] != [50, 60] or not modes[True] or not modes[False]:
+        raise AssertionError(f"qat: evals {evals}, fake-quant calls {modes}")
+    if not saved.qat:
+        raise AssertionError("qat: the resumed run's saved config still says qat=false")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1167,14 +1448,16 @@ def main() -> int:
     log(f"[splat] phase 7 took {time.perf_counter() - t0:.1f} s")
 
     # Phases 8-9: training through the CLI, then the trained model served.
-    with tempfile.TemporaryDirectory() as workdir:
-        t0 = time.perf_counter()
-        splat_launches, step_ms = phase_train(dev, workdir)
-        log(f"[train] flagship step (B16, 512^2, config-B model, 10 classes) on {smi}: "
-            f"median {step_ms:.3f} ms/step ({1e3 / step_ms:.2f} steps/s; host clock, "
-            f"each step ending in a device sync; steps 6-30 of the first call)")
-        phase_serve_trained(dev, workdir)
-        log(f"[train] phases 8-9 took {time.perf_counter() - t0:.1f} s")
+    # Phases 16-17 export and fine-tune this run.
+    train_dir = tempfile.TemporaryDirectory()
+    workdir8 = train_dir.name
+    t0 = time.perf_counter()
+    splat_launches, step_ms = phase_train(dev, workdir8)
+    log(f"[train] flagship step (B16, 512^2, config-B model, 10 classes) on {smi}: "
+        f"median {step_ms:.3f} ms/step ({1e3 / step_ms:.2f} steps/s; host clock, "
+        f"each step ending in a device sync; steps 6-30 of the first call)")
+    phase_serve_trained(dev, workdir8)
+    log(f"[train] phases 8-9 took {time.perf_counter() - t0:.1f} s")
 
     # Phases 10-11: training with evals, then cli.evaluate on its workdir.
     with tempfile.TemporaryDirectory() as workdir:
@@ -1197,6 +1480,18 @@ def main() -> int:
     phase_benchmark()
     log(f"[benchmark] phase 14 took {time.perf_counter() - t0:.1f} s")
 
+    # Phases 15-17: the int8 deployment slice.
+    t0 = time.perf_counter()
+    phase_int8(dev, cfg, model, scales, planes, pipe_fp, pipe_q, smi)
+    log(f"[int8] phase 15 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    export_launches = phase_export(dev, workdir8, smi)
+    log(f"[export] phase 16 took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    qat_launches = phase_qat(workdir8, smi)
+    log(f"[qat] phase 17 took {time.perf_counter() - t0:.1f} s")
+    train_dir.cleanup()
+
     log(f"[card] {nvidia_smi()}")
     # K2's numbers are those of one config-B int8 forward; launches count
     # every main-path run (config B and each dense path), with each path's
@@ -1206,6 +1501,8 @@ def main() -> int:
     for path, t in k2_dense.items():
         k2_paths[path] = dict(launches=dense_launches[path], ms=t["ms"], plain_ms=t["plain"],
                               bound_ms=t["bound"], library_ms=t["lib"])
+    for q in ("w8a8_fused", "w8a8_fused_chain"):
+        k2_paths[f"artifact {q}"] = dict(launches=export_launches[q][0])
     k2_shapes = sorted({f"k{c['k']} B{c['B']} {c['H']}x{c['W']} {c['cin']}->{c['cout']}"
                         for calls in dense_calls.values() for c in calls})
     print(json.dumps({"kernels": [{
@@ -1216,11 +1513,12 @@ def main() -> int:
         "bound_by": k2["bound_by"], "library_ms": k2["lib"], "paths": k2_paths,
         "dense_shapes_checked": k2_shapes}, {
         "name": "gaussian_splat", "route": "cuda", "source": SPLAT_SOURCE,
-        "replaces": SPLAT_REPLACES, "launches": splat_launches + dense_k1,
+        "replaces": SPLAT_REPLACES, "launches": splat_launches + dense_k1 + qat_launches,
         "max_abs_err": splat_err,
         "ms": splat_times["flagship"][0], "plain_ms": splat_times["flagship"][1],
         "bound_ms": splat_times["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "paths": {"flagship training": dict(launches=splat_launches),
+                  "qat fine-tune": dict(launches=qat_launches),
                   "multitask training": dict(launches=dense_k1,
                                              ms=splat_times["multitask"][0],
                                              plain_ms=splat_times["multitask"][1],

@@ -1,18 +1,22 @@
 """Standalone evaluation: ``python -m cvm_tpu_torch.cli.evaluate --model
-centernet|semseg|depth|multitask --workdir D [--device cuda]``.
+centernet|semseg|depth|multitask --workdir D [--device cuda]``, or of an
+exported artifact: ``--artifact DIR``.
 
-Mirrors ``cvm_tpu/cli/evaluate.py`` (``_build_val``, ``_emit``, ``main``)
-for a checkpoint: it loads the newest checkpoint of ``<workdir>/checkpoints``
-(or ``--checkpoint_dir``, e.g. ``<workdir>/best`` from ``cli.train
---keep_best``) and scores it on fixed-seed synthetic scenes in the posture
-asked for: fp, ``--fold_bn``, ``--tta hflip``, weight-only ``--quantize
-int8``, or calibrated W8A8 through the fused int8 kernel (``--quantize
-w8a8_fused[_chain]``), optionally on the mean of the last N checkpoints
-(``--average_last``). Detection models report mAP, segmentation models
-mIoU and pixel accuracy (``--confusion`` adds the row-normalised confusion
-matrix), depth models abs_rel, rmse and the delta thresholds; multitask
-all three. ``--artifact``, the XLA-composed int8 modes, ``dmds`` and
-``.cvrec`` data raise "not ported yet" with their ROADMAP item.
+Mirrors ``cvm_tpu/cli/evaluate.py`` (``_build_val``, ``_emit``,
+``_evaluate_artifact``, ``main``). For a checkpoint it loads the newest of
+``<workdir>/checkpoints`` (or ``--checkpoint_dir``, e.g. ``<workdir>/best``
+from ``cli.train --keep_best``) and scores it on fixed-seed synthetic scenes
+in the posture asked for: fp, ``--fold_bn``, ``--tta hflip``, weight-only
+``--quantize int8``, W8A8 with dynamic scales (``--quantize w8a8``) or
+calibrated static ones (``w8a8_static``), or calibrated W8A8 through the
+fused int8 kernel (``--quantize w8a8_fused[_chain]``), optionally on the
+mean of the last N checkpoints (``--average_last``). ``--artifact`` scores
+a ``cli.export`` artifact as it is served (``infer/runtime.py``): the model
+and its config come from ``artifact.json``. Detection models report mAP,
+segmentation models mIoU and pixel accuracy (``--confusion`` adds the
+row-normalised confusion matrix), depth models abs_rel, rmse and the delta
+thresholds; multitask all three. ``dmds`` and ``.cvrec`` data raise "not
+ported yet" with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -26,15 +30,16 @@ def _not_ported(what: str, item: str) -> SystemExit:
     return SystemExit(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
 
 
-def _build_val(args, cfg, pad_hw):
-    """Held-out eval source: fixed-seed synthetic RGB scenes (the
-    reference's yuv420 variant serves only ``--artifact``, not ported)."""
+def _build_val(args, cfg, pad_hw, yuv420=False):
+    """Held-out eval source: fixed-seed synthetic scenes, RGB or (for a
+    yuv420 artifact) the same scenes as planes."""
     import numpy as np
 
-    from cvm_tpu_torch.data.synthetic import synthetic_batch
+    from cvm_tpu_torch.data.synthetic import synthetic_batch, synthetic_yuv420_batch
 
+    make = synthetic_yuv420_batch if yuv420 else synthetic_batch
     rng = np.random.default_rng(999)
-    return [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=_num_classes(cfg))
+    return [make(rng, cfg.batch_size, pad_hw, num_classes=_num_classes(cfg))
             for _ in range(args.batches)]
 
 
@@ -46,39 +51,81 @@ def _num_classes(cfg) -> int:
 
 def _emit(args, m, step):
     variant = ""
-    if args.quantize != "none" or args.fold_bn:
+    if args.artifact:
+        variant = f" artifact={args.artifact}"
+    elif args.quantize != "none" or args.fold_bn:
         variant = f" quantize={args.quantize}{' fold_bn' if args.fold_bn else ''}"
     print(f"[cvm_tpu_torch] eval model={args.model} step={step} split={args.split}{variant}: "
           f"{json.dumps(m, sort_keys=True)}", flush=True)
     if args.json_out:
         payload = {"model": args.model, "step": step, "quantize": args.quantize,
                    "fold_bn": args.fold_bn, **m}
+        if args.artifact:
+            payload["artifact"] = args.artifact
         with open(args.json_out, "w") as f:
             json.dump(payload, f)
 
 
+def _evaluate_artifact(parser, args, overrides):
+    """Score a ``cli.export`` artifact through the metric pipeline: the
+    program and the shipped weights run as a deployment runs them
+    (``ServingModel``), so this is what the artifact scores. The model and
+    its config come from ``artifact.json``; flags baked into the export are
+    refused."""
+    for flag, name in ((args.tta != "none", "--tta"), (args.quantize != "none", "--quantize"),
+                       (args.fold_bn, "--fold_bn"), (bool(args.average_last), "--average_last"),
+                       (bool(args.checkpoint_dir), "--checkpoint_dir")):
+        if flag:
+            parser.error(f"{name} does not apply to --artifact evaluation "
+                         "(those choices are baked into the export)")
+    if overrides:
+        parser.error(f"config overrides {overrides} don't apply to --artifact evaluation "
+                     "(the artifact is sealed)")
+
+    from cvm_tpu_torch.infer.runtime import ServingModel
+    from cvm_tpu_torch.models.registry import get_model
+    from cvm_tpu_torch.train.evaluate import evaluate_model
+
+    sm = ServingModel(args.artifact, device=args.device)
+    meta = sm.meta
+    name = meta.get("model")
+    if args.model and args.model != name:
+        parser.error(f"--model {args.model} but the artifact is a {name!r} export")
+    if args.pr_out and name not in ("centernet", "multitask"):
+        parser.error(f"--pr_out needs a detection-capable model (centernet/multitask); the "
+                     f"artifact is {name!r}")
+    args.model = name
+    cfg = get_model(name).params_cls.from_dict(meta["params_cfg"])
+    cfg = cfg.replace(batch_size=int(meta["batch_size"]))
+    pad_hw = tuple(meta["pad_hw"])  # the eval batches live on the artifact's canvas
+    if args.pad_hw:
+        from cvm_tpu_torch.utils.config import parse_hw
+
+        if tuple(parse_hw(args.pad_hw, "--pad_hw")) != pad_hw:
+            parser.error(f"--pad_hw must match the artifact's static canvas "
+                         f"{pad_hw[0]},{pad_hw[1]}")
+    val = _build_val(args, cfg, pad_hw, yuv420=sm.input_format == "yuv420")
+    m = evaluate_model(name, cfg, None, val, max_batches=args.batches, device=sm.device,
+                       per_class=args.per_class, size_buckets=args.size_ap,
+                       confusion=args.confusion, pr_curves=args.pr_out is not None,
+                       predict_fn=sm.predict_batch)
+    if args.pr_out:
+        with open(args.pr_out, "w") as f:
+            json.dump(m.pop("pr_curves", {}), f)
+        print(f"[cvm_tpu_torch] PR curves -> {args.pr_out}", file=sys.stderr)
+    _emit(args, m, step=-1)
+    return 0
+
+
 def _calibrate(args, cfg, model, pad_hw, device):
-    """The reference's calibration recipe (that of cli.export): synthetic
-    RGB scenes from ``default_rng(0)`` through the serving preprocess in
-    fp32, ``--calib_batches`` batches of ``max(batch_size, 2)``."""
-    import numpy as np
-    import torch
+    """The reference's calibration recipe, that of ``cli.export``
+    (``calibration_scales``): ``--calib_batches`` batches of
+    ``max(batch_size, 2)`` synthetic scenes."""
+    from cvm_tpu_torch.cli.export import calibration_scales
 
-    from cvm_tpu_torch.data.synthetic import synthetic_batch
-    from cvm_tpu_torch.infer.quantize import calibrate_activation_scales
-    from cvm_tpu_torch.pipeline.preprocess import preprocess_image_batch
-
-    rng = np.random.default_rng(0)
-    procs = []
-    for _ in range(max(args.calib_batches, 1)):
-        b = synthetic_batch(rng, max(cfg.batch_size, 2), pad_hw, num_classes=_num_classes(cfg))
-        proc, _ = preprocess_image_batch(torch.from_numpy(b["image"]).to(device),
-                                         torch.from_numpy(b["image_hw"]).to(device),
-                                         cfg.input_hw)
-        procs.append(proc)
-    scales = calibrate_activation_scales(model.to(device), procs)
+    scales = calibration_scales(cfg, model, pad_hw, args.calib_batches, cfg.batch_size, device)
     print(f"[cvm_tpu_torch] {args.quantize}: calibrated {len(scales)} convs on "
-          f"{len(procs)} synthetic batches", file=sys.stderr)
+          f"{max(args.calib_batches, 1)} synthetic batches", file=sys.stderr)
     return scales
 
 
@@ -119,21 +166,24 @@ def main(argv=None):
     parser.add_argument("--quantize", default="none",
                         choices=("none", "int8", "w8a8", "w8a8_static",
                                  "w8a8_fused", "w8a8_fused_chain"),
-                        help="score the DEPLOYED numerics: int8 = weight-only, "
-                             "w8a8_fused = calibrated static scales through the fused "
-                             "int8 ConvBN kernel, w8a8_fused_chain = + int8-resident "
-                             "ResBlock c1->c2 buffers (w8a8 and w8a8_static are not "
-                             "ported yet)")
+                        help="score the DEPLOYED numerics: int8 = weight-only, w8a8 = "
+                             "dynamic full-integer convs, w8a8_static = calibrated static "
+                             "scales (cli.export's calibration, so this scores a "
+                             "--quantize w8a8 artifact), w8a8_fused = the same lattice "
+                             "through the fused int8 ConvBN kernel, w8a8_fused_chain = + "
+                             "int8-resident ResBlock c1->c2 buffers")
     parser.add_argument("--fold_bn", action="store_true",
                         help="evaluate with conv+BN folded as at export time")
     parser.add_argument("--calib_batches", type=int, default=3,
-                        help="synthetic calibration batches for w8a8_fused[_chain]")
+                        help="synthetic calibration batches for w8a8_static and "
+                             "w8a8_fused[_chain]")
     parser.add_argument("--artifact", default=None, metavar="DIR",
-                        help="score a serialized export (not ported yet)")
+                        help="score a cli.export artifact (program + shipped weights, "
+                             "run as served) instead of a checkpoint")
     args, overrides = parser.parse_known_args(argv)
 
     if args.artifact:
-        raise _not_ported("--artifact", "14")
+        return _evaluate_artifact(parser, args, overrides)
     if not args.model:
         parser.error("--model is required (unless evaluating an --artifact)")
     if args.pr_out and args.model not in ("centernet", "multitask"):
@@ -144,8 +194,6 @@ def main(argv=None):
     if args.data != "synthetic":
         raise SystemExit("--data: .cvrec record data is not ported yet (ROADMAP Queue 1 "
                          "item 11, the record loader); use --data synthetic")
-    if args.quantize in ("w8a8", "w8a8_static"):
-        raise _not_ported(f"--quantize {args.quantize}", "13")
     w8a8_fused = args.quantize in ("w8a8_fused", "w8a8_fused_chain")
     if w8a8_fused and args.fold_bn:
         parser.error("--quantize w8a8_fused is incompatible with --fold_bn: "
@@ -220,7 +268,9 @@ def main(argv=None):
         with torch.no_grad():
             for name, p in params.items():
                 p.copy_(deq[name])
-    elif w8a8_fused:
+    elif args.quantize == "w8a8":
+        w8a8 = True
+    elif args.quantize != "none":  # w8a8_static, w8a8_fused[_chain]
         w8a8 = _calibrate(args, cfg, model, pad_hw, trainer.device)
 
     m = evaluate_model(args.model, cfg, model, val, max_batches=args.batches,

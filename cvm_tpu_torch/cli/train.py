@@ -17,6 +17,11 @@ without improvement. The chunks end at multiples of N (the reference ends
 them N steps after the start), so a run that is stopped and resumed
 evaluates at the same steps as one that is not.
 
+``--qat true`` trains with fake-quantized convs (``train/qat.py``). Flipped
+on a run resumed from an fp checkpoint (the reference's QAT fine-tune
+recipe), it takes effect, and ``<workdir>/checkpoints/params.json`` is
+rewritten to say so, since evaluation and export read the config there.
+
 Flags whose machinery is not ported raise instead of being ignored.
 """
 
@@ -35,13 +40,39 @@ _NOT_PORTED = {
     "coordinator": (None, "17"), "num_processes": (None, "17"), "process_id": (None, "17"),
     "profile_steps": (0, "16"), "debug_nans": (False, "16"), "decode_target": ("auto", "11"),
 }
-_NOT_PORTED_CFG = {"qat": (False, "13"), "remat": (False, "16"),
+_NOT_PORTED_CFG = {"remat": (False, "16"),
                    "aug_rotate_deg": (0.0, "16"), "tensor_parallel": (False, "17"),
                    "with_3d": (False, "15")}
 
 
 def _not_ported(flag: str, item: str) -> SystemExit:
     return SystemExit(f"--{flag} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def _record_qat_flip(workdir: str, cfg, keep_best: bool, params_cls, load_params_cfg) -> None:
+    """A resumed run whose ``--qat`` differs from its saved config trains
+    with the flag; the saved config is rewritten, so that evaluation and
+    export of the checkpoints from here on see it. A best checkpoint kept
+    before the flip was scored with the other numerics, so ``--keep_best``
+    then refuses."""
+    import os
+
+    ckdir = os.path.join(workdir, "checkpoints")
+    try:
+        saved = load_params_cfg(ckdir, params_cls)
+    except (FileNotFoundError, OSError):
+        return
+    if bool(saved.qat) == bool(cfg.qat):
+        return
+    if keep_best and os.path.exists(os.path.join(workdir, "best", "best.json")):
+        raise SystemExit(f"--qat {str(cfg.qat).lower()} flips the config of {workdir}, whose "
+                         f"best checkpoint was scored with qat={str(saved.qat).lower()}: "
+                         "fine-tune in a new workdir seeded with the checkpoint")
+    with open(os.path.join(ckdir, "params.json"), "w") as f:
+        f.write(saved.replace(qat=bool(cfg.qat)).to_json())
+    print(f"[cvm_tpu_torch] qat={str(cfg.qat).lower()} on a run saved with "
+          f"qat={str(saved.qat).lower()}: {ckdir}/params.json updated", file=sys.stderr,
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -109,7 +140,7 @@ def main(argv=None) -> int:
 
     from cvm_tpu_torch.data.synthetic import SyntheticIterator, synthetic_batch
     from cvm_tpu_torch.models.registry import get_model
-    from cvm_tpu_torch.train.checkpoints import BestCheckpoint
+    from cvm_tpu_torch.train.checkpoints import BestCheckpoint, load_params_cfg
     from cvm_tpu_torch.train.early_stop import EarlyStopper
     from cvm_tpu_torch.train.evaluate import evaluate_model
     from cvm_tpu_torch.train.loop import Trainer
@@ -126,6 +157,7 @@ def main(argv=None) -> int:
     pad_hw = (parse_hw(args.pad_hw, "--pad_hw") if args.pad_hw
               else (int(cfg.input_hw[0] * 1.5), int(cfg.input_hw[1] * 1.5)))
     nc = min(getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 3)), 10)
+    _record_qat_flip(args.workdir, cfg, bool(args.keep_best), spec.params_cls, load_params_cfg)
 
     trainer = Trainer(cfg, args.device, checkpoint_dir=f"{args.workdir}/checkpoints",
                       metrics_path=f"{args.workdir}/metrics.jsonl",

@@ -7,21 +7,26 @@ Mirrors ``cvm_tpu/infer/pipeline.py`` (``InferencePipeline``,
 ``_postprocess``) for centernet (2D heads), semseg, depth and multitask in
 the deploy postures:
   * fp, optionally with BN folded (``fold_bn=True``);
+  * W8A8 with dynamic scales (``w8a8=True``) or calibrated static ones
+    (``w8a8=<scales>``), every conv an ``Int8Conv``; both compose with
+    ``fold_bn`` (the quantizer then sees the folded kernels);
   * static W8A8 through the fused int8 kernel (``w8a8=<scales>``,
     ``w8a8_fused=True``), optionally with int8-resident ResBlocks
     (``w8a8_chain=True``);
   * any of them with horizontal-flip test-time augmentation
     (``tta="hflip"``).
+A ``qat`` config without ``w8a8`` serves the fake-quant convs of its train
+step (``train/qat.py``), so evals score the int8 numerics it trained for.
 It keeps the reference's refusals. The reference jits one program; here the
-same steps run eagerly on the pipeline's device. The XLA-composed int8
-paths (``w8a8=True``, static scales without the fused kernel) wait with
-ROADMAP Queue 1 item 13.
+same steps run eagerly on the pipeline's device, and ``cli/export.py``
+records them as one program (``torch.export``) of ``run``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Union
 
 import torch
 import torch.nn as nn
@@ -73,7 +78,7 @@ class InferencePipeline:
 
     def __init__(self, params, model: nn.Module, device: DeviceLike,
                  input_format: str = "yuv420", tta: str = "none",
-                 w8a8: Optional[Dict[str, float]] = None, w8a8_fused: bool = False,
+                 w8a8: Union[None, bool, Dict[str, float]] = None, w8a8_fused: bool = False,
                  w8a8_chain: bool = False, fold_bn: bool = False):
         if params.name not in _MODELS:
             raise NotImplementedError(f"InferencePipeline: {params.name} is not ported yet "
@@ -100,15 +105,19 @@ class InferencePipeline:
         if isinstance(w8a8, dict) and not w8a8:
             raise ValueError("w8a8 scales dict is empty — calibration produced no "
                              "per-conv scales; refusing to serve fp as 'int8'")
-        if w8a8 is not None and not w8a8_fused:
-            raise ValueError("only the fused W8A8 path is ported (set w8a8_fused=True); "
-                             "the XLA-composed ones are not ported yet (ROADMAP Queue 1 "
-                             "item 13)")
+        if w8a8 is False:
+            w8a8 = None
+        if w8a8 is not None and w8a8 is not True and not isinstance(w8a8, dict):
+            raise ValueError(f"w8a8 must be True (dynamic scales) or a scales dict, "
+                             f"got {type(w8a8).__name__}")
         self.cfg = params
         self.device = resolve_device(device)
         self.input_format, self.tta = input_format, tta
         self._plain_weights = not fold_bn and w8a8 is None
-        self.fused_counts = None
+        # A QAT model's fp forward is not what ships: serve the fake-quant
+        # convs its train step ran, unless an int8 path already runs.
+        self.fake_quant = bool(getattr(params, "qat", False)) and w8a8 is None
+        self.fused_counts = self.int8_counts = None
         if fold_bn:
             from cvm_tpu_torch.infer.fold_bn import fold_batchnorm
 
@@ -123,6 +132,10 @@ class InferencePipeline:
                                            chain=w8a8_chain)
             if not self.fused_counts["calls"]:
                 raise ValueError("w8a8_fused: no module matched the calibrated scales")
+        elif w8a8 is not None:
+            from cvm_tpu_torch.infer.quantize import swap_int8
+
+            self.int8_counts = swap_int8(model, None if w8a8 is True else w8a8)
         self.model = model
 
     def update_variables(self, state_dict: Mapping[str, torch.Tensor]) -> None:
@@ -141,19 +154,27 @@ class InferencePipeline:
         (those the model has) are flipped back and averaged with the plain
         pass's (the standard CenterNet flip test); the sub-pixel offset
         keeps the plain pass's."""
-        out = self.model(proc)
-        if self.tta == "hflip":
-            flipped = self.model(torch.flip(proc, dims=(2,)))
-            out = dict(out)
-            for k in _TTA_KEYS:
-                if k in out:
-                    out[k] = 0.5 * (out[k] + torch.flip(flipped[k], dims=(2,)))
+        from cvm_tpu_torch.train.qat import fake_quant_training
+
+        with fake_quant_training() if self.fake_quant else contextlib.nullcontext():
+            out = self.model(proc)
+            if self.tta == "hflip":
+                flipped = self.model(torch.flip(proc, dims=(2,)))
+                out = dict(out)
+                for k in _TTA_KEYS:
+                    if k in out:
+                        out[k] = 0.5 * (out[k] + torch.flip(flipped[k], dims=(2,)))
         return out
 
     @torch.no_grad()
     def predict(self, *data: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Device tensors in, device tensors out: ``(y, u, v, image_hw)``
         for yuv420, ``(image, image_hw)`` for rgb."""
+        return self.run(*data)
+
+    def run(self, *data: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """``predict`` without its ``no_grad``: the steps ``cli/export.py``
+        records as a program."""
         cfg = self.cfg
         if self.input_format == "yuv420":
             proc, rois = preprocess_yuv420_batch(*data, cfg.input_hw, out_dtype=torch.bfloat16)

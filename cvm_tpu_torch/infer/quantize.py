@@ -1,25 +1,38 @@
-"""Weight-only int8, and static-calibrated W8A8 serving through the fused
-int8 ConvBN kernel.
+"""Weight-only int8, and W8A8 serving: dynamic and static-calibrated int8
+convs (``_int_mm``), and static-calibrated W8A8 through the fused int8
+ConvBN kernel.
 
 Mirrors ``cvm_tpu/infer/quantize.py``: weight-only int8
 (``quantize_params``, ``dequantize_params``, ``quantization_error``; plain
-tensor arithmetic on the model's named parameters, no kernel) and the fused
-path (``calibrate_activation_scales``, ``prequantize_fused_weights``,
-``_bn_affine``, ``_fused_convbn``, ``_fused_resblock``,
-``w8a8_fused_inference``). The XLA-composed int8 paths (``w8a8_inference``,
-``w8a8_static_inference``) are not ported yet (ROADMAP Queue 1 item 13).
-For the fused path, the reference swaps modules at apply time with a
-flax method interceptor; the PyTorch counterpart swaps the modules
-themselves: ``swap_fused`` puts a ``FusedConvBN`` in place of every eligible
-ConvBN (stride 1, 1x1 or 3x3, calibrated input scale) and, with
-``chain=True``, a ``ChainedResBlock`` in place of every ResBlock whose convs
-are all calibrated, which keeps the c1 -> c2 buffer in int8.
+tensor arithmetic on the model's named parameters, no kernel), the
+XLA-composed W8A8 paths (``conv_geometry``, ``_int8_conv`` /
+``w8a8_inference``, ``_int8_conv_static`` / ``w8a8_static_inference``) and
+the fused path (``calibrate_activation_scales``,
+``prequantize_fused_weights``, ``_bn_affine``, ``_fused_convbn``,
+``_fused_resblock``, ``w8a8_fused_inference``).
+
+The reference swaps modules at apply time with flax method interceptors;
+the PyTorch counterparts swap the modules themselves:
+  * ``swap_int8`` puts an ``Int8Conv`` in place of every Conv (dynamic
+    scales) or of every Conv with a calibrated input scale (static); a conv
+    without a scale stays fp, as the reference documents, and is counted;
+  * ``swap_fused`` puts a ``FusedConvBN`` in place of every eligible ConvBN
+    (stride 1, 1x1 or 3x3, calibrated input scale) and, with
+    ``chain=True``, a ``ChainedResBlock`` in place of every ResBlock whose
+    convs are all calibrated, which keeps the c1 -> c2 buffer in int8.
+
+``Int8Conv`` is exact where an fp32 conv of int8 values is not (9 * 512 *
+127^2 > 2^24): on the card its product is ``torch._int_mm`` over an im2col
+of the int8 input, summed in int32, as the reference's
+``lax.conv_general_dilated(..., preferred_element_type=int32)``; its plain
+version (CPU tensors) sums the same lattice products in float64, which is
+exact too.
 
 Differences from the reference, on purpose:
   * the activations and BN eps come from the modules (the reference
     hardcodes silu and eps 1e-5 in its chained block);
-  * nothing falls back to fp silently: a module that ``swap_fused`` selects
-    but cannot run fused raises, and the swap reports how many it made.
+  * nothing falls back to fp silently: a conv or module the swaps select
+    but cannot run in int8 raises, and each swap reports its counts.
 """
 
 from __future__ import annotations
@@ -30,7 +43,9 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from cvm_tpu_torch.models.layers import ACTS, BatchNorm, Conv, ConvBN, ResBlock
+import torch.nn.functional as F
+
+from cvm_tpu_torch.models.layers import ACTS, BatchNorm, Conv, ConvBN, ResBlock, same_pads
 from cvm_tpu_torch.ops.cuda.fused_qconv import fused_qconv, pack_qconv_weights
 
 WeightTable = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
@@ -136,6 +151,161 @@ def prequantize_fused_weights(model: nn.Module) -> WeightTable:
             wq = torch.round(torch.clamp(kf / sw, -127.0, 127.0)).to(torch.int8)
             table[name] = (wq.contiguous(), sw)
     return table
+
+
+def div127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` as a true division, as XLA's (CUDA divides by a host
+    scalar through its reciprocal, which can move the quotient by one ulp
+    and a value across a rounding boundary of the int8 lattice)."""
+    return t / torch.full((), 127.0, dtype=t.dtype, device=t.device)
+
+
+def conv_geometry(k: int, s: int, h: int, w: int) -> Dict[str, Any]:
+    """``{"k", "stride", "pads": (top, bottom, left, right), "out_hw"}`` of
+    a k x k stride-s SAME conv on an h x w input: the one place that maps
+    the port's Conv onto an explicit conv (the int8 paths here;
+    ``train/qat.py`` runs the Conv's own ``conv_nhwc``)."""
+    pads = (*same_pads(h, k, s), *same_pads(w, k, s))
+    out_hw = ((h + pads[0] + pads[1] - k) // s + 1, (w + pads[2] + pads[3] - k) // s + 1)
+    return {"k": k, "stride": s, "pads": pads, "out_hw": out_hw}
+
+
+def im2col_int8(xq: torch.Tensor, geo: Dict[str, Any], kp: int) -> torch.Tensor:
+    """(B, H, W, C) int8 -> (B*Ho*Wo, kp) int8: the SAME-padded k x k
+    windows, K index ``(dy*k + dx)*C + c``, zero padded to ``kp`` columns."""
+    k, s, (pt, pb, pl, pr) = geo["k"], geo["stride"], geo["pads"]
+    ho, wo = geo["out_hw"]
+    if pt or pb or pl or pr:
+        xq = F.pad(xq, (0, 0, pl, pr, pt, pb))
+    B, C = xq.shape[0], xq.shape[-1]
+    taps = [xq[:, dy:dy + s * (ho - 1) + 1:s, dx:dx + s * (wo - 1) + 1:s, :]
+            for dy in range(k) for dx in range(k)]
+    if kp > k * k * C:
+        taps.append(xq.new_zeros((B, ho, wo, kp - k * k * C)))
+    cols = taps[0] if len(taps) == 1 else torch.cat(taps, dim=-1)
+    return cols.reshape(B * ho * wo, kp)
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+class Int8Conv(nn.Module):
+    """A Conv as W8A8 (``_int8_conv`` / ``_int8_conv_static``): the input
+    quantized per tensor, ``round(clip(x / sx, +-127))``, with the dynamic
+    ``sx = max|x| / 127 + 1e-8`` (``sx=None``) or a calibrated static
+    ``sx``; per-output-channel int8 weights ``sw = max|w| / 127 + 1e-12``
+    (quantized once, here: the reference's in-program formula); the int32
+    sum times ``sx * sw``, plus the bias in float32, cast to the module's
+    dtype. The scale stays a device tensor: no host sync per conv.
+
+    CUDA tensors: ``int8_conv_mm``, ``torch._int_mm`` of the im2col and the
+    (N, K) weight matrix, zero padded so that M > 16 and K, N are multiples
+    of 8 (exact: zero rows and columns add nothing). CPU tensors: the plain
+    version, ``int8_conv_reference``. ``Int8Conv.mm_launches`` counts the
+    ``_int_mm`` calls made on the card (not those a ``torch.export`` trace
+    records)."""
+
+    mm_launches = 0
+
+    def __init__(self, conv: Conv, sx: Optional[float]):
+        super().__init__()
+        if conv.groups != 1 or conv.dilation != (1, 1):
+            raise ValueError("Int8Conv: groups and dilation are not supported")
+        w = conv.weight.detach().to(torch.float32)
+        sw = div127(w.abs().amax(dim=(1, 2, 3))) + 1e-12
+        wq = torch.round(torch.clamp(w / sw[:, None, None, None], -127, 127)).to(torch.int8)
+        cout, cin, k, _ = wq.shape
+        self.k, self.stride, self.dtype = k, conv.stride[0], conv.dtype
+        self.cin, self.cout = cin, cout
+        self.kp, self.npad = _round_up(k * k * cin, 8), _round_up(cout, 8)
+        wmat = torch.zeros((self.npad, self.kp), dtype=torch.int8, device=w.device)
+        wmat[:cout, :k * k * cin] = wq.permute(0, 2, 3, 1).reshape(cout, k * k * cin)
+        self.register_buffer("wmat", wmat)
+        self.register_buffer("sw", sw)
+        self.register_buffer("bias", None if conv.bias is None
+                             else conv.bias.detach().to(torch.float32).clone())
+        self.register_buffer("sx", None if sx is None
+                             else torch.tensor(float(sx), dtype=torch.float32, device=w.device))
+
+    @property
+    def weight_oihw(self) -> torch.Tensor:
+        """The int8 weights (Cout, Cin, k, k)."""
+        k = self.k
+        return (self.wmat[:self.cout, :k * k * self.cin]
+                .reshape(self.cout, k, k, self.cin).permute(0, 3, 1, 2))
+
+    def quantize(self, x: torch.Tensor):
+        """(xq int8, sx float32 tensor) of the input."""
+        xf = x.to(torch.float32)
+        sx = div127(xf.abs().amax()) + 1e-8 if self.sx is None else self.sx
+        return torch.round(torch.clamp(xf / sx, -127, 127)).to(torch.int8), sx
+
+    def int8_conv(self, xq: torch.Tensor) -> torch.Tensor:
+        """The int32 conv sums of an int8 NHWC input."""
+        if xq.device.type == "cpu":
+            return int8_conv_reference(self, xq)
+        if xq.device.type != "cuda":
+            raise ValueError(f"Int8Conv: no int8 product for device {xq.device}")
+        acc = int8_conv_mm(self, xq)
+        if not torch.compiler.is_compiling():  # a call, not a trace by cli.export
+            Int8Conv.mm_launches += 1
+        return acc
+
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        xq, sx = self.quantize(x)
+        y = self.int8_conv(xq).to(torch.float32) * (sx * self.sw)
+        if self.bias is not None:
+            y = y + self.bias
+        return y.to(dtype or self.dtype)
+
+
+def int8_conv_mm(conv: Int8Conv, xq: torch.Tensor) -> torch.Tensor:
+    """``Int8Conv.int8_conv``'s product on the card: ``torch._int_mm`` of
+    the im2col (rows padded to 32 when M <= 16) and the (Np, Kp) weight
+    matrix, transposed (column-major, as cuBLASLt's int8 GEMM takes it)."""
+    geo = conv_geometry(conv.k, conv.stride, xq.shape[1], xq.shape[2])
+    cols = im2col_int8(xq, geo, conv.kp)
+    m = cols.shape[0]
+    if m <= 16:  # _int_mm takes M > 16
+        cols = torch.cat([cols, cols.new_zeros((32 - m, conv.kp))])
+    acc = torch._int_mm(cols, conv.wmat.t())
+    ho, wo = geo["out_hw"]
+    return acc[:m, :conv.cout].reshape(xq.shape[0], ho, wo, conv.cout)
+
+
+def int8_conv_reference(conv: Int8Conv, xq: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``Int8Conv.int8_conv``: the SAME conv of the lattice
+    values in float64 (exact: every partial sum is an integer below
+    2^53), returned as int32."""
+    geo = conv_geometry(conv.k, conv.stride, xq.shape[1], xq.shape[2])
+    pt, pb, pl, pr = geo["pads"]
+    xc = F.pad(xq.to(torch.float64).permute(0, 3, 1, 2), (pl, pr, pt, pb))
+    acc = F.conv2d(xc, conv.weight_oihw.to(torch.float64), stride=geo["stride"])
+    return acc.permute(0, 2, 3, 1).to(torch.int32)
+
+
+def swap_int8(model: nn.Module, scales: Optional[Dict[str, float]] = None) -> Dict[str, Any]:
+    """Swap, in place, every Conv for an ``Int8Conv``: with dynamic scales
+    when ``scales`` is None (``w8a8_inference``), else with its calibrated
+    ``scales[name]`` (``w8a8_static_inference``; ``{conv module name:
+    sx}``), where a conv without a scale stays fp. Returns ``{"int8": n,
+    "fp": m, "fp_convs": [names]}``. Raises when nothing was swapped."""
+    counts: Dict[str, Any] = {"int8": 0, "fp": 0, "fp_convs": []}
+    for pname, parent in list(model.named_modules()):
+        for cname, child in list(parent.named_children()):
+            if not isinstance(child, Conv):
+                continue
+            name = f"{pname}.{cname}" if pname else cname
+            if scales is not None and name not in scales:
+                counts["fp"] += 1
+                counts["fp_convs"].append(name)
+                continue
+            setattr(parent, cname, Int8Conv(child, None if scales is None else scales[name]))
+            counts["int8"] += 1
+    if not counts["int8"]:
+        raise ValueError("swap_int8: no conv matched the calibrated scales")
+    return counts
 
 
 def _bn_affine(bn: Optional[nn.Module], conv: Conv) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -2,7 +2,8 @@
 
 Port of ``cvm_tpu/infer/server.py::DynamicBatcher`` (stdlib + numpy there
 too). The reference module cannot be imported here: ``cvm_tpu.infer``
-imports flax eagerly. The HTTP ``ModelServer`` is not ported yet. The one
+imports flax eagerly. The HTTP ``ModelServer`` is not ported yet (ROADMAP
+Queue 1 item 11: its requests start from the JPEG decoder). The one
 change: a ``model_fn`` may return torch tensors (on any device); each is
 copied to the host once per batch before the per-request fan-out.
 """

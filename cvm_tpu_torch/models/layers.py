@@ -29,7 +29,8 @@ import torch.nn.functional as F
 ACTS = {None: lambda x: x, "silu": F.silu, "relu": F.relu}
 
 
-def _same_pads(size: int, k: int, s: int):
+def same_pads(size: int, k: int, s: int):
+    """(before, after) SAME padding of one axis."""
     out = -(-size // s)
     total = max((out - 1) * s + k - size, 0)
     return total // 2, total - total // 2
@@ -38,23 +39,37 @@ def _same_pads(size: int, k: int, s: int):
 class Conv(nn.Conv2d):
     """``flax.linen.Conv`` with SAME padding on NHWC tensors: computes in
     ``dtype`` (the fp32 weight is cast per call), bias added after the conv
-    in ``dtype``, output in ``dtype``."""
+    in ``dtype``, output in ``dtype``.
+
+    ``Conv.fake_quant``, when set (``train/qat.py::fake_quant_training``), is
+    a function ``(conv, x, dtype) -> y`` that every Conv's forward runs
+    instead: the reference swaps the conv at apply time with a flax method
+    interceptor, and a module swap would rename the checkpoint's keys."""
+
+    fake_quant = None
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int, stride: int = 1,
                  bias: bool = True, dtype: torch.dtype = torch.bfloat16):
         super().__init__(in_ch, out_ch, kernel, stride=stride, bias=bias)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        k, s, dt = self.kernel_size[0], self.stride[0], dtype or self.dtype
-        xc = x.to(dt).permute(0, 3, 1, 2)  # channels-last NCHW view
-        pt, pb = _same_pads(xc.shape[2], k, s)
-        pl, pr = _same_pads(xc.shape[3], k, s)
+    def conv_nhwc(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+        """The SAME conv of NHWC ``x`` with OIHW ``weight`` (same dtype), no
+        bias, NHWC out."""
+        k, s = self.kernel_size[0], self.stride[0]
+        xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view
+        (pt, pb), (pl, pr) = same_pads(xc.shape[2], k, s), same_pads(xc.shape[3], k, s)
         if pt == pb and pl == pr:
-            y = F.conv2d(xc, self.weight.to(dt), stride=s, padding=(pt, pl))
+            y = F.conv2d(xc, weight, stride=s, padding=(pt, pl))
         else:
-            y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), self.weight.to(dt), stride=s)
-        y = y.permute(0, 2, 3, 1)
+            y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), weight, stride=s)
+        return y.permute(0, 2, 3, 1)
+
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        if Conv.fake_quant is not None:
+            return Conv.fake_quant(self, x, dtype)
+        dt = dtype or self.dtype
+        y = self.conv_nhwc(x.to(dt), self.weight.to(dt))
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y

@@ -7,10 +7,14 @@ per-output-channel weights with int32 accumulation, then the f32 epilogue
 ``acc * scale + bias`` and silu / relu / nothing; optionally requantized into
 the consumer's lattice (``inv_s_out``, int8 out).
 
-``fused_qconv`` launches ``csrc/fused_qconv.cu`` for CUDA tensors and takes
-the plain version, ``fused_qconv_reference``, only for CPU tensors. A CUDA
-tensor never reaches the plain version through the wrapper: a tensor the
-kernel does not take raises, and so does a failed build or launch.
+``fused_qconv`` calls the PyTorch custom op ``cvm_tpu_torch::fused_qconv``
+(registered when this module is imported), so ``torch.export`` records the
+call in a serving program (``cli/export.py``). Its CUDA implementation
+launches ``csrc/fused_qconv.cu``; its CPU implementation is the plain
+version, ``fused_qconv_reference``, and only CPU tensors reach it. A CUDA
+tensor never reaches the plain version through the op: a tensor the kernel
+does not take raises, and so does a failed build or launch. The op's fake
+implementation gives each mode's output shape and dtype.
 
 The kernel reads its weights from a packed image (``pack_qconv_weights``):
 per Cout tile, per 32-wide Cin chunk and per tap, a K-major int8 slab laid
@@ -188,21 +192,8 @@ def _lib():
     return fn
 
 
-def fused_qconv(x, w_q, scale, bias, *, inv_sx: Optional[float],
-                act: Optional[str] = "silu",
-                out_dtype: torch.dtype = torch.bfloat16,
-                inv_s_out: Optional[float] = None,
-                w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """x (B,H,W,Cin) f32/bf16, or int8 lattice points with inv_sx=None;
-    w_q (k,k,Cin,Cout) int8; scale, bias (Cout,) f32 -> (B,H,W,Cout) of
-    out_dtype. ``w_packed``: ``pack_qconv_weights(w_q)``, made once by the
-    caller (the kernel reads only it). CPU tensors take the plain version;
-    CUDA tensors the kernel."""
-    if x.device.type == "cpu":
-        return fused_qconv_reference(x, w_q, scale, bias, inv_sx=inv_sx, act=act,
-                                     out_dtype=out_dtype, inv_s_out=inv_s_out)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_qconv: no kernel for device {x.device}")
+def _launch(x, w_q, scale, bias, w_packed, inv_sx, act, out_dtype, inv_s_out):
+    """The op's CUDA implementation: one launch of the kernel."""
     _check(x, w_q, scale, bias, inv_sx, act, out_dtype, inv_s_out)
     for name, t in (("x", x), ("w_q", w_q), ("scale", scale), ("bias", bias)):
         if not t.is_contiguous():
@@ -239,6 +230,48 @@ def fused_qconv(x, w_q, scale, bias, *, inv_sx: Optional[float],
     if out_dtype == torch.int8:
         fused_qconv.int8_out_launches += 1
     return out
+
+
+@torch.library.custom_op("cvm_tpu_torch::fused_qconv", mutates_args=())
+def fused_qconv_op(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   w_packed: Optional[torch.Tensor], inv_sx: Optional[float], act: Optional[str],
+                   out_dtype: torch.dtype, inv_s_out: Optional[float]) -> torch.Tensor:
+    """The custom op; ``fused_qconv`` (keyword arguments) is its front."""
+    raise ValueError(f"fused_qconv: no kernel for device {x.device}")
+
+
+@fused_qconv_op.register_kernel("cpu")
+def _fused_qconv_cpu(x, w_q, scale, bias, w_packed, inv_sx, act, out_dtype, inv_s_out):
+    return fused_qconv_reference(x, w_q, scale, bias, inv_sx=inv_sx, act=act,
+                                 out_dtype=out_dtype, inv_s_out=inv_s_out)
+
+
+@fused_qconv_op.register_kernel("cuda")
+def _fused_qconv_cuda(x, w_q, scale, bias, w_packed, inv_sx, act, out_dtype, inv_s_out):
+    return _launch(x, w_q, scale, bias, w_packed, inv_sx, act, out_dtype, inv_s_out)
+
+
+@fused_qconv_op.register_fake
+def _fused_qconv_fake(x, w_q, scale, bias, w_packed, inv_sx, act, out_dtype, inv_s_out):
+    _check(x, w_q, scale, bias, inv_sx, act, out_dtype, inv_s_out)
+    return x.new_empty((*x.shape[:3], w_q.shape[-1]), dtype=out_dtype)
+
+
+def fused_qconv(x, w_q, scale, bias, *, inv_sx: Optional[float],
+                act: Optional[str] = "silu",
+                out_dtype: torch.dtype = torch.bfloat16,
+                inv_s_out: Optional[float] = None,
+                w_packed: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """x (B,H,W,Cin) f32/bf16, or int8 lattice points with inv_sx=None;
+    w_q (k,k,Cin,Cout) int8; scale, bias (Cout,) f32 -> (B,H,W,Cout) of
+    out_dtype. ``w_packed``: ``pack_qconv_weights(w_q)``, made once by the
+    caller (the kernel reads only it). Through the custom op: CPU tensors
+    take the plain version, CUDA tensors the kernel; any other device
+    raises (a meta tensor would reach the op's fake implementation)."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_qconv: no kernel for device {x.device}")
+    return torch.ops.cvm_tpu_torch.fused_qconv(x, w_q, scale, bias, w_packed, inv_sx, act,
+                                               out_dtype, inv_s_out)
 
 
 fused_qconv.launches = 0           # kernel launches (CUDA tensors only)

@@ -1,2 +1,3 @@
 """Counterpart of ``cvm_tpu.train``: optimizer, training loop, checkpoints,
-metrics (CenterNet; evaluation, QAT and the mesh are not ported yet)."""
+metrics, evaluation and quantization-aware training, for every ported model
+(the mesh is not ported yet: ROADMAP Queue 1 item 17)."""

@@ -329,7 +329,7 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
                    confusion: bool = False,
                    pr_curves: bool = False,
                    tta: str = "none",
-                   w8a8: Optional[Dict[str, float]] = None,
+                   w8a8=None,
                    w8a8_fused: bool = False,
                    w8a8_chain: bool = False,
                    fold_bn: bool = False,
@@ -341,8 +341,9 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
     multitask); ``model`` the eval-mode model (the pipeline serves a copy,
     so it is left untouched);
     ``device`` where the pipeline runs. ``input_format``: "rgb", "yuv420",
-    or "auto" (from the first batch's keys). ``w8a8`` (calibrated
-    ``{conv module name: scale}``), ``w8a8_fused``, ``w8a8_chain``,
+    or "auto" (from the first batch's keys). ``w8a8`` (True for dynamic
+    scales, or calibrated ``{conv module name: scale}``), ``w8a8_fused``,
+    ``w8a8_chain``,
     ``fold_bn`` and ``tta`` are the ``InferencePipeline`` knobs, so the
     deployed numerics are what is scored. ``predict_fn(batch) -> output
     dict`` replaces the pipeline; ``model`` may then be None. Detection

@@ -18,8 +18,12 @@ chunk) does not change its numbers. The checkpoint carries the data
 stream's state, so a run resumed from any checkpoint continues the same
 data and augmentation stream, evaluations in between or not.
 
+With ``qat=True`` the train and eval steps run their forward under
+``train/qat.py::maybe_fake_quant``, as the reference's do.
+
 Not ported yet: the mesh and tensor-parallel sharding (ROADMAP Queue 1 item
-17), the stall watchdog and re-exec auto-restart, TensorBoard, QAT.
+17), the stall watchdog and re-exec auto-restart (item 11), TensorBoard
+(item 16).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from cvm_tpu_torch.models.registry import build_model, get_model
 from cvm_tpu_torch.train.checkpoints import CheckpointManager
 from cvm_tpu_torch.train.metrics import JsonlMetricsWriter
 from cvm_tpu_torch.train.optim import Optimizer, global_norm, make_optimizer
+from cvm_tpu_torch.train.qat import maybe_fake_quant
 from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -72,7 +77,9 @@ def make_train_step(loss_fn: Callable, params_cfg, processor: Callable) -> Calla
     def train_step(state: TrainState, raw_batch, generator: torch.Generator):
         inputs, targets = processor(generator, raw_batch)
         state.model.train()
-        out = state.model(inputs)
+        with maybe_fake_quant(params_cfg):
+            # qat=True: the loss surface includes the int8 rounding noise.
+            out = state.model(inputs)
         loss, metrics = loss_fn(out, targets, params_cfg)
         grads = torch.autograd.grad(loss, state.params)
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -101,12 +108,13 @@ def make_eval_step(loss_fn: Callable, params_cfg, processor: Callable) -> Callab
         was_training = model.training
         model.eval()
         try:
-            if use_ema:
-                names = [n for n, _ in model.named_parameters()]
-                out = torch.func.functional_call(model, dict(zip(names, state.ema)),
-                                                 (inputs,), strict=False)
-            else:
-                out = model(inputs)
+            with maybe_fake_quant(params_cfg):
+                if use_ema:
+                    names = [n for n, _ in model.named_parameters()]
+                    out = torch.func.functional_call(model, dict(zip(names, state.ema)),
+                                                     (inputs,), strict=False)
+                else:
+                    out = model(inputs)
         finally:
             model.train(was_training)
         _, metrics = loss_fn(out, targets, params_cfg)

@@ -1,0 +1,76 @@
+"""Quantization-aware training: fake-quantized convs with a straight-through
+estimator.
+
+Mirrors ``cvm_tpu/train/qat.py`` (``fake_quant_act``, ``fake_quant_weight``,
+``_fq_conv``, ``fake_quant_training``, ``maybe_fake_quant``). With
+``qat=True`` every ``models/layers.py::Conv`` runs the numerics of the
+dynamic int8 inference path (``infer/quantize.py`` ``Int8Conv``): a
+per-tensor activation scale max|x|/127 + 1e-8, per-output-channel symmetric
+weight scales, values snapped to the int8 grid. Each quantize-dequantize
+pair is ``x + (qdq(x) - x).detach()``: the forward pass sees the
+quantization noise, the backward pass is the identity.
+
+Stateless, as the reference: the scales come from the live tensors in each
+call, so a checkpoint gains no field. The reference swaps the convs at
+trace time with a flax method interceptor; here ``fake_quant_training``
+sets ``Conv.fake_quant`` for the duration of the block, so the modules, and
+the checkpoint's keys, stay as they are. The conv itself runs in the
+module's compute dtype (bf16), with the bias added in float32.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+import torch
+
+from cvm_tpu_torch.infer.quantize import div127
+from cvm_tpu_torch.models.layers import Conv
+
+
+def fake_quant_act(x: torch.Tensor) -> torch.Tensor:
+    """Per-tensor dynamic int8 quantize-dequantize with identity gradient;
+    float32 out (the caller casts to the conv's compute dtype)."""
+    xf = x.to(torch.float32)
+    s = div127(xf.detach().abs().amax()) + 1e-8
+    q = torch.round(torch.clamp(xf.detach() / s, -127, 127)) * s
+    return xf + (q - xf).detach()
+
+
+def fake_quant_weight(w: torch.Tensor) -> torch.Tensor:
+    """Per-output-channel (axis 0 of the OIHW weight; the reference's last
+    axis of HWIO) symmetric int8 quantize-dequantize with identity
+    gradient: the grid of ``quantize_params`` and ``Int8Conv``."""
+    wf = w.to(torch.float32)
+    s = div127(wf.detach().abs().amax(dim=tuple(range(1, wf.dim())), keepdim=True)) + 1e-12
+    q = torch.round(torch.clamp(wf.detach() / s, -127, 127)) * s
+    return wf + (q - wf).detach()
+
+
+def fq_conv(conv: Conv, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A Conv's forward on fake-quantized input and weight: the conv in the
+    compute dtype, the bias added in float32, the result cast back."""
+    cdt = dtype or conv.dtype
+    y = conv.conv_nhwc(fake_quant_act(x).to(cdt), fake_quant_weight(conv.weight).to(cdt))
+    if conv.bias is not None:
+        y = y.to(torch.float32) + conv.bias.to(torch.float32)
+    return y.to(cdt)
+
+
+@contextlib.contextmanager
+def fake_quant_training():
+    """Every Conv inside the block runs ``fq_conv``."""
+    prev, Conv.fake_quant = Conv.fake_quant, fq_conv
+    try:
+        yield
+    finally:
+        Conv.fake_quant = prev
+
+
+def maybe_fake_quant(params_cfg):
+    """The Trainer's gate: ``fake_quant_training()`` when ``params_cfg.qat``,
+    else a context that does nothing."""
+    if bool(getattr(params_cfg, "qat", False)):
+        return fake_quant_training()
+    return contextlib.nullcontext()

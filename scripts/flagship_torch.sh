@@ -28,7 +28,8 @@ python -m cvm_tpu_torch.cli.train --model centernet --data synthetic \
   --warmup_steps 250 --total_steps 5000 --device cuda 2>&1 | tee -a "$OUT/train.log"
 cp "$WORK/metrics.jsonl" "$WORK/best/best.json" "$OUT/"
 
-for posture in fp fold_bn int8 w8a8_fused w8a8_fused_chain tta_hflip; do
+# FLAGSHIP_POSTURES (default: all six) picks the postures; empty skips them.
+for posture in ${FLAGSHIP_POSTURES-fp fold_bn int8 w8a8_fused w8a8_fused_chain tta_hflip}; do
   case $posture in
     fp) flags=() ;;
     fold_bn) flags=(--fold_bn) ;;

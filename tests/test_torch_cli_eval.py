@@ -110,10 +110,15 @@ def test_argument_checks_fail_as_the_reference(argv, capsys):
 @pytest.mark.parametrize("extra", [[], ["--fold_bn"], ["--quantize", "int8"],
                                    ["--quantize", "w8a8_fused", "--calib_batches", "1"],
                                    ["--quantize", "w8a8_fused_chain", "--calib_batches", "1"],
+                                   ["--quantize", "w8a8"],
+                                   ["--quantize", "w8a8_static", "--calib_batches", "1"],
+                                   ["--quantize", "w8a8_static", "--fold_bn",
+                                    "--calib_batches", "1"],
                                    ["--tta", "hflip"], ["--average_last", "2"],
                                    ["--checkpoint_dir", "best"]],
-                         ids=["fp", "fold_bn", "int8", "w8a8_fused", "w8a8_fused_chain", "tta",
-                              "average_last", "best"])
+                         ids=["fp", "fold_bn", "int8", "w8a8_fused", "w8a8_fused_chain", "w8a8",
+                              "w8a8_static", "w8a8_static_fold_bn", "tta", "average_last",
+                              "best"])
 def test_evaluate_postures(workdir, tmp_path, extra):
     out = tmp_path / "m.json"
     extra = [str(workdir / e) if e == "best" else e for e in extra]
@@ -139,9 +144,9 @@ def test_evaluate_breakdowns(workdir, tmp_path):
 
 @pytest.mark.parametrize("extra,match", [
     (["--quantize", "w8a8_fused", "--fold_bn"], None),
-    (["--artifact", "x"], "item 14"),
-    (["--quantize", "w8a8"], "item 13"),
-    (["--quantize", "w8a8_static"], "item 13"),
+    (["--artifact", "x", "--tta", "hflip"], None),
+    (["--artifact", "x", "--quantize", "w8a8"], None),
+    (["--artifact", "x", "--input_hw", "32,32"], None),
     (["--model", "semseg", "--pr_out", "x"], None),
     (["--data", "a.cvrec"], "item 11"),
 ])

@@ -281,3 +281,74 @@ def test_gaussian_splat_kernel_writes_every_element(cuda_device, name):
     assert not bool(torch.isnan(got).any())
     torch.testing.assert_close(got, render_heatmap_reference(*args, map_hw, C),
                                rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_fused_qconv_op_equals_the_direct_launch(cuda_device, mode):
+    """The custom op (what FusedConvBN and the exported programs call)
+    launches the same kernel as the op's CUDA implementation called
+    directly, once per call, with the same result to the bit."""
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+
+    rng = np.random.default_rng(11)
+    shape = (3, 2, 16, 20, 32, 64, "silu")
+    k, B, H, W, cin, cout, act = shape
+    x = torch.from_numpy(rng.normal(0, 1, (B, H, W, cin)).astype(np.float32)).to(cuda_device)
+    inv_sx = 1.0 / 0.021
+    if mode == "int8_in":
+        x, inv_sx = x.clamp(-3, 3).mul(40).round().to(torch.int8), None
+    elif mode == "bf16_in":
+        x = x.to(torch.bfloat16)
+    wq = torch.from_numpy(rng.integers(-127, 128, (k, k, cin, cout)).astype(np.int8)).to(
+        cuda_device)
+    scale = torch.full((cout,), 1e-3, device=cuda_device)
+    bias = torch.zeros(cout, device=cuda_device)
+    out_dtype = {"bf16_out": torch.bfloat16, "int8_out": torch.int8}.get(mode, torch.float32)
+    inv_s_out = 0.5 if mode == "int8_out" else None
+    wp = pack_qconv_weights(wq)
+    n0 = fq.fused_qconv.launches
+    got = torch.ops.cvm_tpu_torch.fused_qconv(x, wq, scale, bias, wp, inv_sx, act, out_dtype,
+                                              inv_s_out)
+    direct = fq._launch(x, wq, scale, bias, wp, inv_sx, act, out_dtype, inv_s_out)
+    torch.cuda.synchronize()
+    assert fq.fused_qconv.launches == n0 + 2
+    assert got.dtype == out_dtype and torch.equal(got, direct)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32, torch.int8])
+def test_fused_qconv_fake_shapes_on_the_card(cuda_device, out_dtype):
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        x = torch.empty(8, 64, 64, 128, dtype=torch.bfloat16, device=cuda_device)
+        w = torch.empty(3, 3, 128, 96, dtype=torch.int8, device=cuda_device)
+        s = torch.empty(96, device=cuda_device)
+        y = torch.ops.cvm_tpu_torch.fused_qconv(x, w, s, s, None, 2.0, None, out_dtype,
+                                                4.0 if out_dtype == torch.int8 else None)
+        assert y.shape == (8, 64, 64, 96) and y.dtype == out_dtype
+        assert y.device.type == "cuda"
+
+
+# (Cin, Cout, k, stride, H, W): the stem's K = 12 * 9 = 108 (padded to
+# 112), heads with Cout 2 and 10 (padded to 8 and 16), a stride-2 conv,
+# and M = B*H*W <= 16 (rows padded to 32).
+INT_MM = {"stem K108": (12, 32, 3, 1, 64, 64), "head Cout2": (64, 2, 1, 1, 32, 32),
+          "head Cout10": (64, 10, 1, 1, 32, 32), "s2": (64, 128, 3, 2, 32, 32),
+          "M<=16": (24, 40, 3, 1, 1, 3)}
+
+
+@pytest.mark.parametrize("name", list(INT_MM))
+def test_int8_conv_int_mm_equals_the_plain_sums(cuda_device, name):
+    from cvm_tpu_torch.infer.quantize import Int8Conv, int8_conv_reference
+    from cvm_tpu_torch.models.layers import Conv
+
+    cin, cout, k, s, H, W = INT_MM[name]
+    torch.manual_seed(0)
+    q = Int8Conv(Conv(cin, cout, k, s).to(cuda_device), None)
+    assert q.kp % 8 == 0 and q.npad % 8 == 0
+    xq, sx = q.quantize(torch.randn(2, H, W, cin, device=cuda_device) * 3)
+    n0 = Int8Conv.mm_launches
+    acc = q.int8_conv(xq)
+    torch.cuda.synchronize()
+    assert Int8Conv.mm_launches == n0 + 1 and acc.dtype == torch.int32
+    assert torch.equal(acc, int8_conv_reference(q, xq))

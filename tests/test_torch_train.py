@@ -380,7 +380,7 @@ def test_cli_trains_resumes_and_refuses_unported_flags(tmp_path, capsys):
     assert CheckpointManager(str(tmp_path / "w" / "checkpoints")).latest_step() == 13
     for extra in (["--eval_images", "2", "--eval_every", "5", "--tensorboard"],
                   ["--auto_restart", "2"], ["--tensorboard"],
-                  ["--qat", "true"], ["--aug_rotate_deg", "5"], ["--model_parallel", "2"]):
+                  ["--aug_rotate_deg", "5"], ["--model_parallel", "2"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli_main(base + extra)
     with pytest.raises(SystemExit, match="not ported yet"):
