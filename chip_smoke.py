@@ -14,7 +14,10 @@ stem): semseg (config A at batch 1, and batch 8), depth (config C) and
 multitask (config D), served, trained and timed by ``cli.benchmark``; then
 the int8 deployment slice: config B in W8A8 on ``torch._int_mm``, the
 trained model exported in five postures and each artifact served, and a
-QAT fine-tune of it:
+QAT fine-tune of it; then the rest of the zoo: config B with the
+monocular 3D heads (served in fp and int8, trained on the flagship recipe
+with ``--with_3d true``, exported) and DMDS, config E (192x640, batch 8,
+``small``, ``motion_features`` 128, object motion on):
 
   1. card, versions, both kernel builds (one nvcc each, started together);
   2. the fused W8A8 ConvBN kernel K2 vs its plain PyTorch version at every
@@ -81,7 +84,26 @@ QAT fine-tune of it:
      pipeline's;
  17. QAT: ``cli.train --qat true`` resumes phase 8's fp run for 20 steps
      with an eval every 10 (one K1 launch per step, finite loss, the evals
-     under fake-quant).
+     under fake-quant);
+ 18. 3D serving: config B with the 3D heads at batch 8 on 768^2 YUV420 with
+     intrinsics, fp (BN folded) and ``w8a8_fused_chain`` after 3
+     calibration batches: 27 K2 launches per int8 forward (7 int8-out, no
+     packs), the int8 posture through K2 vs its plain version (mean |d| of
+     each head within 1% of the plain head's mean |value|, decoded classes
+     identical), batch-8 latencies;
+ 19. 3D training: ``cli.train.main --with_3d true`` on the flagship recipe,
+     20 steps with an eval at 10 and 20 (one K1 launch per step, finite
+     and falling loss; ``val_mAP`` and the three 3D metrics);
+ 20. 3D export: that run in ``none`` and ``w8a8_fused`` (yuv420 with
+     intrinsics, batch 8), each served by ``ServingModel(device="cuda")``:
+     its selftest passes and its outputs equal the eager pipeline's (boxes
+     and classes identical in int8; 27 K2 launches per fused call);
+ 21. DMDS: the pose-recovery property on the card (Adam 0.05, 300 steps);
+     ``cli.train.main --model dmds`` 20 steps with an eval (median-scaled
+     ``abs_rel`` / ``delta1``) and ms/step; one two-frame batch-8 request
+     in fp (BN folded); ``cli.benchmark --configs E`` (500 pipelined steps);
+     a ``none`` export served against its eager pipeline. DMDS runs no TPU
+     kernel: the reference refuses W8A8 for it.
 
 Device times come from CUDA events around 20 back-to-back calls while the
 card first sleeps through the host's enqueueing (``cuda_ms``). Any failure
@@ -187,6 +209,17 @@ QAT_FLAGS = ["--qat", "true", "--steps", "60", "--eval_every", "10", "--eval_bat
 DENSE_PATHS = [("semseg", "semseg", 8, 24), ("semseg b1", "semseg", 1, 24),
                ("depth", "depth", 8, 27), ("multitask", "multitask", 8, 28)]
 DENSE_PAD = (384, 960)  # the loaders' default: 1.5x the 256x640 input
+# Phases 18-20: config B with the monocular 3D heads (27 K2 calls per int8
+# forward: config B's 24 and one per 3D head), trained on the flagship
+# recipe with --with_3d true, then exported.
+THREE_D_K2 = 27
+TRAIN3D_FLAGS = ["--with_3d", "true", "--steps", "20", "--eval_every", "10",
+                 "--eval_batches", "2"]
+# Phase 21: DMDS, config E at its defaults (192x640, batch 8).
+DMDS_TRAIN_FLAGS = ["--model", "dmds", "--data", "synthetic", "--batch_size", "8",
+                    "--warmup_steps", "5", "--log_every", "1", "--checkpoint_every", "20",
+                    "--seed", "0", "--steps", "20", "--eval_every", "20", "--eval_batches", "2",
+                    "--device", "cuda"]
 DENSE_TRAIN_FLAGS = ["--data", "synthetic", "--batch_size", "8", "--warmup_steps", "5",
                      "--log_every", "1", "--checkpoint_every", "1000", "--seed", "0",
                      "--steps", "20", "--device", "cuda"]
@@ -350,6 +383,7 @@ def phase_kernels(dev, dense_calls):
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     tot = {"ms": 0.0, "plain": 0.0, "lib": 0.0, "bound": 0.0, "ops_bound": 0.0}
+    per_call = {}
     log(f"[kernel-time] bound = max(int8 ops / {PEAK_INT8_OPS / 1e12:.0f} TOP/s, bytes / "
         f"{PEAK_BYTES / 1e12:.2f} TB/s); bytes = input + weights + scale/bias + output, each once")
     for name, h, w, cin, cout, xk, ok_, act, n in MAIN_CALLS:
@@ -374,6 +408,7 @@ def phase_kernels(dev, dense_calls):
             f"{t_k:.4f} ms ({ops / t_k / 1e9:.1f} TOP/s), bound {bound * 1e3:.1f} us "
             f"({'ops' if t_ops >= t_bytes else 'bytes'}; {bound / t_k:.1%} of it), "
             f"cuDNN bf16 {t_l:.4f} ms, plain {t_p:.4f} ms")
+        per_call[name] = dict(ms=t_k, plain=t_p, lib=t_l, bound=bound)
         tot["ms"] += n * t_k
         tot["plain"] += n * t_p
         tot["lib"] += n * t_l
@@ -384,6 +419,12 @@ def phase_kernels(dev, dense_calls):
         f"bound {tot['bound']:.3f} ms ({tot['bound'] / tot['ms']:.1%} of it; "
         f"{tot['ops_bound']:.3f} ms of it ops-bound), cuDNN bf16 {tot['lib']:.3f} ms, "
         f"plain {tot['plain']:.3f} ms")
+    # The 3D model's forward: config B's 24 calls and one "head c1" per 3D
+    # head (the same 3x3 128 -> 64 shape as config B's own heads).
+    tot["3d"] = {k: tot[k] + 3 * per_call["head c1"][k] for k in ("ms", "plain", "lib", "bound")}
+    log(f"[kernel-time] one 3D config-B int8 forward's 27 calls: kernel {tot['3d']['ms']:.3f} "
+        f"ms, bound {tot['3d']['bound']:.3f} ms, cuDNN bf16 {tot['3d']['lib']:.3f} ms, plain "
+        f"{tot['3d']['plain']:.3f} ms")
     return worst, tot, dense_kernel_times(dev, gen, dense_calls, sms)
 
 
@@ -448,15 +489,16 @@ def dense_kernel_times(dev, gen, dense_calls, sms):
     return per_path
 
 
-def build_model(dev):
-    """Config B with seeded weights and non-trivial BN statistics."""
+def build_model(dev, with_3d=False):
+    """Config B (with the monocular 3D heads when ``with_3d``) with seeded
+    weights and non-trivial BN statistics."""
     import torch
 
     from cvm_tpu_torch.models.centernet.model import create_model
     from cvm_tpu_torch.models.centernet.params import CenternetParams
     from cvm_tpu_torch.models.layers import BatchNorm
 
-    cfg = CenternetParams()
+    cfg = CenternetParams(with_3d=with_3d)
     gen = torch.Generator().manual_seed(0)
     model = create_model(cfg, "cpu", gen)
     with torch.no_grad():
@@ -1294,6 +1336,334 @@ def phase_qat(workdir, smi):
     return launches
 
 
+def _heads_plain(pipe, proc):
+    """``pipe``'s model on ``proc`` with K2 swapped for its plain version
+    (which reads the HWIO weights); the kernel's counts are not touched."""
+    import torch
+
+    from cvm_tpu_torch.infer import quantize as qz
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+
+    real = qz.fused_qconv
+    qz.fused_qconv = lambda *a, w_packed=None, **k: fq.fused_qconv_reference(*a, **k)
+    try:
+        with torch.no_grad():
+            return pipe.model(proc)
+    finally:
+        qz.fused_qconv = real
+
+
+def phase_3d_serve(dev, smi):
+    """Config B with the 3D heads at batch 8 on 768^2 YUV420 + intrinsics:
+    calibration, fp (BN folded) and int8 (fused, chained), K2's launches
+    per int8 forward, the int8 posture through K2 vs its plain version."""
+    import torch
+
+    from cvm_tpu_torch.data.synthetic import synthetic_batch
+    from cvm_tpu_torch.infer import quantize as qz
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline, postprocess
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+    from cvm_tpu_torch.pipeline.preprocess import preprocess_yuv420_batch
+
+    cfg, model = build_model(dev, with_3d=True)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    cal = []
+    for _ in range(3):
+        b = synthetic_batch(rng, B, PAD_HW, num_classes=10, with_3d=True, yuv420=True)
+        cal.append(preprocess_yuv420_batch(*(torch.from_numpy(b[k]).to(dev)
+                                             for k in ("y", "u", "v", "image_hw")),
+                                           cfg.input_hw)[0])
+    scales = qz.calibrate_activation_scales(model, cal)
+    t_cal = time.perf_counter() - t0
+    pipe_fp = InferencePipeline(cfg, model, dev, fold_bn=True)
+    pipe_q = InferencePipeline(cfg, model, dev, w8a8=scales, w8a8_fused=True, w8a8_chain=True)
+    if pipe_q.fused_counts != {"convbn": 13, "resblock": 7, "calls": THREE_D_K2}:
+        raise AssertionError(f"3D: unexpected fused coverage {pipe_q.fused_counts}")
+    batch = synthetic_batch(np.random.default_rng(1), B, PAD_HW, num_classes=10, with_3d=True,
+                            yuv420=True)
+    out_fp = pipe_fp(batch)
+    fq.reset_counts()
+    out_q = pipe_q(batch)                      # a main path: 3D int8 serving
+    torch.cuda.synchronize()
+    counts = (fq.fused_qconv.launches, fq.fused_qconv.int8_out_launches,
+              fq.fused_qconv.weight_packs)
+    if counts != (THREE_D_K2, 7, 0):
+        raise AssertionError(f"3D: expected K2 launches / int8-out / packs ({THREE_D_K2}, 7, "
+                             f"0) per int8 forward, got {counts}")
+    shapes = {"boxes": (B, cfg.top_k, 4), "scores": (B, cfg.top_k), "classes": (B, cfg.top_k),
+              "centers3d": (B, cfg.top_k, 3), "dims": (B, cfg.top_k, 3), "yaw": (B, cfg.top_k)}
+    for posture, out in (("fp", out_fp), ("int8", out_q)):
+        if {k: tuple(v.shape) for k, v in out.items()} != shapes:
+            raise AssertionError(f"3D {posture}: shapes {[tuple(v.shape) for v in out.values()]}")
+        if not all(torch.isfinite(v.float()).all() for v in out.values()):
+            raise AssertionError(f"3D {posture}: non-finite outputs")
+    data = [torch.from_numpy(batch[k]).to(dev) for k in pipe_q.keys]
+    proc, rois = preprocess_yuv420_batch(*data[:4], cfg.input_hw, out_dtype=torch.bfloat16)
+    with torch.no_grad():
+        h_k = pipe_q.model(proc)
+    h_p = _heads_plain(pipe_q, proc)
+    d = {k: float((h_k[k] - h_p[k]).abs().mean() / h_p[k].abs().mean().clamp_min(1e-12))
+         for k in h_k}
+    r_k, r_p = (postprocess(cfg, h, rois, data[4]) for h in (h_k, h_p))
+    same_classes = torch.equal(r_k["classes"], r_p["classes"])
+    agree = float((r_k["classes"] == r_p["classes"]).float().mean())
+    lat_fp = host_ms(lambda: pipe_fp.predict(*data))
+    lat_q = host_ms(lambda: pipe_q.predict(*data))
+    log(f"[3d-serve] config B + 3D heads, B{B} 768^2 yuv420 + intrinsics: calibration "
+        f"{t_cal:.1f} s; K2 launches / int8-out / packs {counts}; int8 through K2 vs its plain "
+        f"version: mean |d| / mean |plain| per head " + ", ".join(
+            f"{k} {v:.2e}" for k, v in d.items())
+        + f" (bound 1e-2 each); decoded classes {'identical' if same_classes else 'differ'} "
+        f"(slot agreement {agree:.4f}); predict median of 20 on {smi}: fp (BN folded) "
+        f"{lat_fp:.3f} ms, int8 (fused, chained) {lat_q:.3f} ms")
+    if not all(v <= 1e-2 for v in d.values()):
+        raise AssertionError(f"3D: int8 posture through K2 disagrees with its plain version {d}")
+    if not same_classes:
+        raise AssertionError(f"3D: decoded classes differ between K2 and its plain version "
+                             f"(agreement {agree})")
+    del model, pipe_fp, pipe_q
+    torch.cuda.empty_cache()
+    return counts[0], dict(fp=lat_fp, int8=lat_q)
+
+
+def phase_3d_train(workdir, smi):
+    """``cli.train --with_3d true`` on the flagship recipe: 20 steps, an
+    eval at 10 and 20 (3D metrics), one K1 launch per step."""
+    import torch
+
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+
+    t0 = time.perf_counter()
+    gs.reset_counts()
+    train_main(TRAIN_FLAGS + TRAIN3D_FLAGS + ["--workdir", workdir])  # main path: 3D training
+    torch.cuda.synchronize()
+    launches = gs.render_heatmap.launches
+    rows = read_metrics(os.path.join(workdir, "metrics.jsonl"))
+    train = [r for r in rows if "loss" in r]
+    evals = [r for r in rows if "val_mAP" in r]
+    losses = [r["loss"] for r in train]
+    step_ms = statistics.median(1e3 / r["steps_per_sec"] for r in train[5:])
+    log(f"[3d-train] flagship recipe + 3D heads, 20 steps on {smi} in "
+        f"{time.perf_counter() - t0:.1f} s: {launches} K1 launches; loss first 5 "
+        f"{np.round(losses[:5], 4).tolist()}, last 5 {np.round(losses[-5:], 4).tolist()} (3D "
+        f"terms last: dep {train[-1]['loss_dep3d']:.4f}, dim {train[-1]['loss_dim3d']:.4f}, "
+        f"rot {train[-1]['loss_rot']:.4f}); median {step_ms:.3f} ms/step (host clock, a sync "
+        f"per step, steps 6-20); " + "; ".join(
+            f"step {r['step']}: val_mAP {r['val_mAP']:.4f}, center_err_3d_m "
+            f"{r['val_center_err_3d_m']:.4f}, depth3d_abs_rel {r['val_depth3d_abs_rel']:.4f}, "
+            f"matched_3d_frac {r['val_matched_3d_frac']:.4f}" for r in evals))
+    if [r["step"] for r in train] != list(range(1, 21)) or launches != 20:
+        raise AssertionError(f"3D training: steps {[r['step'] for r in train]}, K1 launches "
+                             f"{launches} (expected 1-20 and 20)")
+    if not all(np.isfinite(r[k]) for r in train for k in ("loss", "grad_norm", "loss_dep3d")):
+        raise AssertionError("3D training: non-finite loss")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"3D training: loss did not fall: {losses}")
+    keys = ("val_mAP", "val_center_err_3d_m", "val_depth3d_abs_rel", "val_matched_3d_frac")
+    if [r["step"] for r in evals] != [10, 20] or not all(
+            np.isfinite(r[k]) for r in evals for k in keys):
+        raise AssertionError(f"3D training: evals {evals}")
+    return launches, step_ms
+
+
+def _export_and_serve(tag, model_name, ckdir, art, quantize, fmt, eager, batch, smi):
+    """cli.export into ``art``, served by ServingModel on the card: its
+    selftest, its outputs against ``eager`` (the same posture's pipeline),
+    K2's launches per call."""
+    import torch
+
+    from cvm_tpu_torch.cli.export import main as export_main
+    from cvm_tpu_torch.infer.runtime import ServingModel
+    from cvm_tpu_torch.infer.selftest import compare, fingerprint
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+
+    t0 = time.perf_counter()
+    export_main(["--model", model_name, "--checkpoint_dir", ckdir, "--out", art, "--quantize",
+                 quantize, "--input_format", fmt, "--batch_size", str(B), "--device", "cuda"])
+    t_export = time.perf_counter() - t0
+    sm = ServingModel(art, device="cuda")
+    problems = sm.selftest()
+    data = [batch[k] for k in sm.keys]
+    fq.reset_counts()
+    got = sm(*data)                            # a main path: the served artifact
+    torch.cuda.synchronize()
+    launches = fq.fused_qconv.launches
+    want = eager(batch)
+    diff = compare(fingerprint(want), fingerprint(got))
+    exact = [k for k in got if torch.equal(got[k], want[k])]
+    t_art = host_ms(lambda: sm(*data))
+    log(f"[{tag}] export {quantize} ({fmt}) in {t_export:.1f} s; selftest {problems or 'ok'}; "
+        f"vs eager: {diff or 'within tolerance'}, identical outputs {exact}; K2 launches per "
+        f"batch-{B} call {launches}; artifact predict median of 20 on {smi}: {t_art:.3f} ms "
+        "(host numpy in)")
+    if problems or diff:
+        raise AssertionError(f"{tag} {quantize}: selftest {problems}, vs eager {diff}")
+    return launches, exact, t_art
+
+
+def phase_3d_export(dev, workdir, smi):
+    """Phase 19's run exported in ``none`` and ``w8a8_fused`` (yuv420, with
+    intrinsics), each artifact served on the card against its eager
+    pipeline."""
+    from cvm_tpu_torch.cli.export import calibration_scales
+    from cvm_tpu_torch.data.synthetic import synthetic_batch
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.train.checkpoints import load_params_cfg
+    from cvm_tpu_torch.train.loop import Trainer
+
+    ckdir = os.path.join(workdir, "checkpoints")
+    cfg = load_params_cfg(ckdir, CenternetParams)
+    trainer = Trainer(cfg, dev, checkpoint_dir=ckdir)
+    trainer.init_state()
+    model = trainer.eval_model(use_ema=cfg.ema_decay > 0.0)
+    pad = (int(cfg.input_hw[0] * 1.5) // 2 * 2, int(cfg.input_hw[1] * 1.5) // 2 * 2)
+    batch = synthetic_batch(np.random.default_rng(4), B, pad, num_classes=10, with_3d=True,
+                            yuv420=True)
+    launches = {}
+    for q in ("none", "w8a8_fused"):
+        kw = dict(fold_bn=True) if q == "none" else dict(
+            w8a8=calibration_scales(cfg, model, pad, 3, B, dev), w8a8_fused=True)
+        eager = InferencePipeline(cfg.replace(batch_size=B), model, dev, **kw)
+        launches[q], exact, t_art = _export_and_serve(
+            "3d-export", "centernet", ckdir, os.path.join(workdir, f"art_{q}"), q, "yuv420",
+            eager, batch, smi)
+        if q != "none" and not {"boxes", "classes"} <= set(exact):
+            raise AssertionError(f"3D {q}: artifact boxes or classes differ from the eager "
+                                 "pipeline")
+        want = THREE_D_K2 if q == "w8a8_fused" else 0
+        if launches[q] != want:
+            raise AssertionError(f"3D {q}: expected {want} K2 launches per call, got "
+                                 f"{launches[q]}")
+    return launches
+
+
+def pose_recovery(dev):
+    """The reference's pose-recovery property on ``dev``: depth held at the
+    truth, Adam(0.05) on the photometric loss over the translation, 300
+    steps -> (first loss, last loss, max |t - t_true|)."""
+    import torch
+
+    from cvm_tpu_torch.data.synthetic import _bilinear_np
+    from cvm_tpu_torch.models.dmds.loss import photometric_loss
+    from cvm_tpu_torch.ops.warp import warp_frame
+
+    H, W, Z, fx, shift = 32, 64, 10.0, 32.0, 4
+    rng = np.random.default_rng(0)
+    base = rng.uniform(0, 255, (H // 4, (W + 2 * shift) // 4, 3)).astype(np.uint8)
+    yy, xx = np.meshgrid(np.linspace(0.0, H // 4 - 1.0, H, dtype=np.float32),
+                         np.linspace(0.0, (W + 2 * shift) // 4 - 1.0, W + 2 * shift,
+                                     dtype=np.float32), indexing="ij")
+    big = torch.from_numpy(_bilinear_np(base, xx, yy).astype(np.float32) / 255.0).to(dev)
+    img_a, img_b = big[None, :, shift:shift + W], big[None, :, :W]
+    depth = torch.full((1, H, W, 1), Z, device=dev)
+    intr = torch.tensor([[fx, fx, W / 2.0, H / 2.0]], device=dev)
+    t_true = torch.tensor([[shift * Z / fx, 0.0, 0.0]], device=dev)
+    t = torch.zeros(1, 3, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([t], lr=0.05)
+    losses = []
+    for _ in range(301):
+        w = warp_frame(img_b, depth, torch.zeros(1, 3, device=dev), t, intr)
+        loss = photometric_loss(img_a, w.warped, w.valid, alpha=0.5)
+        losses.append(loss.detach())
+        opt.zero_grad()
+        loss.backward()
+        opt.step()
+    return float(losses[0]), float(losses[300]), float((t.detach() - t_true).abs().max())
+
+
+def phase_dmds(dev, workdir, smi):
+    """DMDS (config E): pose recovery on the card; cli.train 20 steps at
+    192x640 batch 8 with an eval; one two-frame batch-8 request served in
+    fp; cli.benchmark --configs E; a ``none`` export served."""
+    import contextlib
+    import io
+
+    import torch
+
+    from cvm_tpu_torch.cli import benchmark
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.data.synthetic import synthetic_batch
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.models.dmds.params import DmdsParams
+    from cvm_tpu_torch.train.checkpoints import load_params_cfg
+    from cvm_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    first, last, err = pose_recovery(dev)
+    log(f"[dmds] pose recovery on the card (Adam 0.05, 300 steps): loss {first:.5f} -> "
+        f"{last:.5f} ({last / first:.2%} of its start; bound 5%), max |t - t_true| {err:.4f} "
+        f"(bound 0.1), {time.perf_counter() - t0:.1f} s")
+    if not (last < 0.05 * first and err < 0.1):
+        raise AssertionError(f"dmds pose recovery: loss {first} -> {last}, error {err}")
+
+    # The host's share of a step: one batch of two-frame scenes (the
+    # training loader makes one per step, in the training thread).
+    pad = tuple(int(v * 1.5) for v in DmdsParams().input_hw)  # cli.train's default
+    t0 = time.perf_counter()
+    synthetic_batch(np.random.default_rng(0), B, pad, num_classes=10, two_frame=True)
+    scenes_ms = (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    train_main(DMDS_TRAIN_FLAGS + ["--workdir", workdir])  # main path: DMDS training
+    torch.cuda.synchronize()
+    rows = read_metrics(os.path.join(workdir, "metrics.jsonl"))
+    train = [r for r in rows if "loss" in r]
+    evals = [r for r in rows if "val_abs_rel" in r]
+    step_ms = statistics.median(1e3 / r["steps_per_sec"] for r in train[5:])
+    log(f"[dmds] cli.train 20 steps (B8, 192x640, small, motion_features 128, object motion) "
+        f"on {smi} in {time.perf_counter() - t0:.1f} s: loss {train[0]['loss']:.4f} -> "
+        f"{train[-1]['loss']:.4f} (photo {train[-1]['loss_photo']:.4f}); median {step_ms:.3f} "
+        f"ms/step (host clock, a sync per step, steps 6-20; one batch of two-frame scenes "
+        f"takes {scenes_ms:.1f} ms of the host); " + "; ".join(
+            f"step {r['step']}: val_abs_rel {r['val_abs_rel']:.4f}, val_delta1 "
+            f"{r['val_delta1']:.4f} (median-scaled), {r['eval_seconds']:.2f} s" for r in evals))
+    if [r["step"] for r in train] != list(range(1, 21)) or not all(
+            np.isfinite(r[k]) for r in train for k in ("loss", "grad_norm", "loss_photo")):
+        raise AssertionError(f"dmds training: steps or losses {train}")
+    if [r["step"] for r in evals] != [20] or not all(
+            np.isfinite(evals[0][k]) for k in ("val_abs_rel", "val_delta1")):
+        raise AssertionError(f"dmds training: evals {evals}")
+
+    ckdir = os.path.join(workdir, "checkpoints")
+    cfg = load_params_cfg(ckdir, DmdsParams)
+    trainer = Trainer(cfg, dev, checkpoint_dir=ckdir)
+    trainer.init_state()
+    model = trainer.eval_model(use_ema=cfg.ema_decay > 0.0)
+    pad = (int(cfg.input_hw[0] * 1.5) // 2 * 2, int(cfg.input_hw[1] * 1.5) // 2 * 2)
+    batch = synthetic_batch(np.random.default_rng(5), B, pad, num_classes=10, two_frame=True)
+    pipe = InferencePipeline(cfg.replace(batch_size=B), model, dev, input_format="rgb",
+                             fold_bn=True)
+    out = pipe(batch)
+    torch.cuda.synchronize()
+    shapes = {k: tuple(v.shape) for k, v in out.items()}
+    if shapes != {"depth": (B, *cfg.input_hw, 1), "rotation": (B, 3), "translation": (B, 3)} \
+            or not all(torch.isfinite(v).all() for v in out.values()):
+        raise AssertionError(f"dmds serving: {shapes}")
+    data = [torch.from_numpy(batch[k]).to(dev) for k in pipe.keys]
+    lat = host_ms(lambda: pipe.predict(*data))
+    log(f"[dmds] two-frame batch-8 request, fp (BN folded): {shapes}; depth "
+        f"{float(out['depth'].min()):.3f}..{float(out['depth'].max()):.3f} m; predict median of "
+        f"20 on {smi}: {lat:.3f} ms")
+
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        benchmark.main(["--configs", "E", "--iters", "6"])
+    lines = [json.loads(x) for x in buf.getvalue().splitlines() if x.startswith("{")]
+    log(f"[dmds] cli.benchmark in {time.perf_counter() - t0:.1f} s: {json.dumps(lines)}")
+    if [r["config"] for r in lines] != ["E"] or not (lines[0]["steps_per_sec"] > 0
+                                                    and "mfu_pct" in lines[0]):
+        raise AssertionError(f"cli.benchmark --configs E: {lines}")
+
+    _, exact, t_art = _export_and_serve("dmds", "dmds", ckdir, os.path.join(workdir, "art_none"),
+                                        "none", "rgb", pipe, batch, smi)
+    return dict(step_ms=step_ms, scenes_ms=scenes_ms, predict_ms=lat, artifact_ms=t_art,
+                bench=lines[0])
+
+
 def main() -> int:
     import torch
 
@@ -1492,6 +1862,28 @@ def main() -> int:
     log(f"[qat] phase 17 took {time.perf_counter() - t0:.1f} s")
     train_dir.cleanup()
 
+    # Phases 18-21: the 3D heads served, trained and exported; DMDS.
+    t0 = time.perf_counter()
+    serve3d_launches, lat3d = phase_3d_serve(dev, smi)
+    log(f"[3d-serve] phase 18 took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        train3d_launches, step3d_ms = phase_3d_train(workdir, smi)
+        log(f"[3d-train] phase 19 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        export3d_launches = phase_3d_export(dev, workdir, smi)
+        log(f"[3d-export] phase 20 took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        dmds = phase_dmds(dev, workdir, smi)
+        log(f"[dmds] phase 21 took {time.perf_counter() - t0:.1f} s")
+    log(f"[zoo3d] on {smi}: 3D batch-8 predict fp {lat3d['fp']:.3f} ms, int8 "
+        f"{lat3d['int8']:.3f} ms; 3D training {step3d_ms:.3f} ms/step; DMDS training "
+        f"{dmds['step_ms']:.3f} ms/step ({dmds['scenes_ms']:.1f} ms of host scenes), "
+        f"batch-8 predict fp {dmds['predict_ms']:.3f} ms "
+        f"(artifact {dmds['artifact_ms']:.3f} ms); DMDS reaches no TPU kernel (the "
+        "reference refuses W8A8 for it)")
+
     log(f"[card] {nvidia_smi()}")
     # K2's numbers are those of one config-B int8 forward; launches count
     # every main-path run (config B and each dense path), with each path's
@@ -1503,6 +1895,10 @@ def main() -> int:
                               bound_ms=t["bound"], library_ms=t["lib"])
     for q in ("w8a8_fused", "w8a8_fused_chain"):
         k2_paths[f"artifact {q}"] = dict(launches=export_launches[q][0])
+    k2_paths["3D config-B"] = dict(launches=serve3d_launches, ms=k2["3d"]["ms"],
+                                   plain_ms=k2["3d"]["plain"], bound_ms=k2["3d"]["bound"],
+                                   library_ms=k2["3d"]["lib"])
+    k2_paths["3D artifact w8a8_fused"] = dict(launches=export3d_launches["w8a8_fused"])
     k2_shapes = sorted({f"k{c['k']} B{c['B']} {c['H']}x{c['W']} {c['cin']}->{c['cout']}"
                         for calls in dense_calls.values() for c in calls})
     print(json.dumps({"kernels": [{
@@ -1513,12 +1909,14 @@ def main() -> int:
         "bound_by": k2["bound_by"], "library_ms": k2["lib"], "paths": k2_paths,
         "dense_shapes_checked": k2_shapes}, {
         "name": "gaussian_splat", "route": "cuda", "source": SPLAT_SOURCE,
-        "replaces": SPLAT_REPLACES, "launches": splat_launches + dense_k1 + qat_launches,
+        "replaces": SPLAT_REPLACES,
+        "launches": splat_launches + dense_k1 + qat_launches + train3d_launches,
         "max_abs_err": splat_err,
         "ms": splat_times["flagship"][0], "plain_ms": splat_times["flagship"][1],
         "bound_ms": splat_times["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "paths": {"flagship training": dict(launches=splat_launches),
                   "qat fine-tune": dict(launches=qat_launches),
+                  "3D training": dict(launches=train3d_launches),
                   "multitask training": dict(launches=dense_k1,
                                              ms=splat_times["multitask"][0],
                                              plain_ms=splat_times["multitask"][1],

@@ -1,11 +1,12 @@
 """Benchmark harness for the BASELINE.json measurement configs A-E.
 
-``python -m cvm_tpu_torch.cli.benchmark [--configs A,B,C,D] [--iters N]
+``python -m cvm_tpu_torch.cli.benchmark [--configs A,B,C,D,E] [--iters N]
 [--train] [--device cuda]``
 
 A: semseg 640x256 batch 1              C: depth KITTI-ish, batch 8
 B: centernet COCO 512x512 batch 8      D: multitask NuScenes-ish, batch 8
-E: dmds two-frame training: not ported yet (ROADMAP Queue 1 item 15)
+E: dmds 192x640 batch 8, two frames; its training step is what is timed
+   (the warping loss is the workload)
 
 Mirrors ``cvm_tpu/cli/benchmark.py`` (``_bench_infer``,
 ``_bench_train_step``, ``_configs``, ``main``). Prints one JSON line per
@@ -114,7 +115,8 @@ def _bench_infer(spec_name, cfg, device, iters=20, warmup=3):
     pipe = InferencePipeline(cfg, model, device, input_format="rgb")
     rng = np.random.default_rng(0)
     n_buf = max(8, warmup + 1)
-    batches = [synthetic_batch(rng, cfg.batch_size, _pad_hw(cfg), num_classes=5)
+    batches = [synthetic_batch(rng, cfg.batch_size, _pad_hw(cfg), num_classes=5,
+                               two_frame=spec_name == "dmds")
                for _ in range(n_buf)]
 
     def readback(out):
@@ -159,7 +161,7 @@ def _bench_train_step(spec_name, cfg, device, iters=10, warmup=2):
     trainer.init_state()
     nc = min(getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 3)), 10)
     batch = synthetic_batch(np.random.default_rng(0), cfg.batch_size, _pad_hw(cfg),
-                            num_classes=nc)
+                            num_classes=nc, two_frame=spec_name == "dmds")
     b = next(prefetch_to_device([batch], trainer.device))
     peak, kind = _device_peak_tflops(trainer.device)
     step = [0]
@@ -218,13 +220,13 @@ def _configs():
         # BASELINE.json:10 — multitask shared backbone
         "D": ("multitask", get_model("multitask").params_cls(), "infer"),
         # BASELINE.json:11 — two-frame DMDS with pose + warping loss
-        "E": ("dmds", None, "train"),
+        "E": ("dmds", get_model("dmds").params_cls(), "train"),
     }
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
-    parser.add_argument("--configs", default="A,B,C,D")
+    parser.add_argument("--configs", default="A,B,C,D,E")
     parser.add_argument("--iters", type=int, default=20)
     parser.add_argument("--train", action="store_true",
                         help="benchmark the training step instead of inference")
@@ -242,9 +244,6 @@ def main(argv=None):
         if key not in cfgs:
             parser.error(f"unknown config {key!r}; choose from {sorted(cfgs)}")
         spec_name, cfg, mode = cfgs[key]
-        if spec_name == "dmds":
-            raise SystemExit(f"config {key} (dmds) is not ported yet (ROADMAP Queue 1 "
-                             "item 15)")
         if args.train:
             mode = "train"
         if args.batch_size:

@@ -1,6 +1,6 @@
 """Standalone evaluation: ``python -m cvm_tpu_torch.cli.evaluate --model
-centernet|semseg|depth|multitask --workdir D [--device cuda]``, or of an
-exported artifact: ``--artifact DIR``.
+centernet|semseg|depth|multitask|dmds --workdir D [--device cuda]``, or of
+an exported artifact: ``--artifact DIR``.
 
 Mirrors ``cvm_tpu/cli/evaluate.py`` (``_build_val``, ``_emit``,
 ``_evaluate_artifact``, ``main``). For a checkpoint it loads the newest of
@@ -15,8 +15,11 @@ a ``cli.export`` artifact as it is served (``infer/runtime.py``): the model
 and its config come from ``artifact.json``. Detection models report mAP,
 segmentation models mIoU and pixel accuracy (``--confusion`` adds the
 row-normalised confusion matrix), depth models abs_rel, rmse and the delta
-thresholds; multitask all three. ``dmds`` and ``.cvrec`` data raise "not
-ported yet" with their ROADMAP item.
+thresholds; multitask all three; a ``with_3d`` CenterNet adds the 3D
+metrics (``center_err_3d_m``, ``depth3d_abs_rel``, ``matched_3d_frac``);
+dmds its median-scaled depth metrics, and refuses the W8A8 postures as the
+reference does. ``.cvrec`` data raises "not ported yet" with its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -26,20 +29,18 @@ import json
 import sys
 
 
-def _not_ported(what: str, item: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported yet (ROADMAP Queue 1 item {item})")
-
-
 def _build_val(args, cfg, pad_hw, yuv420=False):
-    """Held-out eval source: fixed-seed synthetic scenes, RGB or (for a
-    yuv420 artifact) the same scenes as planes."""
+    """Held-out eval source: fixed-seed synthetic scenes (two frames for
+    dmds, 3D labels for a ``with_3d`` model), RGB or (for a yuv420
+    artifact) as planes."""
     import numpy as np
 
-    from cvm_tpu_torch.data.synthetic import synthetic_batch, synthetic_yuv420_batch
+    from cvm_tpu_torch.data.synthetic import synthetic_batch
 
-    make = synthetic_yuv420_batch if yuv420 else synthetic_batch
     rng = np.random.default_rng(999)
-    return [make(rng, cfg.batch_size, pad_hw, num_classes=_num_classes(cfg))
+    return [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=_num_classes(cfg),
+                            two_frame=args.model == "dmds",
+                            with_3d=bool(getattr(cfg, "with_3d", False)), yuv420=yuv420)
             for _ in range(args.batches)]
 
 
@@ -132,7 +133,7 @@ def _calibrate(args, cfg, model, pad_hw, device):
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", default=None,
-                        help="model-zoo name: centernet, semseg, depth or multitask")
+                        help="model-zoo name: centernet, semseg, depth, multitask or dmds")
     parser.add_argument("--workdir", default="runs/default",
                         help="training workdir containing checkpoints/")
     parser.add_argument("--checkpoint_dir", default=None,
@@ -189,12 +190,13 @@ def main(argv=None):
     if args.pr_out and args.model not in ("centernet", "multitask"):
         parser.error(f"--pr_out needs a detection-capable model "
                      f"(centernet/multitask), got {args.model!r}")
-    if args.model == "dmds":
-        raise _not_ported("--model dmds", "15")
     if args.data != "synthetic":
         raise SystemExit("--data: .cvrec record data is not ported yet (ROADMAP Queue 1 "
                          "item 11, the record loader); use --data synthetic")
     w8a8_fused = args.quantize in ("w8a8_fused", "w8a8_fused_chain")
+    if args.quantize.startswith("w8a8") and args.model == "dmds":
+        parser.error("w8a8 evaluation is not supported for two-frame dmds "
+                     "(matches cli.export)")
     if w8a8_fused and args.fold_bn:
         parser.error("--quantize w8a8_fused is incompatible with --fold_bn: "
                      "the fused kernel applies the BN affine in its epilogue "

@@ -22,7 +22,10 @@ bucket) hold no weights. The artifact directory:
     by running the artifact just written, ``torch_version``, ``device``
     and ``device_kind``.
 
-A program is read back by the torch version that wrote it. The fused int8
+A program's data arguments are ``infer/pipeline.py::data_keys``'s: a
+``with_3d`` artifact takes the (B, 4) intrinsics after the images, a dmds
+artifact both frames; dmds refuses the ``w8a8*`` postures, as the
+reference does. A program is read back by the torch version that wrote it. The fused int8
 postures record the kernel's custom op (``cvm_tpu_torch::fused_qconv``), so
 loading them needs ``cvm_tpu_torch.ops.cuda.fused_qconv`` imported, and no
 other module of the package. ``--quantize w8a8`` is static-calibrated
@@ -80,13 +83,22 @@ def served_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
             **dict(model.named_buffers())}
 
 
-def _trace_args(input_format: str, bs: int, pad_hw, device):
-    hw = torch.ones((bs, 2), dtype=torch.int32, device=device)
-    if input_format == "yuv420":
-        y = torch.zeros((bs, *pad_hw), dtype=torch.uint8, device=device)
-        u = torch.zeros((bs, pad_hw[0] // 2, pad_hw[1] // 2), dtype=torch.uint8, device=device)
-        return y, u, u.clone(), hw
-    return torch.zeros((bs, *pad_hw, 3), dtype=torch.uint8, device=device), hw
+def _trace_args(keys, bs: int, pad_hw, device):
+    """Placeholder tensors for the program's data arguments ``keys``
+    (``InferencePipeline.keys``)."""
+    h, w = pad_hw
+    shapes = {"y": (bs, h, w), "u": (bs, h // 2, w // 2), "v": (bs, h // 2, w // 2),
+              "image": (bs, h, w, 3)}
+    args = []
+    for k in keys:
+        if k == "image_hw":
+            args.append(torch.ones((bs, 2), dtype=torch.int32, device=device))
+        elif k == "intrinsics":  # [fx, fy, cx, cy] in source pixels
+            args.append(torch.ones((bs, 4), dtype=torch.float32, device=device))
+        else:
+            args.append(torch.zeros(shapes[k.replace("_t1", "")], dtype=torch.uint8,
+                                    device=device))
+    return tuple(args)
 
 
 def _flat_weights(model: nn.Module, quantize: str):
@@ -153,13 +165,10 @@ def export_model(spec_name: str, checkpoint_dir: str, out_dir: str, batch_size: 
 
     if quantize not in QUANTIZE:
         raise ValueError(f"quantize must be one of {QUANTIZE}, got {quantize!r}")
-    if spec_name == "dmds":
-        raise NotImplementedError("export of dmds is not ported yet (ROADMAP Queue 1 item 15)")
+    if quantize.startswith("w8a8") and spec_name == "dmds":
+        raise ValueError("w8a8 export not supported for two-frame dmds")
     spec = get_model(spec_name)
     cfg = load_params_cfg(checkpoint_dir, spec.params_cls)
-    if getattr(cfg, "with_3d", False):
-        raise NotImplementedError("export of with_3d models is not ported yet (ROADMAP Queue 1 "
-                                  "item 15)")
     trainer = Trainer(cfg, device, checkpoint_dir=checkpoint_dir)
     trainer.init_state()
     if trainer.state.step == 0:
@@ -193,8 +202,8 @@ def export_model(spec_name: str, checkpoint_dir: str, out_dir: str, batch_size: 
     programs = {}
     with torch.no_grad():
         for bs in sizes:
-            ep = torch.export.export(program, (weights, *_trace_args(input_format, bs, pad_hw,
-                                                                     dev)), strict=False)
+            ep = torch.export.export(program, (weights, *_trace_args(pipe.keys, bs, pad_hw, dev)),
+                                     strict=False)
             ep.example_inputs = None  # the program file keeps no tensors of its own
             programs[bs] = ep
 

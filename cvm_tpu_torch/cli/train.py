@@ -1,12 +1,14 @@
 """Training entry point: ``python -m cvm_tpu_torch.cli.train --model
-centernet|semseg|depth|multitask --data synthetic --device cuda ...``.
+centernet|semseg|depth|multitask|dmds --data synthetic --device cuda ...``.
 
 Mirrors ``cvm_tpu/cli/train.py::main``: every field of the model's params
 class (``models/registry.py``) is a ``--field value`` flag, with the
 class's defaults; ``--steps`` is the TOTAL step target, so a run that
 resumes from ``<workdir>/checkpoints`` trains only the remainder; SIGTERM
 and ``--max_seconds`` stop cleanly after the current step with a checkpoint
-of it. Metrics go to ``<workdir>/metrics.jsonl``.
+of it. Metrics go to ``<workdir>/metrics.jsonl``. The synthetic scenes
+carry two frames for ``--model dmds`` and 3D labels for ``--with_3d
+true``, as the reference's.
 
 ``--eval_every N`` trains in chunks that end at multiples of N and scores
 the model after each (``evaluate_model`` on fixed-seed synthetic scenes,
@@ -41,8 +43,7 @@ _NOT_PORTED = {
     "profile_steps": (0, "16"), "debug_nans": (False, "16"), "decode_target": ("auto", "11"),
 }
 _NOT_PORTED_CFG = {"remat": (False, "16"),
-                   "aug_rotate_deg": (0.0, "16"), "tensor_parallel": (False, "17"),
-                   "with_3d": (False, "15")}
+                   "aug_rotate_deg": (0.0, "16"), "tensor_parallel": (False, "17")}
 
 
 def _not_ported(flag: str, item: str) -> SystemExit:
@@ -78,7 +79,7 @@ def _record_qat_flip(workdir: str, cfg, keep_best: bool, params_cls, load_params
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", required=True,
-                        help="zoo name: centernet, semseg, depth or multitask")
+                        help="zoo name: centernet, semseg, depth, multitask or dmds")
     parser.add_argument("--data", default="synthetic",
                         help="'synthetic' (.cvrec record data is not ported yet)")
     parser.add_argument("--steps", type=int, default=1000,
@@ -130,8 +131,6 @@ def main(argv=None) -> int:
     for flag, (off, item) in _NOT_PORTED.items():
         if getattr(args, flag) != off:
             raise _not_ported(flag, item)
-    if args.model == "dmds":
-        raise SystemExit("--model dmds is not ported yet (ROADMAP Queue 1 item 15)")
     if args.data != "synthetic":
         raise SystemExit("--data: .cvrec record data is not ported yet (ROADMAP Queue 1 "
                          "item 11, the record loader); use --data synthetic")
@@ -157,6 +156,7 @@ def main(argv=None) -> int:
     pad_hw = (parse_hw(args.pad_hw, "--pad_hw") if args.pad_hw
               else (int(cfg.input_hw[0] * 1.5), int(cfg.input_hw[1] * 1.5)))
     nc = min(getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 3)), 10)
+    scenes = dict(two_frame=args.model == "dmds", with_3d=bool(getattr(cfg, "with_3d", False)))
     _record_qat_flip(args.workdir, cfg, bool(args.keep_best), spec.params_cls, load_params_cfg)
 
     trainer = Trainer(cfg, args.device, checkpoint_dir=f"{args.workdir}/checkpoints",
@@ -172,7 +172,7 @@ def main(argv=None) -> int:
         # Held-out scenes from their own generator: the training streams
         # (data, augmentation) and the training model are not touched.
         rng = np.random.default_rng(999)
-        val = [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=nc)
+        val = [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=nc, **scenes)
                for _ in range(args.eval_batches)]
         t0 = time.perf_counter()
         m = evaluate_model(args.model, cfg, trainer.eval_model(), val,
@@ -208,7 +208,7 @@ def main(argv=None) -> int:
     try:
         # The reference's synthetic stream: batch_size scenes per batch, at
         # most 10 classes, padded to its default of 8 boxes (no max_objects).
-        it = SyntheticIterator(args.seed, cfg.batch_size, pad_hw, num_classes=nc)
+        it = SyntheticIterator(args.seed, cfg.batch_size, pad_hw, num_classes=nc, **scenes)
         trainer.init_state()
         if trainer.data_state is not None:
             it.load_state_dict(trainer.data_state)

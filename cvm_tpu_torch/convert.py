@@ -3,7 +3,8 @@ port's module names.
 
 The counterpart of loading a ``cvm_tpu`` checkpoint: ``variables`` is the
 flax ``{"params": ..., "batch_stats": ...}`` tree as numpy arrays (e.g. from
-``jax.device_get``). Conv kernels go from HWIO to OIHW; BatchNorm maps
+``jax.device_get``). Conv kernels go from HWIO to OIHW and ``Dense``
+kernels from (in, out) to ``nn.Linear``'s (out, in); BatchNorm maps
 ``scale -> weight``, ``bias``, ``mean -> running_mean``, ``var -> running_var``.
 Flax auto-names the backbone ``Backbone_0``; the port calls it ``backbone``.
 Every other module name is the same on both sides, so a path such as
@@ -39,8 +40,11 @@ def convert_variables(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         name = flax_path_to_module_name("/".join(path))
         if not isinstance(node, Mapping):         # a bare parameter (task_log_vars)
             sd[name] = t(node)
-        elif "kernel" in node:                      # nn.Conv: HWIO -> OIHW
-            sd[f"{name}.weight"] = t(node["kernel"]).permute(3, 2, 0, 1).contiguous()
+        elif "kernel" in node:
+            k = t(node["kernel"])
+            # nn.Dense (in, out) -> (out, in); nn.Conv HWIO -> OIHW
+            k = k.t() if k.dim() == 2 else k.permute(3, 2, 0, 1)
+            sd[f"{name}.weight"] = k.contiguous()
             if "bias" in node:
                 sd[f"{name}.bias"] = t(node["bias"])
         elif "scale" in node:                     # nn.BatchNorm

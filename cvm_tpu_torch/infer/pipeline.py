@@ -1,11 +1,14 @@
 """End-to-end serving: RGB buffers or planar YUV420 -> preprocess -> model
 -> postprocess: for CenterNet and multitask the NMS-free decode with boxes
-in source-image coordinates; for semseg and multitask the class map; for
-depth and multitask the full-resolution depth.
+in source-image coordinates (and, for a ``with_3d`` CenterNet, metric
+camera-frame ``centers3d``, ``dims`` and ``yaw`` from per-image
+intrinsics); for semseg and multitask the class map; for depth and
+multitask the full-resolution depth; for DMDS, which takes two frames
+through one ROI, frame t's depth and the forward ego-motion.
 
 Mirrors ``cvm_tpu/infer/pipeline.py`` (``InferencePipeline``,
-``_postprocess``) for centernet (2D heads), semseg, depth and multitask in
-the deploy postures:
+``_postprocess``) for the whole zoo in the deploy postures (DMDS in fp
+only: the reference refuses W8A8 for it):
   * fp, optionally with BN folded (``fold_bn=True``);
   * W8A8 with dynamic scales (``w8a8=True``) or calibrated static ones
     (``w8a8=<scales>``), every conv an ``Int8Conv``; both compose with
@@ -26,41 +29,71 @@ from __future__ import annotations
 
 import contextlib
 import copy
-from typing import Any, Dict, Mapping, Union
+from typing import Any, Dict, Mapping, Optional, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 
-from cvm_tpu_torch.ops.decode import decode_centernet, semseg_argmax
+from cvm_tpu_torch.ops.decode import decode_centernet, decode_centernet_3d, semseg_argmax
 from cvm_tpu_torch.ops.image import map_boxes_to_input
+from cvm_tpu_torch.ops.warp import scale_intrinsics
 from cvm_tpu_torch.pipeline.preprocess import preprocess_image_batch, preprocess_yuv420_batch
 from cvm_tpu_torch.utils.batch import pad_rows
 from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
 
-# The batch keys each input format reads, in ``predict``'s argument order.
-_KEYS = {"yuv420": ("y", "u", "v", "image_hw"), "rgb": ("image", "image_hw")}
-_MODELS = ("centernet", "semseg", "depth", "multitask")
+_MODELS = ("centernet", "semseg", "depth", "multitask", "dmds")
+
+
+def data_keys(model: str, input_format: str, with_3d: bool = False) -> tuple:
+    """The batch keys ``predict`` (and an exported program) takes, in order:
+    ``(y, u, v, image_hw)`` or ``(image, image_hw)``; DMDS's second frame
+    (``y_t1, u_t1, v_t1`` before ``image_hw``, or ``image_t1`` after it);
+    a ``with_3d`` model's ``intrinsics`` last."""
+    if input_format == "yuv420":
+        keys = ("y", "u", "v") + (("y_t1", "u_t1", "v_t1") if model == "dmds" else ()) \
+            + ("image_hw",)
+    else:
+        keys = ("image", "image_hw") + (("image_t1",) if model == "dmds" else ())
+    return keys + (("intrinsics",) if with_3d else ())
+
 # The outputs hflip TTA flips back and averages: CenterNet's heatmap and
 # size (the sub-pixel offset keeps the plain pass's), and the dense maps.
 _TTA_KEYS = ("heatmap", "size", "logits", "depth")
 
 
-def postprocess(cfg, out: Dict[str, torch.Tensor], rois) -> Dict[str, torch.Tensor]:
+def postprocess(cfg, out: Dict[str, Any], rois,
+                intrinsics: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The model's outputs -> what the pipeline serves, by model name:
     ``boxes`` (source-image coordinates), ``scores`` and ``classes`` for
-    centernet/multitask, ``class_map`` for semseg/multitask, ``depth``
-    (B, H, W, 1) for depth/multitask."""
+    centernet/multitask (with ``intrinsics`` (B, 4) in source pixels and 3D
+    heads, also ``centers3d``, ``dims`` and ``yaw``), ``class_map`` for
+    semseg/multitask, ``depth`` (B, H, W, 1) for depth/multitask, and
+    ``depth`` (frame t), ``rotation`` and ``translation`` for dmds."""
     res: Dict[str, torch.Tensor] = {}
     if cfg.name in ("centernet", "multitask"):
         stride = getattr(cfg, "stride", getattr(cfg, "det_stride", 4))
-        det = decode_centernet(out["heatmap"], out["offset"], out["size"], stride=stride,
-                               top_k=cfg.top_k)
+        if intrinsics is not None and "depth3d" in out:
+            # Back-projection uses the intrinsics of the model input: the
+            # source-image ones through the image's ROI.
+            d3 = decode_centernet_3d(out["heatmap"], out["offset"], out["size"],
+                                     out["depth3d"], out["dims3d"], out["rot"],
+                                     scale_intrinsics(intrinsics, rois), stride=stride,
+                                     top_k=cfg.top_k)
+            det = d3.det
+            res.update(centers3d=d3.centers3d, dims=d3.dims, yaw=d3.yaw)
+        else:
+            det = decode_centernet(out["heatmap"], out["offset"], out["size"], stride=stride,
+                                   top_k=cfg.top_k)
         res.update(boxes=map_boxes_to_input(det.boxes, rois), scores=det.scores,
                    classes=det.classes)
     if cfg.name in ("semseg", "multitask"):
         res["class_map"] = semseg_argmax(out["logits"])
     if cfg.name in ("depth", "multitask"):
         res["depth"] = out["depth"]
+    if cfg.name == "dmds":
+        res.update(depth=out["depth_a"], rotation=out["motion_fwd"]["rotation"],
+                   translation=out["motion_fwd"]["translation"])
     return res
 
 
@@ -68,7 +101,9 @@ class InferencePipeline:
     """Predict for a model of the zoo on one device, from planar YUV420
     (``input_format="yuv420"``: y (B, Hm, Wm), u/v (B, Hm/2, Wm/2) uint8) or
     from padded RGB buffers (``"rgb"``: image (B, Hm, Wm, 3) uint8), each
-    with the valid sizes image_hw (B, 2).
+    with the valid sizes image_hw (B, 2); DMDS takes the second frame in
+    the same format, a ``with_3d`` model the intrinsics (B, 4) [fx, fy, cx,
+    cy] in source pixels (``data_keys`` gives the order).
 
     ``model`` is left untouched: the pipeline serves a transformed copy.
     ``__call__`` pads a short batch up to ``params.batch_size`` by repeating
@@ -81,15 +116,20 @@ class InferencePipeline:
                  w8a8: Union[None, bool, Dict[str, float]] = None, w8a8_fused: bool = False,
                  w8a8_chain: bool = False, fold_bn: bool = False):
         if params.name not in _MODELS:
-            raise NotImplementedError(f"InferencePipeline: {params.name} is not ported yet "
-                                      "(ROADMAP Queue 1 item 15)")
-        if input_format not in _KEYS:
+            raise ValueError(f"InferencePipeline: unknown model {params.name!r}")
+        if input_format not in ("rgb", "yuv420"):
             raise ValueError(f"input_format must be rgb|yuv420, got {input_format!r}")
         if tta not in ("none", "hflip"):
             raise ValueError(f"tta must be none|hflip, got {tta!r}")
         if tta == "hflip" and getattr(params, "with_3d", False):
             raise ValueError("tta='hflip' is incompatible with with_3d decoding "
                              "(yaw sin/cos flips sign under mirroring)")
+        if tta == "hflip" and params.name == "dmds":
+            raise ValueError("tta='hflip' is incompatible with dmds (two-frame "
+                             "motion mirrors under flip)")
+        if params.name == "dmds" and w8a8 not in (None, False):
+            raise ValueError("w8a8 serving is not supported for two-frame dmds "
+                             "(matches cli.export)")
         if w8a8_fused and not isinstance(w8a8, dict):
             raise ValueError(
                 "w8a8_fused requires calibrated per-conv scales: pass "
@@ -113,6 +153,8 @@ class InferencePipeline:
         self.cfg = params
         self.device = resolve_device(device)
         self.input_format, self.tta = input_format, tta
+        self.with_3d = bool(getattr(params, "with_3d", False))
+        self.keys = data_keys(params.name, input_format, self.with_3d)
         self._plain_weights = not fold_bn and w8a8 is None
         # A QAT model's fp forward is not what ships: serve the fake-quant
         # convs its train step ran, unless an int8 path already runs.
@@ -168,24 +210,37 @@ class InferencePipeline:
 
     @torch.no_grad()
     def predict(self, *data: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """Device tensors in, device tensors out: ``(y, u, v, image_hw)``
-        for yuv420, ``(image, image_hw)`` for rgb."""
+        """Device tensors in, device tensors out, in ``self.keys``' order:
+        ``(y, u, v, image_hw)`` for yuv420, ``(image, image_hw)`` for rgb
+        (DMDS's second frame and 3D intrinsics as ``data_keys`` says)."""
         return self.run(*data)
 
     def run(self, *data: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``predict`` without its ``no_grad``: the steps ``cli/export.py``
         records as a program."""
-        cfg = self.cfg
+        d = dict(zip(self.keys, data))
+        proc, rois = self._preprocess(d)
+        if self.cfg.name == "dmds":  # frame t+1 through the same ROI (same image_hw)
+            proc = torch.cat([proc, self._preprocess(d, "_t1")[0]], dim=-1)
+        return postprocess(self.cfg, self.heads(proc), rois, d.get("intrinsics"))
+
+    def _preprocess(self, d: Dict[str, torch.Tensor], frame: str = ""):
+        hw = self.cfg.input_hw
         if self.input_format == "yuv420":
-            proc, rois = preprocess_yuv420_batch(*data, cfg.input_hw, out_dtype=torch.bfloat16)
-        else:
-            proc, rois = preprocess_image_batch(*data, cfg.input_hw, out_dtype=torch.bfloat16)
-        return postprocess(cfg, self.heads(proc), rois)
+            return preprocess_yuv420_batch(d["y" + frame], d["u" + frame], d["v" + frame],
+                                           d["image_hw"], hw, out_dtype=torch.bfloat16)
+        return preprocess_image_batch(d["image" + frame], d["image_hw"], hw,
+                                      out_dtype=torch.bfloat16)
 
     def __call__(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """batch: the format's keys (numpy arrays or tensors); other keys
-        (labels) are ignored."""
-        args = [batch[k] for k in _KEYS[self.input_format]]
+        """batch: the pipeline's keys (numpy arrays or tensors); other keys
+        (labels) are ignored. A ``with_3d`` batch without ``intrinsics``
+        gets placeholder ones ([1, 1, 0, 0], as the reference): the 3D
+        outputs are then geometrically meaningless but well formed."""
+        if self.with_3d and "intrinsics" not in batch:
+            n = batch["image_hw"].shape[0]
+            batch = dict(batch, intrinsics=np.tile(np.float32([[1.0, 1.0, 0.0, 0.0]]), (n, 1)))
+        args = [batch[k] for k in self.keys]
         args = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args]
         n = int(args[0].shape[0])
         args = pad_rows(args, self.cfg.batch_size)

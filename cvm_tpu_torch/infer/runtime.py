@@ -26,6 +26,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
+from cvm_tpu_torch.infer.pipeline import data_keys
 from cvm_tpu_torch.utils.batch import pad_rows
 from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -65,7 +66,10 @@ def _load_program(path: str, device: torch.device, exported_on: str):
 class ServingModel:
     """Loads an artifact directory and exposes ``__call__(*data)``: device
     tensors out, in the export's argument order (``y, u, v, image_hw`` for
-    yuv420, ``image, image_hw`` for rgb; numpy arrays or tensors in)."""
+    yuv420, ``image, image_hw`` for rgb, with a dmds artifact's second
+    frame and a ``with_3d`` artifact's intrinsics as
+    ``infer/pipeline.py::data_keys`` orders them; numpy arrays or tensors
+    in)."""
 
     def __init__(self, artifact_dir: str, device: DeviceLike):
         self.artifact_dir = artifact_dir
@@ -73,6 +77,8 @@ class ServingModel:
         with open(os.path.join(artifact_dir, "artifact.json")) as f:
             self.meta: Dict[str, Any] = json.load(f)
         self.input_format: str = self.meta.get("input_format", "rgb")
+        self.keys = data_keys(self.meta.get("model", ""), self.input_format,
+                              bool((self.meta.get("params_cfg") or {}).get("with_3d", False)))
         exported_on = self.meta.get("device", "cpu")
         primary = int(self.meta["batch_size"])
         self._programs = {primary: _load_program(os.path.join(artifact_dir, "model.pt2"),
@@ -109,10 +115,9 @@ class ServingModel:
         order, the outputs as numpy arrays trimmed to the batch's rows. The
         one place the trace-argument contract lives on the consumer side
         (``cli.evaluate --artifact`` calls it)."""
-        keys = ("y", "u", "v", "image_hw") if self.input_format == "yuv420" else (
-            "image", "image_hw")
-        data = [np.ascontiguousarray(batch[k], dtype=np.int32 if k == "image_hw" else np.uint8)
-                for k in keys]
+        dtypes = {"image_hw": np.int32, "intrinsics": np.float32}
+        data = [np.ascontiguousarray(batch[k], dtype=dtypes.get(k, np.uint8))
+                for k in self.keys]
         return {k: v.cpu().numpy() for k, v in self(*data).items()}
 
     def selftest(self, rtol: float = 0.05, atol: float = 1e-3) -> List[str]:

@@ -32,16 +32,29 @@ def synth_inputs(meta: Dict[str, Any], seed: int = SELFTEST_SEED) -> Tuple[np.nd
     """Deterministic inputs in the artifact's call signature, made from
     its meta alone (so export and serving make the same bytes): planar
     YUV420 ``(y, u, v, image_hw)`` or RGB ``(image, image_hw)``, batch
-    ``meta["batch_size"]`` on the ``pad_hw`` canvas."""
+    ``meta["batch_size"]`` on the ``pad_hw`` canvas; a dmds artifact's
+    second frame (after the first frame's planes, or after ``image_hw``),
+    a ``with_3d`` artifact's intrinsics last, drawn in the reference's
+    order."""
     B = int(meta.get("batch_size", 1))
     h, w = (int(v) for v in meta.get("pad_hw", (64, 64)))
+    two_frame = meta.get("model") == "dmds"
     rng = np.random.default_rng(seed)
     hw = np.tile(np.asarray([[h, w]], np.int32), (B, 1))
     if meta.get("input_format", "rgb") == "yuv420":
-        return (rng.integers(0, 256, (B, h, w), dtype=np.uint8),
-                rng.integers(0, 256, (B, h // 2, w // 2), dtype=np.uint8),
-                rng.integers(0, 256, (B, h // 2, w // 2), dtype=np.uint8), hw)
-    return rng.integers(0, 256, (B, h, w, 3), dtype=np.uint8), hw
+        def planes():
+            return (rng.integers(0, 256, (B, h, w), dtype=np.uint8),
+                    rng.integers(0, 256, (B, h // 2, w // 2), dtype=np.uint8),
+                    rng.integers(0, 256, (B, h // 2, w // 2), dtype=np.uint8))
+
+        args = planes() + (planes() if two_frame else ()) + (hw,)
+    else:
+        args = (rng.integers(0, 256, (B, h, w, 3), dtype=np.uint8), hw)
+        if two_frame:
+            args += (rng.integers(0, 256, (B, h, w, 3), dtype=np.uint8),)
+    if (meta.get("params_cfg") or {}).get("with_3d", False):
+        args += (np.tile(np.asarray([[200.0, 200.0, w / 2.0, h / 2.0]], np.float32), (B, 1)),)
+    return args
 
 
 def fingerprint(outputs: Dict[str, Any]) -> Dict[str, Any]:

@@ -2,8 +2,10 @@
 on offset and size at the GT centres ("Objects as Points").
 
 Mirrors ``cvm_tpu/models/centernet/loss.py`` (``penalty_reduced_focal_loss``,
-``masked_l1_loss``, ``centernet_loss``), 2D heads only. Every value is a
-0-dim device tensor, so a training step never waits on the host.
+``masked_l1_loss``, ``centernet_loss``). With ``with_3d`` and 3D targets,
+the depth head's 1/sigmoid - 1 depth and the dims and yaw (sin, cos) heads
+add masked L1 terms at the centres. Every value is a 0-dim device tensor,
+so a training step never waits on the host.
 """
 
 from __future__ import annotations
@@ -39,15 +41,23 @@ def masked_l1_loss(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor)
 
 def centernet_loss(outputs: Dict[str, torch.Tensor], targets: CenternetTargets,
                    params: CenternetParams) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Weighted sum of the three losses, and the metrics dict
-    ``{"loss", "loss_hm", "loss_off", "loss_size"}``."""
-    if params.with_3d:
-        raise NotImplementedError("with_3d: the 3D heads' losses are not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
+    """Weighted sum of the losses, and the metrics dict ``{"loss",
+    "loss_hm", "loss_off", "loss_size"}`` (+ ``loss_dep3d``, ``loss_dim3d``,
+    ``loss_rot`` with 3D targets)."""
     l_hm = penalty_reduced_focal_loss(outputs["heatmap"], targets.heatmap,
                                       params.focal_alpha, params.focal_beta)
     l_off = masked_l1_loss(outputs["offset"], targets.offset, targets.mask)
     l_size = masked_l1_loss(outputs["size"], targets.size, targets.mask)
     total = (params.weight_heatmap * l_hm + params.weight_offset * l_off
              + params.weight_size * l_size)
-    return total, {"loss": total, "loss_hm": l_hm, "loss_off": l_off, "loss_size": l_size}
+    metrics = {"loss": total, "loss_hm": l_hm, "loss_off": l_off, "loss_size": l_size}
+    if params.with_3d and targets.extras:
+        ex = targets.extras
+        pred_depth = 1.0 / torch.sigmoid(outputs["depth3d"]) - 1.0
+        l_dep = masked_l1_loss(pred_depth, ex["depth3d"], targets.mask)
+        l_dim = masked_l1_loss(outputs["dims3d"], ex["dims3d"], targets.mask)
+        l_rot = masked_l1_loss(outputs["rot"], ex["rot"], targets.mask)
+        total = (total + params.weight_depth3d * l_dep + params.weight_dims3d * l_dim
+                 + params.weight_rot * l_rot)
+        metrics.update(loss=total, loss_dep3d=l_dep, loss_dim3d=l_dim, loss_rot=l_rot)
+    return total, metrics

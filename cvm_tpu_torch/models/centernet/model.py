@@ -1,10 +1,12 @@
 """CenterNet: backbone + upsampling neck + heatmap/offset/size heads.
 
 Mirrors ``cvm_tpu/models/centernet/model.py`` (``CenterNet``,
-``create_model``), 2D heads only. Takes an NHWC (B, H, W, 3) input and
-returns NHWC fp32 heads ``{"heatmap", "offset", "size"}``. Module names
-follow the reference's flax names (``backbone`` for ``Backbone_0``,
-``up{i}``, ``hm``, ``off``, ``size``).
+``create_model``). Takes an NHWC (B, H, W, 3) input and returns NHWC fp32
+heads ``{"heatmap", "offset", "size"}``; ``with_3d`` adds the monocular 3D
+heads ``{"depth3d" (1, the 1/sigmoid - 1 depth's logit), "dims3d" (3,
+metres), "rot" (2, yaw sin/cos)}``. Module names follow the reference's
+flax names (``backbone`` for ``Backbone_0``, ``up{i}``, ``hm``, ``off``,
+``size``, ``dep3d``, ``dim3d``, ``rot``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,10 @@ class CenterNet(nn.Module):
         self.hm = Head(ch, p.head_features, p.num_classes, _HM_BIAS)
         self.off = Head(ch, p.head_features, 2)
         self.size = Head(ch, p.head_features, 2)
+        if p.with_3d:
+            self.dep3d = Head(ch, p.head_features, 1)
+            self.dim3d = Head(ch, p.head_features, 3)
+            self.rot = Head(ch, p.head_features, 2)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         feats = self.backbone(x)
@@ -48,7 +54,10 @@ class CenterNet(nn.Module):
         for i in range(self.n_up):
             s //= 2
             h = getattr(self, f"up{i}")(h, skips[s])
-        return {"heatmap": self.hm(h), "offset": self.off(h), "size": self.size(h)}
+        out = {"heatmap": self.hm(h), "offset": self.off(h), "size": self.size(h)}
+        if self.params.with_3d:
+            out.update(depth3d=self.dep3d(h), dims3d=self.dim3d(h), rot=self.rot(h))
+        return out
 
 
 def create_model(params: CenternetParams, device: DeviceLike,

@@ -1,9 +1,9 @@
 """CenterNet hyperparameters; mirrors ``cvm_tpu/models/centernet/params.py``
 (same field names and defaults).
 
-The 3D-head fields (``with_3d``, ``weight_depth3d``, ``weight_dims3d``,
-``weight_rot``) are carried so that a reference ``params.json`` loads, but
-the 3D heads are not ported: the processor refuses ``with_3d``.
+``with_3d`` adds the monocular 3D heads (camera-frame depth, object
+dimensions, yaw), their targets and their losses (``weight_depth3d``,
+``weight_dims3d``, ``weight_rot``).
 ``BaseParams`` (which adds ``ema_decay``, ``grad_accum_steps``,
 ``lr_schedule``, ``optimizer``, ``aug_noise_std``, ``aug_blur_prob``,
 ``aug_rotate_deg`` and the rest) is the port's copy of the reference's
@@ -43,6 +43,7 @@ class CenternetParams(BaseParams):
     # GT heatmap from the hand-written splat kernel K1
     # (ops/cuda/gaussian_splat.py); False = the plain lattice renderer.
     use_pallas_splat: bool = True
+    # monocular 3D heads (KITTI / nuScenes style)
     with_3d: bool = False
     weight_depth3d: float = 1.0
     weight_dims3d: float = 1.0

@@ -8,6 +8,13 @@ heatmap comes from ``render_heatmap``, which launches kernel K1 for a CUDA
 batch (no lattice is computed) and takes the plain version for a CPU batch.
 ``use_pallas_splat=False`` selects the plain lattice renderer on both
 devices, as the reference's flag does.
+
+With ``with_3d`` and 3D labels in the batch (``loc3d``, ``dims3d``,
+``rot_y``), the targets carry the extras: camera z, metric dims and the
+yaw as (sin, cos), the cosine negated on horizontally flipped samples (a
+mirrored camera sees ry -> pi - ry). Depth is not corrected for the
+augmentation's zoom (the CenterNet ddd convention); rotation augmentation
+is refused with the reference's message.
 """
 
 from __future__ import annotations
@@ -30,13 +37,16 @@ def make_processor(params: CenternetParams, train: bool) -> Processor:
 
     batch: image (B, Hmax, Wmax, 3) uint8 or y/u/v planes; image_hw (B, 2);
     boxes (B, K, 4) [x0, y0, x1, y1] source px; classes (B, K);
-    num_objects (B,) -- tensors on one device. In training the random
+    num_objects (B,); with ``with_3d`` also loc3d (B, K, 3), dims3d (B, K,
+    3), rot_y (B, K) -- tensors on one device. In training the random
     numbers are ``draws`` when given, else drawn from ``generator`` (on the
     batch's device); eval takes neither.
     """
-    if params.with_3d:
-        raise NotImplementedError("with_3d: the 3D heads and targets are not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
+    if params.with_3d and getattr(params, "aug_rotate_deg", 0.0) > 0.0:
+        raise ValueError(
+            "aug_rotate_deg is incompatible with with_3d: monocular yaw and "
+            "back-projection assume an unrolled camera (keep rotation off "
+            "for 3D configs, like the tight aug_scale_range guidance)")
     refuse_rotation(params)
     splat = render_heatmap if params.use_pallas_splat else render_heatmap_reference
 
@@ -47,9 +57,15 @@ def make_processor(params: CenternetParams, train: bool) -> Processor:
         K = boxes.shape[1]
         valid = (torch.arange(K, device=boxes.device)[None, :]
                  < batch["num_objects"][:, None])
+        extra_values = None
+        if params.with_3d and "loc3d" in batch:
+            ry = batch["rot_y"]
+            flip_sign = torch.where(rois.flip_x, -1.0, 1.0)[:, None]
+            extra_values = {"depth3d": batch["loc3d"][..., 2:3], "dims3d": batch["dims3d"],
+                            "rot": torch.stack([torch.sin(ry), torch.cos(ry) * flip_sign], -1)}
         targets = render_centernet_targets_batch(boxes, batch["classes"], valid,
                                                  params.map_hw, params.num_classes,
-                                                 params.min_overlap, splat)
+                                                 params.min_overlap, splat, extra_values)
         return images, targets
 
     return process

@@ -11,7 +11,7 @@ finest depth is upsampled bilinearly to full resolution. Returns
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -54,6 +54,13 @@ class DepthNet(nn.Module):
         depths = [sigmoid_to_depth(s, p.min_depth, p.max_depth) for s in scales]
         full = upsample_bilinear(depths[0], tuple(x.shape[1:3]))
         return {"depth": full, "depth_scales": depths, "disp_logits": scales}
+
+    def params_unread_by_loss(self) -> List[nn.Parameter]:
+        """The disp heads coarser than the ``num_scales`` the forward
+        returns: computed, read by no loss (the train step gives them a
+        zero gradient, as JAX does)."""
+        return [q for i in range(4 - self.params.num_scales)
+                for q in getattr(self, f"disp{i}").parameters()]
 
 
 def create_model(params: DepthParams, device: DeviceLike,

@@ -199,13 +199,13 @@ class Head(nn.Module):
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     """Flax's default init, drawn from ``generator`` (a CPU generator):
-    conv kernels lecun-normal (truncated normal, variance 1/fan_in), conv
-    biases zero except each head's projection (its ``bias_init_value``),
-    BatchNorm scale 1, bias 0, mean 0, var 1."""
+    conv and dense kernels lecun-normal (truncated normal, variance
+    1/fan_in), biases zero except each head's projection (its
+    ``bias_init_value``), BatchNorm scale 1, bias 0, mean 0, var 1."""
     # flax truncates at +-2 std and rescales so the variance stays 1/fan_in.
     std_fix = 0.87962566103423978
     for mod in model.modules():
-        if isinstance(mod, Conv):
+        if isinstance(mod, (Conv, nn.Linear)):
             fan_in = mod.weight[0].numel()
             w = torch.empty(mod.weight.shape)
             nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)

@@ -2,10 +2,10 @@
 and decode.
 
 Mirrors ``cvm_tpu/models/registry.py`` (``ModelSpec``, ``get_model``,
-``get_model_zoo``, ``build_model``) for the ported models: centernet (2D
-heads), semseg, depth and multitask. ``dmds`` is registered and refuses
-with its ROADMAP item. ``create_model(params, device, generator=None)``
-takes the device the model lives on; there is no mesh.
+``get_model_zoo``, ``build_model``) for the whole zoo: centernet (with its
+optional 3D heads), semseg, depth, multitask and dmds.
+``create_model(params, device, generator=None)`` takes the device the model
+lives on; there is no mesh.
 """
 
 from __future__ import annotations
@@ -91,8 +91,12 @@ def _multitask() -> ModelSpec:
 
 
 def _dmds() -> ModelSpec:
-    raise NotImplementedError("dmds is not ported yet (ROADMAP Queue 1 item 15): its "
-                              "warp, SSIM and two-frame data wait with it")
+    from cvm_tpu_torch.models.dmds.loss import dmds_loss
+    from cvm_tpu_torch.models.dmds.model import create_model
+    from cvm_tpu_torch.models.dmds.params import DmdsParams
+    from cvm_tpu_torch.models.dmds.processor import make_processor
+
+    return ModelSpec("dmds", DmdsParams, create_model, dmds_loss, make_processor)
 
 
 register_model("centernet", _centernet)

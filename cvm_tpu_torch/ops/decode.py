@@ -2,6 +2,7 @@
 argmax, palette lookup and bilinear upsample.
 
 Mirrors ``cvm_tpu/ops/decode.py`` (``Detections``, ``decode_centernet``,
+``decode_centernet_with_extras``, ``Detections3d``, ``decode_centernet_3d``,
 ``_decode_core``, ``semseg_argmax``, ``colorize_semseg``,
 ``upsample_bilinear``): sigmoid, a 3x3 SAME max-pool padded with -inf whose
 equality marks peaks, the two-stage exact top-k, and the offset/size gather.
@@ -12,7 +13,7 @@ scores differently from ``lax.top_k``.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +37,52 @@ def decode_centernet(heatmap: torch.Tensor, offset: torch.Tensor, size: torch.Te
     sub-pixel centre offsets (x, y), size (B, Hs, Ws, 2) box (w, h) in
     output-stride units -> top_k detections per image."""
     return _decode_core(heatmap, offset, size, stride, top_k, from_logits)[0]
+
+
+def decode_centernet_with_extras(heatmap: torch.Tensor, offset: torch.Tensor,
+                                 size: torch.Tensor, stride: int,
+                                 extras: Dict[str, torch.Tensor], top_k: int = 100,
+                                 from_logits: bool = True
+                                 ) -> Tuple[Detections, Dict[str, torch.Tensor]]:
+    """``decode_centernet`` plus each extra dense map {name: (B, Hs, Ws,
+    C)} gathered at the detections' peaks -> {name: (B, top_k, C)}."""
+    det, pix = _decode_core(heatmap, offset, size, stride, top_k, from_logits)
+    B, Hs, Ws, _ = heatmap.shape
+    out = {}
+    for name, m in extras.items():
+        C = m.shape[-1]
+        out[name] = torch.gather(m.reshape(B, Hs * Ws, C), 1, pix[..., None].expand(-1, -1, C))
+    return det, out
+
+
+class Detections3d(NamedTuple):
+    det: Detections           # 2D boxes / scores / classes
+    centers3d: torch.Tensor   # (B, K, 3) camera-frame (X, Y, Z) metres
+    dims: torch.Tensor        # (B, K, 3) (h, w, l) metres
+    yaw: torch.Tensor         # (B, K) radians
+
+
+def decode_centernet_3d(heatmap: torch.Tensor, offset: torch.Tensor, size: torch.Tensor,
+                        depth3d: torch.Tensor, dims3d: torch.Tensor, rot: torch.Tensor,
+                        intrinsics: torch.Tensor, stride: int, top_k: int = 100,
+                        from_logits: bool = True) -> Detections3d:
+    """Monocular 3D decode: peaks -> metric camera-frame boxes.
+
+    depth3d (B, Hs, Ws, 1) logits of the 1/sigmoid - 1 depth; dims3d (B,
+    Hs, Ws, 3) metres; rot (B, Hs, Ws, 2) yaw (sin, cos); intrinsics (B, 4)
+    [fx, fy, cx, cy] in model-input pixels (``ops.warp.scale_intrinsics``
+    of the source-image ones). The decoded 2D centre (u, v) back-projects
+    to X = (u - cx) Z / fx, Y = (v - cy) Z / fy."""
+    det, ex = decode_centernet_with_extras(
+        heatmap, offset, size, stride, {"depth3d": depth3d, "dims3d": dims3d, "rot": rot},
+        top_k, from_logits)
+    z = 1.0 / torch.sigmoid(ex["depth3d"][..., 0]) - 1.0
+    u = (det.boxes[..., 0] + det.boxes[..., 2]) * 0.5
+    v = (det.boxes[..., 1] + det.boxes[..., 3]) * 0.5
+    fx, fy, cx, cy = (intrinsics[:, i:i + 1] for i in range(4))
+    centers = torch.stack([(u - cx) * z / fx, (v - cy) * z / fy, z], -1)
+    yaw = torch.atan2(ex["rot"][..., 0], ex["rot"][..., 1])
+    return Detections3d(det, centers, ex["dims3d"], yaw)
 
 
 def _decode_core(heatmap, offset, size, stride, top_k, from_logits):

@@ -8,14 +8,17 @@ version (the reference's lattice and per-class max) by default, or the
 device-dispatching wrapper of kernel K1. Offset, size and mask are plain
 scatters at the integer centres.
 
-Where two valid objects share a centre, which one's offset and size land
-there is unspecified, as with the reference's ``.at[].set``.
-The 3D ``extra_values`` maps come with the 3D heads (not ported).
+``extra_values`` (the 3D heads' per-object regressands: depth3d, dims3d,
+rot) are scattered densely at the same centres into ``targets.extras``;
+K1 renders only the heatmap, as the reference's Pallas splat does.
+
+Where two valid objects share a centre, which one's offset, size and
+extras land there is unspecified, as with the reference's ``.at[].set``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,8 +48,7 @@ def gaussian_radius(height, width, min_overlap: float = 0.7) -> torch.Tensor:
 
 class CenternetTargets(NamedTuple):
     """Batched GT maps (per-image fields without the B axis from
-    ``render_centernet_targets``); the reference's 3D ``extras`` are not
-    ported."""
+    ``render_centernet_targets``)."""
 
     heatmap: torch.Tensor  # (B, Hs, Ws, C) in [0, 1]
     offset: torch.Tensor   # (B, Hs, Ws, 2) sub-pixel centre offset at GT centres
@@ -54,6 +56,9 @@ class CenternetTargets(NamedTuple):
     mask: torch.Tensor     # (B, Hs, Ws) 1.0 at GT centres
     indices: torch.Tensor  # (B, K) flat centre index y*Ws+x (0 where invalid)
     valid: torch.Tensor    # (B, K) bool
+    # {name: (B, Hs, Ws, C)} per-object regressands scattered at the centres
+    # (the 3D targets), None without them.
+    extras: Optional[Dict[str, torch.Tensor]] = None
 
 
 def prepare_centers(boxes: torch.Tensor, valid: torch.Tensor, map_hw: Tuple[int, int],
@@ -81,7 +86,8 @@ Splat = Callable[..., torch.Tensor]
 def render_centernet_targets_batch(boxes: torch.Tensor, classes: torch.Tensor,
                                    valid: torch.Tensor, map_hw: Tuple[int, int],
                                    num_classes: int, min_overlap: float = 0.7,
-                                   splat: Splat = render_heatmap_reference
+                                   splat: Splat = render_heatmap_reference,
+                                   extra_values: Optional[Dict[str, torch.Tensor]] = None
                                    ) -> CenternetTargets:
     """CenterNet GT for a batch.
 
@@ -90,6 +96,8 @@ def render_centernet_targets_batch(boxes: torch.Tensor, classes: torch.Tensor,
     valid   : (B, K) bool padding mask.
     splat   : the heatmap renderer (``render_heatmap_reference`` or the
               kernel wrapper ``render_heatmap``).
+    extra_values : optional {name: (B, K, C)} regressands scattered at the
+              integer centres into ``extras`` {name: (B, Hs, Ws, C)}.
     """
     hs, ws = map_hw
     B, K = valid.shape
@@ -113,14 +121,21 @@ def render_centernet_targets_batch(boxes: torch.Tensor, classes: torch.Tensor,
     size = scatter(sz, 2)
     mask = scatter(torch.ones_like(cx)[..., None], 1)[..., 0]
     indices = torch.where(valid, flat, 0)
-    return CenternetTargets(heatmap, offset, size, mask, indices, valid)
+    extras = None
+    if extra_values:
+        extras = {k: scatter(v.to(torch.float32), v.shape[-1]) for k, v in extra_values.items()}
+    return CenternetTargets(heatmap, offset, size, mask, indices, valid, extras)
 
 
 def render_centernet_targets(boxes, classes, valid, map_hw, num_classes,
                              min_overlap: float = 0.7,
-                             splat: Splat = render_heatmap_reference) -> CenternetTargets:
-    """One image: boxes (K, 4), classes (K,), valid (K,); fields without
-    the batch axis."""
-    t = render_centernet_targets_batch(boxes[None], classes[None], valid[None], map_hw,
-                                       num_classes, min_overlap, splat)
-    return CenternetTargets(*(f[0] for f in t))
+                             splat: Splat = render_heatmap_reference,
+                             extra_values: Optional[Dict[str, torch.Tensor]] = None
+                             ) -> CenternetTargets:
+    """One image: boxes (K, 4), classes (K,), valid (K,), extra_values
+    {name: (K, C)}; fields without the batch axis."""
+    t = render_centernet_targets_batch(
+        boxes[None], classes[None], valid[None], map_hw, num_classes, min_overlap, splat,
+        None if extra_values is None else {k: v[None] for k, v in extra_values.items()})
+    extras = None if t.extras is None else {k: v[0] for k, v in t.extras.items()}
+    return CenternetTargets(*(f[0] for f in t[:6]), extras)

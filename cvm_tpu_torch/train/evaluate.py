@@ -6,10 +6,11 @@ Mirrors ``cvm_tpu/train/evaluate.py``. ``box_iou_matrix``,
 ``DetectionEvaluator``, ``Detection3dEvaluator``, ``SemsegEvaluator``,
 ``DepthEvaluator``, ``COCO_IOU_THRESHOLDS`` and ``_COCO_AREA_BUCKETS`` are
 numpy only and copied verbatim (``tests/test_torch_vendored.py`` holds them
-identical to the originals). ``evaluate_model`` is ported for 2D CenterNet,
-semseg, depth and multitask, with the GT masks and depth resampled through
-the eval letterbox (``sample_nearest``); the 3D heads and DMDS wait with
-ROADMAP Queue 1 item 15.
+identical to the originals). ``evaluate_model`` is ported for the whole
+zoo, with the GT masks and depth resampled through the eval letterbox
+(``sample_nearest``): a ``with_3d`` CenterNet adds the 3D metrics
+(``Detection3dEvaluator`` on the 2D-matched detections), and DMDS's
+unsupervised, scale-ambiguous depth is scored median-scaled.
 """
 
 from __future__ import annotations
@@ -337,8 +338,8 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
                    stats: Optional[Dict[str, float]] = None) -> Dict[str, float]:
     """Run the end-to-end pipeline over a loader and compute the metrics.
 
-    ``spec`` is the model's zoo name (centernet, semseg, depth or
-    multitask); ``model`` the eval-mode model (the pipeline serves a copy,
+    ``spec`` is the model's zoo name (centernet, semseg, depth, multitask
+    or dmds); ``model`` the eval-mode model (the pipeline serves a copy,
     so it is left untouched);
     ``device`` where the pipeline runs. ``input_format``: "rgb", "yuv420",
     or "auto" (from the first batch's keys). ``w8a8`` (True for dynamic
@@ -349,22 +350,20 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
     dict`` replaces the pipeline; ``model`` may then be None. Detection
     models report mAP (``per_class``, ``size_buckets``, ``pr_curves``),
     segmentation models mIoU and pixel accuracy (``per_class``,
-    ``confusion``), depth models abs_rel, sq_rel, rmse and delta1-3.
+    ``confusion``), depth models abs_rel, sq_rel, rmse and delta1-3 (DMDS
+    median-scaled); a ``with_3d`` model adds ``center_err_3d_m``,
+    ``depth3d_abs_rel`` and ``matched_3d_frac`` where the batches carry
+    ``loc3d`` (the pipeline reads their ``intrinsics``).
 
     ``stats``, when given, receives ``batches``, ``predict_s`` (host seconds
     in the pipeline, copies to and from the device included) and
     ``evaluator_s`` (host seconds in the evaluators).
     """
-    if (spec not in ("centernet", "semseg", "depth", "multitask")
-            or getattr(cfg, "with_3d", False)):
-        what = f"{spec} with_3d" if spec == "centernet" else spec
-        raise NotImplementedError(f"evaluate_model: {what} is not ported yet "
-                                  "(ROADMAP Queue 1 item 15)")
     from cvm_tpu_torch.infer.pipeline import InferencePipeline
     from cvm_tpu_torch.pipeline.preprocess import make_rois, resample_labels
 
     pipe = None  # built on the first batch once the format is known
-    det_eval = seg_eval = dep_eval = None
+    det_eval = seg_eval = dep_eval = det3d_eval = None
     bucket_evals: Dict[str, DetectionEvaluator] = {}
     if spec in ("centernet", "multitask"):
         n_det = getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 0))
@@ -373,11 +372,15 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
             # COCO-style area breakdown: out-of-bucket GTs are IGNORED
             # (match neither TP nor FP) per the standard protocol.
             bucket_evals = {name: DetectionEvaluator(n_det) for name in _COCO_AREA_BUCKETS}
+        if getattr(cfg, "with_3d", False):
+            det3d_eval = Detection3dEvaluator()
     if spec in ("semseg", "multitask"):
         seg_eval = SemsegEvaluator(getattr(cfg, "num_classes", getattr(cfg, "num_seg_classes", 0)),
                                    getattr(cfg, "ignore_index", 255))
-    if spec in ("depth", "multitask"):
-        dep_eval = DepthEvaluator()
+    if spec in ("depth", "multitask", "dmds"):
+        # DMDS depth is unsupervised and scale-ambiguous: the median-scaling
+        # protocol.
+        dep_eval = DepthEvaluator(median_scale=(spec == "dmds"))
 
     def resample_gt(key, pad_value):
         # The GT map through the eval letterbox on the CPU: it goes to the
@@ -430,6 +433,10 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
                     bucket_evals[name].add_image(
                         out["boxes"][i], out["scores"][i], out["classes"][i],
                         gt_b, gt_c, gt_ignore=~in_bucket, det_area_range=(lo, hi))
+            if det3d_eval is not None and "centers3d" in out and "loc3d" in batch:
+                det3d_eval.add_image(out["boxes"][i], out["scores"][i], out["classes"][i],
+                                     out["centers3d"][i], gt_b, gt_c,
+                                     np.asarray(batch["loc3d"][i][:ng]))
         predict_s += t1 - t0
         evaluator_s += time.perf_counter() - t1
         n += 1
@@ -442,6 +449,8 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
             metrics["pr_curves"] = det_eval.pr_curves()
     for name, ev in bucket_evals.items():
         metrics[f"mAP_{name}"] = ev.compute()["mAP"]
+    if det3d_eval is not None:
+        metrics.update(det3d_eval.compute())
     if seg_eval is not None:
         metrics.update(seg_eval.compute(per_class=per_class, confusion=confusion))
     if dep_eval is not None:

@@ -67,6 +67,23 @@ def create_train_state(model: nn.Module, params_cfg, optimizer: Optimizer) -> Tr
     return TrainState(0, model.train(), optimizer, ema)
 
 
+def _param_grads(loss: torch.Tensor, state: TrainState):
+    """d loss / d every parameter. A parameter the loss does not reach is
+    an error (a disconnected head would otherwise train on a zero gradient
+    while weight decay shrinks it), except those the model names in
+    ``params_unread_by_loss()`` (a depth net's coarse disp heads that no
+    loss reads): they get a zero gradient, as in JAX."""
+    unread = getattr(state.model, "params_unread_by_loss", list)
+    allowed = {id(p) for p in unread()}
+    grads = torch.autograd.grad(loss, state.params, allow_unused=True)
+    names = {id(p): n for n, p in state.model.named_parameters()}
+    stray = [names.get(id(p), "?") for p, g in zip(state.params, grads)
+             if g is None and id(p) not in allowed]
+    if stray:
+        raise RuntimeError(f"the loss does not reach parameters {stray}")
+    return tuple(torch.zeros_like(p) if g is None else g for p, g in zip(state.params, grads))
+
+
 def make_train_step(loss_fn: Callable, params_cfg, processor: Callable) -> Callable:
     """Returns ``train_step(state, raw_batch, generator) -> (state,
     metrics)``; the state is updated in place. ``grad_norm`` is the global
@@ -81,7 +98,7 @@ def make_train_step(loss_fn: Callable, params_cfg, processor: Callable) -> Calla
             # qat=True: the loss surface includes the int8 rounding noise.
             out = state.model(inputs)
         loss, metrics = loss_fn(out, targets, params_cfg)
-        grads = torch.autograd.grad(loss, state.params)
+        grads = _param_grads(loss, state)
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
         applied = state.optimizer.step(grads)

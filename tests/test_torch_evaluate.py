@@ -42,6 +42,7 @@ from cvm_tpu_torch.convert import convert_scales, flax_path_to_module_name
 from cvm_tpu_torch.data.synthetic import SyntheticIterator, synthetic_batch
 from cvm_tpu_torch.infer.pipeline import InferencePipeline
 from cvm_tpu_torch.infer.quantize import dequantize_params, quantization_error, quantize_params
+from cvm_tpu_torch.models import get_model as t_get_model
 from cvm_tpu_torch.models.centernet.params import CenternetParams
 from cvm_tpu_torch.pipeline.preprocess import preprocess_image_batch
 from cvm_tpu_torch.train import evaluate as t_eval
@@ -257,10 +258,18 @@ def test_pipeline_update_variables_and_refusals(trained):
         torch.testing.assert_close(v, want[k], rtol=0, atol=0)
     with pytest.raises(ValueError, match="rebuild the pipeline"):
         InferencePipeline(cfg, model, "cpu", fold_bn=True).update_variables(fresh.state_dict())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t_eval.evaluate_model("dmds", cfg, model, [b], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        t_eval.evaluate_model("centernet", cfg.replace(with_3d=True), model, [b], device="cpu")
+    # The reference's refusals that remain: hflip TTA mirrors a 3D model's
+    # yaw and DMDS's motion.
+    with pytest.raises(ValueError, match="with_3d"):
+        t_eval.evaluate_model("centernet", cfg.replace(with_3d=True), model, [b], device="cpu",
+                              tta="hflip")
+    dmds = t_get_model("dmds")
+    dcfg = dmds.params_cls(input_hw=(64, 64), backbone="tiny", decoder_features=8,
+                           motion_features=16, batch_size=2)
+    with pytest.raises(ValueError, match="incompatible with dmds"):
+        t_eval.evaluate_model("dmds", dcfg, dmds.create_model(dcfg, "cpu"),
+                              [synthetic_batch(np.random.default_rng(8), 2, PAD, two_frame=True)],
+                              device="cpu", tta="hflip")
 
 
 def test_weight_only_int8_matches_reference(trained):

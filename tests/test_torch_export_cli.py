@@ -15,7 +15,8 @@ batch 2), from a checkpoint of converted reference weights.
   posture scores on the same scenes (the same calibration recipe), and
   refuses flags that the export has fixed.
 * The K2 op's fake implementation gives each mode's output shape and
-  dtype; export refuses dmds and ``with_3d``.
+  dtype; export keeps the reference's refusals for dmds (the W8A8
+  postures) and ``with_3d`` (hflip TTA), and refuses an unknown posture.
 """
 
 import json
@@ -37,6 +38,7 @@ from cvm_tpu_torch.cli.serve import main as serve_main
 from cvm_tpu_torch.convert import convert_variables
 from cvm_tpu_torch.infer.pipeline import InferencePipeline
 from cvm_tpu_torch.infer.runtime import ServingModel
+from cvm_tpu_torch.models import get_model as get_model_t
 from cvm_tpu_torch.models.centernet.params import CenternetParams
 from cvm_tpu_torch.train.loop import Trainer
 
@@ -199,13 +201,15 @@ def test_fused_qconv_fake_shapes(mode):
 
 
 def test_export_refuses_dmds_and_3d(setup, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        export_model("dmds", setup["ckdir"], str(tmp_path / "a"), device="cpu")
-    ck3d = tmp_path / "ck3d"
-    ck3d.mkdir()
-    (ck3d / "params.json").write_text(setup["cfg"].replace(with_3d=True).to_json())
-    with pytest.raises(NotImplementedError, match="item 15"):
-        export_model("centernet", str(ck3d), str(tmp_path / "b"), device="cpu")
+    for q in ("w8a8", "w8a8_fused", "w8a8_fused_chain"):
+        with pytest.raises(ValueError, match="not supported for two-frame dmds"):
+            export_model("dmds", setup["ckdir"], str(tmp_path / "a"), quantize=q,
+                         device="cpu")
+    cfg3d = setup["cfg"].replace(with_3d=True)
+    ck3d = write_checkpoint(tmp_path / "ck3d", cfg3d,
+                            get_model_t("centernet").create_model(cfg3d, "cpu").state_dict())
+    with pytest.raises(ValueError, match="with_3d"):
+        export_model("centernet", ck3d, str(tmp_path / "b"), tta="hflip", device="cpu")
     with pytest.raises(ValueError, match="quantize"):
         export_model("centernet", setup["ckdir"], str(tmp_path / "c"), quantize="w4",
                      device="cpu")

@@ -53,7 +53,11 @@ def test_every_module_imports_with_jax_blocked():
             "cvm_tpu_torch.cli.serve", "cvm_tpu_torch.infer.runtime",
             "cvm_tpu_torch.infer.selftest", "cvm_tpu_torch.train.qat"} | {
                 f"cvm_tpu_torch.models.{m}.{part}" for m in ("semseg", "depth", "multitask")
-                for part in ("params", "model", "loss", "processor")} <= set(_module_names())
+                for part in ("params", "model", "loss", "processor")} | {
+                "cvm_tpu_torch.ops.warp", "cvm_tpu_torch.ops.ssim"} | {
+                f"cvm_tpu_torch.models.dmds.{part}" for part in (
+                    "params", "model", "loss", "processor", "train", "evaluate",
+                    "inference")} <= set(_module_names())
 
 
 def test_no_source_file_imports_jax_flax_or_the_jax_package():

@@ -352,3 +352,84 @@ def test_int8_conv_int_mm_equals_the_plain_sums(cuda_device, name):
     torch.cuda.synchronize()
     assert Int8Conv.mm_launches == n0 + 1 and acc.dtype == torch.int32
     assert torch.equal(acc, int8_conv_reference(q, xq))
+
+
+def test_3d_config_b_int8_forward_launches(cuda_device):
+    """Config B with the monocular 3D heads, ``w8a8_fused_chain`` at batch
+    8: 27 K2 launches per forward (config B's 24, plus each 3D head's 3x3
+    128 -> 64 c1, a shape config B's own heads already run), 7 with int8
+    output, no weight packing."""
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.models.centernet.model import create_model
+    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.models.layers import Conv
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+
+    cfg = CenternetParams(with_3d=True)
+    model = create_model(cfg, cuda_device)
+    scales = {n: 0.05 for n, m in model.named_modules() if isinstance(m, Conv)}
+    pipe = InferencePipeline(cfg, model, cuda_device, input_format="rgb", w8a8=scales,
+                             w8a8_fused=True, w8a8_chain=True)
+    assert pipe.fused_counts["calls"] == 27
+    x = torch.zeros(8, 512, 512, 3, device=cuda_device, dtype=torch.bfloat16)
+    with torch.no_grad():
+        pipe.heads(x)  # warm: nothing is packed per call after the first
+        fq.reset_counts()
+        out = pipe.heads(x)
+    torch.cuda.synchronize()
+    assert (fq.fused_qconv.launches, fq.fused_qconv.int8_out_launches,
+            fq.fused_qconv.weight_packs) == (27, 7, 0)
+    assert set(out) >= {"depth3d", "dims3d", "rot"} and out["rot"].shape == (8, 128, 128, 2)
+
+
+def test_warp_and_ssim_on_the_card_match_the_cpu(cuda_device):
+    """The warp's sampled frame, valid mask and depth, and the SSIM map,
+    within 1e-5 of the CPU's on the same inputs; its projected coordinates
+    within 1e-4 px."""
+    from cvm_tpu_torch.ops.ssim import ssim
+    from cvm_tpu_torch.ops.warp import warp_frame
+
+    rng = np.random.default_rng(3)
+    B, H, W = 2, 48, 160
+    src = rng.uniform(0, 1, (B, H, W, 3)).astype(np.float32)
+    depth = rng.uniform(3, 30, (B, H, W, 1)).astype(np.float32)
+    rot = rng.normal(0, 0.01, (B, 3)).astype(np.float32)
+    trans = rng.normal(0, 0.3, (B, 3)).astype(np.float32)
+    intr = np.array([[144.0, 144.0, 80.0, 24.0]] * B, np.float32)
+    res = rng.normal(0, 0.05, (B, H, W, 3)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (src, depth, rot, trans, intr, res)]
+    cpu = warp_frame(*args)
+    card = warp_frame(*(a.to(cuda_device) for a in args))
+    for name, c, g in zip(cpu._fields, cpu, card):
+        # A projected coordinate is u = X fx / z + cx, a sum of terms of a
+        # few hundred pixels whose float32 step is 1.5e-5 to 3.1e-5, which
+        # the card contracts into FMAs: coordinates are held to 1e-4 px.
+        err = float((g.cpu() - c).abs().max())
+        print(f"warp_frame {name}: max |card - cpu| {err:.3e}")
+        if name == "coords":
+            torch.testing.assert_close(g.cpu(), c, rtol=0, atol=1e-4, msg=f"{name}: {err}")
+        else:
+            torch.testing.assert_close(g.cpu(), c, rtol=1e-5, atol=1e-5, msg=f"{name}: {err}")
+    b = np.clip(src + rng.normal(0, 0.1, src.shape), 0, 1).astype(np.float32)
+    s_cpu = ssim(torch.from_numpy(src), torch.from_numpy(b))
+    s_card = ssim(torch.from_numpy(src).to(cuda_device), torch.from_numpy(b).to(cuda_device))
+    torch.testing.assert_close(s_card.cpu(), s_cpu, rtol=0, atol=1e-5)
+
+
+def test_dmds_loss_gradient_on_the_card_is_finite(cuda_device):
+    from cvm_tpu_torch.data.synthetic import synthetic_batch
+    from cvm_tpu_torch.models.registry import get_model
+
+    spec = get_model("dmds")
+    cfg = spec.params_cls(input_hw=(96, 320), batch_size=2)
+    model = spec.create_model(cfg, cuda_device).train()
+    b = synthetic_batch(np.random.default_rng(0), 2, (144, 480), two_frame=True)
+    batch = {k: torch.from_numpy(v).to(cuda_device) for k, v in b.items()}
+    inputs, targets = spec.make_processor(cfg, True)(
+        torch.Generator(device=cuda_device).manual_seed(0), batch)
+    loss, metrics = spec.loss_fn(model(inputs), targets, cfg)
+    params = [p for p in model.parameters() if p.requires_grad]
+    grads = torch.autograd.grad(loss, params, allow_unused=True, materialize_grads=True)
+    assert torch.isfinite(loss) and all(torch.isfinite(v).all() for v in metrics.values())
+    assert all(torch.isfinite(g).all() for g in grads)
+    assert sum(float(g.abs().sum()) for g in grads) > 0

@@ -95,8 +95,15 @@ def test_centernet_loss_value_metrics_and_grads():
 
 
 def test_centernet_loss_refuses_3d():
+    """A ``with_3d`` config whose targets carry no 3D labels (no extras)
+    adds no 3D terms: the 2D loss and metrics, as the reference's (the 3D
+    terms are held in ``tests/test_torch_centernet3d.py``)."""
     outputs, targets = case(4)
     tt = CenternetTargets(**{k: torch.from_numpy(v) for k, v in targets.items()})
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tl.centernet_loss({k: torch.from_numpy(v) for k, v in outputs.items()}, tt,
-                          CenternetParams(with_3d=True))
+    jt = JTargets(**{k: jnp.asarray(v) for k, v in targets.items()})
+    tv, tm = tl.centernet_loss({k: torch.from_numpy(v) for k, v in outputs.items()}, tt,
+                               CenternetParams(with_3d=True))
+    jv, jm = jl.centernet_loss({k: jnp.asarray(v) for k, v in outputs.items()}, jt,
+                               JParams(with_3d=True))
+    assert set(tm) == set(jm) == {"loss", "loss_hm", "loss_off", "loss_size"}
+    _close(tv.numpy(), jv)

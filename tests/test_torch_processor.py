@@ -190,7 +190,7 @@ def test_train_processor_draws_from_its_generator():
     assert a.shape == (2, 64, 64, 3) and ta.heatmap.shape == (2, 16, 16, 3)
 
 
-@pytest.mark.parametrize("field,value", [("with_3d", True), ("aug_rotate_deg", 5.0)])
+@pytest.mark.parametrize("field,value", [("aug_rotate_deg", 5.0)])
 def test_processor_refuses_what_is_not_ported(field, value):
     with pytest.raises(NotImplementedError, match="not ported"):
         make_processor(CenternetParams(**{field: value}), train=True)

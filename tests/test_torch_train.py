@@ -44,6 +44,7 @@ from cvm_tpu.train.loop import make_train_step as j_make_train_step
 from cvm_tpu.train.optim import make_optimizer as j_make_optimizer
 from cvm_tpu_torch.cli.train import main as cli_main
 from cvm_tpu_torch.convert import convert_variables
+from cvm_tpu_torch.data.loader import prefetch_to_device
 from cvm_tpu_torch.data.synthetic import SyntheticIterator
 from cvm_tpu_torch.models import layers as tl
 from cvm_tpu_torch.models.centernet.loss import centernet_loss
@@ -276,6 +277,19 @@ def test_fit_lowers_the_loss(tmp_path):
     assert np.mean(losses[-5:]) < np.mean(losses[:5])
 
 
+@pytest.mark.parametrize("head,module", [("size", "size"), ("offset", "off")])
+def test_train_step_refuses_a_head_the_loss_does_not_reach(tmp_path, head, module):
+    """A head the loss stops reading is an error that names its
+    parameters, not a zero gradient under which weight decay shrinks it."""
+    tr = tiny_trainer(tmp_path)
+    tr.init_state()
+    step = make_train_step(lambda out, tg, cfg: centernet_loss(
+        {**out, head: out[head].detach()}, tg, cfg), tr.cfg, tr.processor)
+    raw = next(prefetch_to_device([next(_stream(tr.cfg))], torch.device("cpu")))
+    with pytest.raises(RuntimeError, match=rf"does not reach parameters \['{module}\."):
+        step(tr.state, raw, torch.Generator().manual_seed(0))
+
+
 def test_checkpoint_resume_continues_bit_for_bit(tmp_path):
     straight = tiny_trainer(tmp_path, "a", ema_decay=0.5)
     straight.init_state()
@@ -384,4 +398,4 @@ def test_cli_trains_resumes_and_refuses_unported_flags(tmp_path, capsys):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli_main(base + extra)
     with pytest.raises(SystemExit, match="not ported yet"):
-        cli_main(["--model", "dmds", "--device", "cpu"])
+        cli_main(base + ["--data", "train.cvrec"])

@@ -2,8 +2,8 @@
 
 The port imports nothing of the JAX package, so it carries its own
 ``pad_rows`` (``cvm_tpu/utils/batch.py``), ``BaseParams`` / ``parse_hw``
-(``cvm_tpu/utils/config.py``), the RGB path of ``synthetic_batch``
-(``cvm_tpu/data/synthetic.py``), the numpy evaluators
+(``cvm_tpu/utils/config.py``), ``synthetic_batch`` with its two-frame, 3D
+and 4:2:0 options (``cvm_tpu/data/synthetic.py``), the numpy evaluators
 (``cvm_tpu/train/evaluate.py``) and ``EarlyStopper``
 (``cvm_tpu/train/early_stop.py``). Each must give exactly what its original
 gives: the same arrays from the same generator, the same config JSON; the
@@ -19,6 +19,7 @@ import pytest
 
 import cvm_tpu.train.evaluate as j_evaluate
 from cvm_tpu.data.synthetic import synthetic_batch as j_synthetic_batch
+from cvm_tpu.data.synthetic import synthetic_iterator as j_synthetic_iterator
 from cvm_tpu.models.centernet.params import CenternetParams as JCenternetParams
 from cvm_tpu.train.early_stop import EarlyStopper as JEarlyStopper
 from cvm_tpu.utils.batch import pad_rows as j_pad_rows
@@ -31,30 +32,63 @@ from cvm_tpu_torch.utils.batch import pad_rows
 from cvm_tpu_torch.utils.config import parse_hw
 
 
-@pytest.mark.parametrize("seed", [0, 1, 7])
-@pytest.mark.parametrize("pad_hw,num_classes,max_objects", [((80, 96), 3, 8),
-                                                             ((128, 128), 10, 16)])
-def test_synthetic_batch_identical(seed, pad_hw, num_classes, max_objects):
-    ref = j_synthetic_batch(np.random.default_rng(seed), 3, pad_hw, num_classes, max_objects)
+def _assert_batch_identical(seed, pad_hw, num_classes, max_objects, **kw):
+    ref = j_synthetic_batch(np.random.default_rng(seed), 3, pad_hw, num_classes, max_objects,
+                            **kw)
     rng = np.random.default_rng(seed)
-    got = synthetic_batch(rng, 3, pad_hw, num_classes, max_objects)
+    got = synthetic_batch(rng, 3, pad_hw, num_classes, max_objects, **kw)
     assert set(got) == set(ref)
     for k in ref:
         assert got[k].dtype == ref[k].dtype, k
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
     # The generator ends where the reference's does: the next draw agrees.
     j_rng = np.random.default_rng(seed)
-    j_synthetic_batch(j_rng, 3, pad_hw, num_classes, max_objects)
+    j_synthetic_batch(j_rng, 3, pad_hw, num_classes, max_objects, **kw)
     assert rng.integers(1 << 30) == j_rng.integers(1 << 30)
 
 
-def test_synthetic_iterator_is_the_reference_stream():
-    it = SyntheticIterator(5, 2, (64, 64), num_classes=3, max_objects=4)
-    rng = np.random.default_rng(5)
+SIZES = [((80, 96), 3, 8), ((128, 128), 10, 16)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("pad_hw,num_classes,max_objects", SIZES)
+def test_synthetic_batch_identical(seed, pad_hw, num_classes, max_objects):
+    _assert_batch_identical(seed, pad_hw, num_classes, max_objects)
+
+
+# (two_frame, with_3d, yuv420): each option alone, then all three.
+OPTIONS = [(True, False, False), (False, True, False), (False, False, True),
+           (True, True, True)]
+
+
+@pytest.mark.parametrize("options", OPTIONS, ids=lambda f: "-".join(
+    n for n, on in zip(("two_frame", "with_3d", "yuv420"), f) if on))
+@pytest.mark.parametrize("seed", [0, 1, 7])
+@pytest.mark.parametrize("pad_hw,num_classes,max_objects", SIZES)
+def test_synthetic_batch_options_identical(seed, pad_hw, num_classes, max_objects, options):
+    """Every array of the two-frame, 3D and 4:2:0 options, bit for bit:
+    the generator's draws come in the reference's order."""
+    _assert_batch_identical(seed, pad_hw, num_classes, max_objects,
+                            **dict(zip(("two_frame", "with_3d", "yuv420"), options)))
+
+
+def _assert_stream_identical(two_frame, with_3d):
+    it = SyntheticIterator(5, 2, (64, 64), num_classes=3, max_objects=4, two_frame=two_frame,
+                           with_3d=with_3d)
+    ref_it = j_synthetic_iterator(5, 2, (64, 64), 3, 4, two_frame=two_frame, with_3d=with_3d)
     for _ in range(2):
-        got, ref = next(it), j_synthetic_batch(rng, 2, (64, 64), 3, 4)
-        np.testing.assert_array_equal(got["image"], ref["image"])
-        np.testing.assert_array_equal(got["boxes"], ref["boxes"])
+        got, ref = next(it), next(ref_it)
+        assert set(got) == set(ref)
+        for k in ref:
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+
+
+def test_synthetic_iterator_is_the_reference_stream():
+    _assert_stream_identical(False, False)
+
+
+def test_synthetic_iterator_two_frame_3d_is_the_reference_stream():
+    _assert_stream_identical(True, True)
 
 
 CLI = ["--input_hw", "256,320", "--num_classes", "10", "--ema_decay", "0.999",

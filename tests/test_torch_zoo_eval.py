@@ -14,7 +14,8 @@ of 2).
   a best checkpoint, the postures); ``cli.train`` refuses the reference's
   flags whose machinery is not ported; ``cli.benchmark`` on tiny configs
   prints one line per config with the reference's keys, the device and
-  its power limit, in inference and training, and refuses config E.
+  its power limit, in inference and training, and times config E's (dmds)
+  training step.
 """
 
 import json
@@ -168,14 +169,15 @@ def test_cli_train_and_evaluate(tmp_path, name):
         key = KEEP_BEST[name]
         assert np.isfinite(m[key]) and 0.0 <= m[key] <= 1.0, (extra, m)
         assert ("confusion" in m) == (extra == ["--confusion"])
-    with pytest.raises(SystemExit, match="item 15"):
-        eval_main(["--model", "dmds", "--workdir", str(wd), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="item 11"):
+        eval_main(["--model", name, "--workdir", str(wd), "--device", "cpu", "--data",
+                   "val.cvrec"])
 
 
 @pytest.mark.parametrize("flag,item", [
     (["--profile_steps", "2"], "16"), (["--debug_nans"], "16"),
     (["--decode_target", "off"], "11"), (["--num_processes", "2"], "17"),
-    (["--process_id", "1"], "17"), (["--model", "dmds"], "15")])
+    (["--process_id", "1"], "17"), (["--data", "train.cvrec"], "11")])
 def test_cli_train_refuses_unported_reference_flags(flag, item):
     argv = ["--model", "semseg", "--device", "cpu"] + flag
     with pytest.raises(SystemExit, match=rf"not ported yet \(ROADMAP Queue 1 item {item}"):
@@ -188,7 +190,10 @@ def test_cli_benchmark_prints_a_line_per_config_and_refuses_e(monkeypatch, capsy
             "C": ("depth", get_model("depth").params_cls(**TINY["depth"]), "infer"),
             "D": ("multitask", get_model("multitask").params_cls(**TINY["multitask"]),
                   "infer"),
-            "E": ("dmds", None, "train")}
+            "E": ("dmds", get_model("dmds").params_cls(input_hw=HW, backbone="tiny",
+                                                       decoder_features=16,
+                                                       motion_features=16, batch_size=2),
+                  "train")}
     monkeypatch.setattr(benchmark, "_configs", lambda: tiny)
     assert benchmark.main(["--configs", "A,C,D", "--iters", "3", "--device", "cpu"]) == 0
     assert benchmark.main(["--configs", "A", "--iters", "2", "--train", "--device", "cpu"]) == 0
@@ -202,5 +207,8 @@ def test_cli_benchmark_prints_a_line_per_config_and_refuses_e(monkeypatch, capsy
     assert lines[0]["batch_size"] == 1 and lines[0]["input_hw"] == list(HW)
     assert {"steps_per_sec", "steps_per_sec_blocked", "p50_step_ms_blocked",
             "pipelined_steps", "tflops_per_step"} <= set(lines[3])
-    with pytest.raises(SystemExit, match="item 15"):
-        benchmark.main(["--configs", "E", "--device", "cpu"])
+    # Config E (dmds) times its training step, as the reference's.
+    assert benchmark.main(["--configs", "E", "--iters", "2", "--device", "cpu"]) == 0
+    (e,) = [json.loads(s) for s in capsys.readouterr().out.strip().splitlines()]
+    assert (e["config"], e["model"], e["mode"]) == ("E", "dmds", "train")
+    assert e["steps_per_sec"] > 0 and e["batch_size"] == 2

@@ -6,7 +6,7 @@ bare leaves (cvm_tpu_torch) against the reference, on the CPU.
   ROIs, with pad garbage beyond each image's valid extent.
 * ``upsample_bilinear`` within 1e-6; ``semseg_argmax`` (first maximum on
   ties) and ``colorize_semseg`` exact.
-* ``get_model_zoo()`` names the reference's zoo; ``dmds`` refuses.
+* ``get_model_zoo()`` names the reference's zoo, every entry registered.
 """
 
 import jax
@@ -100,12 +100,12 @@ def test_semseg_argmax_and_colorize_exact():
 
 def test_registry_names_the_zoo_and_refuses_dmds():
     assert get_model_zoo() == j_zoo() == ["centernet", "depth", "dmds", "multitask", "semseg"]
-    for name in ("centernet", "semseg", "depth", "multitask"):
+    for name in ("centernet", "semseg", "depth", "multitask", "dmds"):
         spec = get_model(name)
         assert spec.name == name and spec.params_cls().name == name
     assert get_model("semseg").decode_fn is tdecode.semseg_argmax
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_model("dmds")
+    assert get_model("dmds").decode_fn is None and get_model("dmds").params_cls().input_hw == \
+        (192, 640)
     with pytest.raises(KeyError):
         get_model("yolo")
 

@@ -36,6 +36,7 @@ from cvm_tpu.train.loop import create_train_state as j_create_state
 from cvm_tpu.train.loop import make_train_step as j_make_train_step
 from cvm_tpu.train.optim import make_optimizer as j_make_optimizer
 from cvm_tpu_torch.convert import convert_variables
+from cvm_tpu_torch.data.loader import prefetch_to_device
 from cvm_tpu_torch.data.synthetic import SyntheticIterator
 from cvm_tpu_torch.models import get_model
 from cvm_tpu_torch.ops.heatmap import CenternetTargets
@@ -164,6 +165,26 @@ def test_two_train_steps_match_reference(case):
             np.testing.assert_allclose(tm[k], float(jm[k]), rtol=rtol, atol=1e-6, err_msg=k)
     if case == "multitask_uw":  # weight decay and the gradient reach task_log_vars
         assert tstate.model.task_log_vars.abs().sum() > 0
+
+
+def test_unread_disp_heads_train_on_a_zero_gradient(tmp_path):
+    """A depth net supervised at fewer than its four scales declares the
+    coarse disp heads no loss reads: the step gives them a zero gradient
+    (as JAX does) and trains the rest."""
+    cfg = get_model("depth").params_cls(**dict(TINY["depth"], num_scales=1, optimizer="sgd",
+                                                lr_schedule="constant", warmup_steps=1,
+                                                weight_decay=0.0))
+    tr = Trainer(cfg, "cpu", seed=0)
+    tr.init_state()
+    before = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    raw = next(prefetch_to_device([next(SyntheticIterator(0, 2, PAD, num_classes=3))],
+                                  torch.device("cpu")))
+    for _ in range(2):  # the first step's learning rate is 0
+        _, m = tr.train_step(tr.state, raw, torch.Generator().manual_seed(0))
+        assert np.isfinite(float(m["loss"]))
+    moved = {n.split(".")[0] for n, p in tr.model.named_parameters()
+             if not torch.equal(p, before[n])}
+    assert {"disp0", "disp1", "disp2"}.isdisjoint(moved) and {"disp3", "up3"} <= moved
 
 
 @pytest.mark.parametrize("name", ["semseg", "depth", "multitask"])
