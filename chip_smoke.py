@@ -17,7 +17,11 @@ trained model exported in five postures and each artifact served, and a
 QAT fine-tune of it; then the rest of the zoo: config B with the
 monocular 3D heads (served in fp and int8, trained on the flagship recipe
 with ``--with_3d true``, exported) and DMDS, config E (192x640, batch 8,
-``small``, ``motion_features`` 128, object motion on):
+``small``, ``motion_features`` 128, object motion on); then the record
+path at config B's width: JPEG decode (nvJPEG on the card), training and
+evaluation from ``.cvrec`` records, and serving records and HTTP requests
+through an exported artifact. ``cli.doctor``'s report (the card, the
+toolchain and the JPEG decoders' prerequisites) is printed first:
 
   1. card, versions, both kernel builds (one nvcc each, started together);
   2. the fused W8A8 ConvBN kernel K2 vs its plain PyTorch version at every
@@ -103,7 +107,28 @@ with ``--with_3d true``, exported) and DMDS, config E (192x640, batch 8,
      ``abs_rel`` / ``delta1``) and ms/step; one two-frame batch-8 request
      in fp (BN folded); ``cli.benchmark --configs E`` (500 pipelined steps);
      a ``none`` export served against its eager pipeline. DMDS runs no TPU
-     kernel: the reference refuses W8A8 for it.
+     kernel: the reference refuses W8A8 for it;
+ 22. decode: the committed fixture (``tests/data/torch_records``) decoded
+     on the card, RGB and YUV420 at the 768^2 pad with and without its
+     target, every ``hw`` equal to the reference decoder's and the pixels
+     held frame by frame: a full-scale frame to what IDCT rounding can do
+     (``IDCT_GAP``), the 1/2-scale frame to the gap between the reference's
+     own two decoders (its PIL fallback against libjpeg) on that frame, as
+     the fixture records it; a batch of 8 timed with 1 and 4 threads;
+     ``RecordLoader.stats()`` per stage;
+ 23. training from records: the fixture's 8 records 10 times over (72
+     train, 8 val), ``cli.train.main --data`` at config B, batch 8, 20
+     steps with one eval of the val split (one K1 launch per step, finite
+     and falling loss, ms/step beside phase 8's), then ``cli.evaluate
+     --data`` on the checkpoint;
+ 24. serving records: that checkpoint exported ``w8a8_fused_chain``
+     (planar YUV420, 768^2, bucket 8); ``cli.serve --records`` over three
+     batches (24 K2 launches per batch-8 call, every JSON line equal to the
+     eager pipeline's of the same posture and calibration); a
+     ``ModelServer`` on 127.0.0.1 answering 16 concurrent POSTs of the
+     fixture's JPEGs (24 K2 launches per dispatched batch, classes equal
+     and boxes within 1e-3 px of a direct ``ServingModel`` call on the
+     same decoded frame), with its batch fill and latency percentiles.
 
 Device times come from CUDA events around 20 back-to-back calls while the
 card first sleeps through the host's enqueueing (``cuda_ms``). Any failure
@@ -279,6 +304,103 @@ def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+FIXTURE_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                           "torch_records")
+
+
+def fixture_jpegs():
+    """The committed fixture's JPEG bytes and metas
+    (``scripts/make_torch_record_fixture.py``)."""
+    from cvm_tpu_torch.data.records import RecordDataset
+
+    ds = RecordDataset([os.path.join(FIXTURE_DIR, "scenes.cvrec")])
+    recs = [ds.get(i) for i in range(len(ds))]
+    return [b["jpeg"] for _, b in recs], [m for m, _ in recs]
+
+
+# What IDCT rounding alone can do to a frame decoded at full scale by
+# another decoder than libjpeg: one step per plane sample, which libjpeg's
+# YCbCr tables turn into at most 3 per RGB channel (1 from Y, at most 2 from
+# each fixed-point chroma term), on a few samples in a hundred.
+IDCT_GAP = {"rgb": {"mean_abs": 0.1, "max_abs": 3}, "yuv420": {"mean_abs": 0.1, "max_abs": 1}}
+
+
+def fixture_decode_check(device, num_threads: int = 4) -> dict:
+    """Decode the fixture's JPEGs on ``device`` and hold them against the
+    reference decoder's (libjpeg) output recorded in the fixture, in RGB and
+    YUV420 at the 768^2 pad, with and without its target_hw. Every ``hw``
+    must equal the reference's. The CPU's decoder is libjpeg, so its
+    buffers must hash identically. Another decoder (nvJPEG on a card) is
+    held frame by frame, over the valid pixels: a frame decoded at full
+    scale to ``IDCT_GAP``; a frame decoded at a reduced scale to the gap
+    between the reference's own two decoders (its PIL fallback against
+    libjpeg) on that frame, mean and max |d|. Raises on failure; returns
+    the per-frame gaps."""
+    import hashlib
+    import lzma
+
+    import torch
+
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch, decode_jpeg_batch_yuv420
+
+    with open(os.path.join(FIXTURE_DIR, "manifest.json")) as f:
+        man = json.load(f)
+    jpegs, metas = fixture_jpegs()
+    pad, exact = tuple(man["pad_hw"]), torch.device(device).type == "cpu"
+    refs = {}
+    for fmt in ("rgb", "yuv420"):
+        with open(os.path.join(FIXTURE_DIR, f"decoded_{fmt}.xz"), "rb") as f:
+            refs[fmt] = np.frombuffer(lzma.decompress(f.read()), np.uint8)
+    result = {"case": "a (identical)" if exact else "b (frame by frame within the bounds)"}
+    for tag, target in (("no_target", (0, 0)), ("target", tuple(man["target_hw"]))):
+        for fmt in ("rgb", "yuv420"):
+            want = man["decoded"][tag][fmt]
+            if fmt == "rgb":
+                out, hw = decode_jpeg_batch(jpegs, *pad, num_threads, target_hw=target,
+                                            device=device)
+                frames = [out[i] for i in range(len(jpegs))]
+                valid = [out[i, :h, :w].ravel() for i, (h, w) in enumerate(hw)]
+            else:
+                Y, U, V, hw = decode_jpeg_batch_yuv420(jpegs, *pad, num_threads,
+                                                       target_hw=target, device=device)
+                frames = [np.concatenate([Y[i].ravel(), U[i].ravel(), V[i].ravel()])
+                          for i in range(len(jpegs))]
+                valid = [np.concatenate([Y[i, :h, :w].ravel(),
+                                         U[i, :(h + 1) // 2, :(w + 1) // 2].ravel(),
+                                         V[i, :(h + 1) // 2, :(w + 1) // 2].ravel()])
+                         for i, (h, w) in enumerate(hw)]
+            if hw.tolist() != want["hw"]:
+                raise AssertionError(f"{tag} {fmt}: hw {hw.tolist()} != reference {want['hw']}")
+            same = [hashlib.sha256(fr.tobytes()).hexdigest() == h
+                    for fr, h in zip(frames, want["sha256"])]
+            entry = {"identical_frames": int(sum(same))}
+            if exact:
+                if not all(same):
+                    raise AssertionError(f"{tag} {fmt}: {len(same) - sum(same)} frames differ "
+                                         "from the reference decoder's")
+                result[f"{tag} {fmt}"] = entry
+                continue
+            if want["sha256"] != man["decoded"]["no_target"][fmt]["sha256"]:
+                raise AssertionError(f"{tag} {fmt}: no recorded pixels to compare with")
+            # the reference decoded these frames as without the target, so
+            # its recorded pixels are the ones to compare with
+            ref = np.split(refs[fmt], np.cumsum([v.size for v in valid])[:-1])
+            entry.update(mean_abs=[], max_abs=[], bound=[])
+            for i, (v, r) in enumerate(zip(valid, ref)):
+                d = np.abs(v.astype(np.int16) - r)
+                full = tuple(hw[i]) == (metas[i]["height"], metas[i]["width"])
+                bound = IDCT_GAP[fmt] if full else man["fallback_gap"][fmt]["per_frame"][i]
+                entry["mean_abs"].append(float(d.mean()))
+                entry["max_abs"].append(int(d.max()))
+                entry["bound"].append("idct" if full else "fallback")
+                if not (d.mean() <= bound["mean_abs"] and d.max() <= bound["max_abs"]):
+                    raise AssertionError(
+                        f"{tag} {fmt} frame {i} ({'full' if full else 'reduced'} scale): "
+                        f"decode gap mean {float(d.mean())} max {int(d.max())} exceeds {bound}")
+            result[f"{tag} {fmt}"] = entry
+    return result
 
 
 def compare(got, ref):
@@ -1664,6 +1786,256 @@ def phase_dmds(dev, workdir, smi):
                 bench=lines[0])
 
 
+# Phases 22-24: the record path at config B's width (the fixture's frames,
+# replicated into a shard of 80 records: 72 train, 8 val).
+K2_PER_FORWARD = 24  # fused_qconv launches per config-B int8 forward
+RECORD_FLAGS = ["--model", "centernet", "--batch_size", str(B), "--warmup_steps", "5",
+                "--total_steps", "5000", "--log_every", "1", "--checkpoint_every", "20",
+                "--seed", "0"]
+
+
+def _pad_flag():
+    return ["--pad_hw", f"{PAD_HW[0]},{PAD_HW[1]}"]
+
+
+def _median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median host-clock time of ``fn()`` (host work: the decoder returns
+    once its frames are in host memory)."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_decode(dev, smi):
+    """Phase 22: the fixture decoded on the card's machine against the
+    reference decoder's recorded output; decode and loader stage times."""
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch, decode_jpeg_batch_yuv420
+    from cvm_tpu_torch.data.loader import RecordLoader
+    from cvm_tpu_torch.data.records import RecordDataset
+
+    res = fixture_decode_check(dev)
+    log(f"[decode] fixture vs the reference decoder, case {res.pop('case')}: "
+        f"{json.dumps(res)}")
+    jpegs, _ = fixture_jpegs()
+    times = {}
+    for threads in (1, 4):
+        times[f"rgb t{threads}"] = _median_ms(
+            lambda: decode_jpeg_batch(jpegs, *PAD_HW, threads, device=dev))
+        times[f"yuv420 t{threads}"] = _median_ms(
+            lambda: decode_jpeg_batch_yuv420(jpegs, *PAD_HW, threads, device=dev))
+    stats = {}
+    for fmt in ("yuv420", "rgb"):
+        loader = RecordLoader(RecordDataset([os.path.join(FIXTURE_DIR, "scenes.cvrec")]), B,
+                              PAD_HW, output_format=fmt, device=dev)
+        it = iter(loader)
+        try:
+            for _ in range(12):
+                next(it)
+        finally:
+            it.close()
+        stats[fmt] = {k: round(v, 3) for k, v in loader.stats().items()}
+    log(f"[decode] batch of {B} fixture JPEGs into {PAD_HW[0]}^2 on {smi}, median of 10 "
+        f"(ms, host clock): " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    log(f"[decode] RecordLoader.stats() over 12 batches of {B} (ms per batch): {stats}")
+    return res, times, stats
+
+
+def make_record_shard(path, copies: int = 10) -> int:
+    """The fixture's records, ``copies`` times over (new ids), into one shard."""
+    from cvm_tpu_torch.data.records import RecordDataset, RecordWriter
+
+    ds = RecordDataset([os.path.join(FIXTURE_DIR, "scenes.cvrec")])
+    with RecordWriter(path) as w:
+        for c in range(copies):
+            for i in range(len(ds)):
+                meta, blobs = ds.get(i)
+                w.write(dict(meta, id=f"{meta['id']}-{c}"), dict(blobs))
+    return copies * len(ds)
+
+
+def phase_record_train(dev, workdir, shard, smi):
+    """Phase 23: cli.train from records at config B (20 steps, one eval of
+    the val split), then cli.evaluate --data on the checkpoint."""
+    from cvm_tpu_torch.cli.evaluate import main as eval_main
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.data.records import RecordDataset
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+
+    train_ids, val_ids = RecordDataset([shard]).split_ids()
+    if not (len(val_ids) >= B and len(train_ids) > B):
+        raise AssertionError(f"split {len(train_ids)}/{len(val_ids)} cannot feed batch {B}")
+    t0 = time.perf_counter()
+    gs.reset_counts()
+    train_main(RECORD_FLAGS + _pad_flag() + ["--data", shard, "--workdir", workdir, "--device",
+                                             str(dev), "--steps", "20", "--eval_every", "20",
+                                             "--eval_batches", "1"])
+    launches = gs.render_heatmap.launches
+    rows = read_metrics(os.path.join(workdir, "metrics.jsonl"))
+    steps = [r for r in rows if "loss" in r]
+    losses = [r["loss"] for r in steps]
+    val = [r for r in rows if "val_mAP" in r]
+    step_ms = statistics.median(1e3 / r["steps_per_sec"] for r in steps[5:])
+    log(f"[records-train] 20 config-B steps from {len(train_ids)} train records in "
+        f"{time.perf_counter() - t0:.1f} s: {launches} K1 launches; loss first 3 "
+        f"{np.round(losses[:3], 4).tolist()}, last 3 {np.round(losses[-3:], 4).tolist()}; "
+        f"median {step_ms:.3f} ms/step on {smi} (steps 6-20); val split eval "
+        f"{ {k: round(v, 4) for k, v in val[-1].items() if k.startswith('val_')} }")
+    if [r["step"] for r in steps] != list(range(1, 21)) or len(val) != 1:
+        raise AssertionError(f"expected 20 logged steps and one eval, got {rows}")
+    if not all(np.isfinite(r[k]) for r in steps for k in ("loss", "grad_norm")):
+        raise AssertionError("non-finite loss or grad_norm")
+    if not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"loss did not fall: {losses}")
+    if launches != 20:
+        raise AssertionError(f"expected one K1 launch per step (20), got {launches}")
+    out = os.path.join(workdir, "eval.json")
+    t0 = time.perf_counter()
+    eval_main(["--model", "centernet", "--workdir", workdir, "--data", shard, "--split", "val",
+               "--device", str(dev), "--json_out", out] + _pad_flag())
+    with open(out) as f:
+        m = json.load(f)
+    log(f"[records-eval] cli.evaluate --data (val split, {len(val_ids)} records) in "
+        f"{time.perf_counter() - t0:.1f} s: mAP {m['mAP']:.4f}, mAP50 {m['mAP50']:.4f} "
+        "(20 steps from a random init: a plumbing check, not an accuracy claim)")
+    if m["step"] != 20 or not all(np.isfinite(m[k]) for k in ("mAP", "mAP50", "mAP75")):
+        raise AssertionError(f"cli.evaluate --data: {m}")
+    return launches, step_ms, val[-1], m
+
+
+def phase_record_serve(dev, workdir, shard, smi):
+    """Phase 24: a config-B w8a8_fused_chain artifact (planar YUV420, 768^2,
+    bucket 8) serving the shard through cli.serve --records, then 16
+    concurrent HTTP requests through ModelServer."""
+    import contextlib
+    import io
+    import urllib.request
+
+    from cvm_tpu_torch.cli.export import calibration_scales
+    from cvm_tpu_torch.cli.export import main as export_main
+    from cvm_tpu_torch.cli.serve import main as serve_main
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch_yuv420
+    from cvm_tpu_torch.data.loader import RecordLoader
+    from cvm_tpu_torch.data.records import RecordDataset
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.infer.runtime import ServingModel
+    from cvm_tpu_torch.infer.server import result_record, server_for_artifact
+    from cvm_tpu_torch.models.registry import get_model
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+    from cvm_tpu_torch.train.loop import Trainer
+
+    ckdir, art = os.path.join(workdir, "checkpoints"), os.path.join(workdir, "art")
+    t0 = time.perf_counter()
+    export_main(["--model", "centernet", "--checkpoint_dir", ckdir, "--out", art,
+                 "--quantize", "w8a8_fused_chain", "--input_format", "yuv420", "--batch_size",
+                 str(B), "--device", str(dev)] + _pad_flag())
+    t_export = time.perf_counter() - t0
+    sm = ServingModel(art, device=dev)
+    # the artifact's eager twin: the same checkpoint, posture and calibration
+    tr = Trainer(get_model("centernet").params_cls.from_dict(sm.meta["params_cfg"]), dev,
+                 checkpoint_dir=ckdir)
+    tr.init_state()
+    model = tr.eval_model()
+    eager = InferencePipeline(tr.cfg, model, dev, input_format="yuv420",
+                              w8a8=calibration_scales(tr.cfg, model, PAD_HW, 3, B, dev),
+                              w8a8_fused=True, w8a8_chain=True)
+
+    n_batches = 3
+    buf = io.StringIO()
+    fq.reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):      # a main path: cli.serve --records
+        serve_main(["--artifact", art, "--records", shard, "--device", str(dev),
+                    "--max_batches", str(n_batches), "--score_threshold", "0.0"])
+    t_serve = time.perf_counter() - t0
+    records_launches = fq.fused_qconv.launches
+    lines = [json.loads(line) for line in buf.getvalue().splitlines()]
+    loader = RecordLoader(RecordDataset([shard]), B, PAD_HW, shuffle=False, loop=False,
+                          output_format="yuv420", drop_remainder=False, device=dev)
+    want = []
+    for k, b in enumerate(loader):
+        if k == n_batches:
+            break
+        out = {key: v.cpu().numpy() for key, v in eager(b).items()}
+        want += [result_record(out, i, 0.0) for i in range(B)]
+    names = [line.pop("input") for line in lines]
+    same = sum(json.dumps(a) == json.dumps(b) for a, b in zip(lines, want))
+    log(f"[serve-records] export w8a8_fused_chain (yuv420, {PAD_HW[0]}^2, bucket {B}) in "
+        f"{t_export:.1f} s; cli.serve --records: {len(lines)} lines ({names[0]}..{names[-1]}) "
+        f"in {t_serve:.1f} s, {records_launches} K2 launches for {n_batches} batch-{B} calls, "
+        f"{same}/{len(want)} lines equal to the eager pipeline's")
+    if records_launches != K2_PER_FORWARD * n_batches:
+        raise AssertionError(f"expected {K2_PER_FORWARD} K2 launches per batch-{B} call, got "
+                             f"{records_launches} for {n_batches}")
+    if len(lines) != len(want) or same != len(want):
+        raise AssertionError(f"cli.serve --records: {same}/{len(want)} lines equal")
+
+    jpegs, _ = fixture_jpegs()
+    bodies = (jpegs * 2)[:16]
+    server = server_for_artifact(sm, max_wait_ms=50.0, score_threshold=0.0)
+    ready, port = threading.Event(), []
+    thread = threading.Thread(target=server.serve_forever, daemon=True, kwargs=dict(
+        host="127.0.0.1", port=0, ready_cb=lambda p: (port.append(p), ready.set())))
+    thread.start()
+    try:
+        if not ready.wait(60):
+            raise AssertionError("ModelServer did not bind")
+        url = f"http://127.0.0.1:{port[0]}"
+        t0 = time.perf_counter()
+        while not server.warm.is_set():
+            if time.perf_counter() - t0 > 300:
+                raise AssertionError("ModelServer never went warm")
+            time.sleep(0.05)
+        batches0 = server.batcher.n_batches
+        fq.reset_counts()
+        results = [None] * len(bodies)
+
+        def client(i):
+            req = urllib.request.Request(f"{url}/predict", data=bodies[i], method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                results[i] = (r.status, json.loads(r.read()))
+
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        t_http = time.perf_counter() - t0
+        http_launches = fq.fused_qconv.launches
+        dispatched = server.batcher.n_batches - batches0
+        with urllib.request.urlopen(f"{url}/stats", timeout=60) as r:
+            st = json.loads(r.read())
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+    if any(t.is_alive() for t in threads) or any(r is None or r[0] != 200 for r in results):
+        raise AssertionError(f"HTTP: unanswered or failed requests {results}")
+    worst = 0.0
+    for body, (_, rec) in zip(bodies, results):
+        planes = decode_jpeg_batch_yuv420([body], *PAD_HW, device=dev)
+        direct = result_record({k: v.cpu().numpy() for k, v in sm(*planes).items()}, 0, 0.0)
+        if rec["classes"] != direct["classes"]:
+            raise AssertionError("HTTP: classes differ from a direct ServingModel call")
+        worst = max(worst, float(np.abs(np.asarray(rec["boxes"]) -
+                                        np.asarray(direct["boxes"])).max(initial=0.0)))
+    log(f"[serve-http] 16 concurrent POSTs of fixture JPEGs answered in {t_http:.2f} s: "
+        f"{dispatched} batches, {http_launches} K2 launches, fill {st['batch_fill']}, latency "
+        f"p50 {st['latency_ms'].get('p50')} ms p90 {st['latency_ms'].get('p90')} ms, model "
+        f"p50 {st['model_ms'].get('p50')} ms on {smi}; classes equal to direct ServingModel "
+        f"calls, max |d box| {worst:.3e} px")
+    if http_launches != K2_PER_FORWARD * dispatched:
+        raise AssertionError(f"expected {K2_PER_FORWARD} K2 launches per dispatched batch, got "
+                             f"{http_launches} for {dispatched}")
+    if worst > 1e-3:
+        raise AssertionError(f"HTTP boxes differ from direct calls by {worst} px")
+    return records_launches, http_launches, st
+
+
 def main() -> int:
     import torch
 
@@ -1671,6 +2043,7 @@ def main() -> int:
         print("chip_smoke: torch sees no CUDA device; this test needs the card",
               file=sys.stderr)
         return 1
+    t_smoke = time.perf_counter()
     dev = torch.device("cuda:0")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1678,6 +2051,12 @@ def main() -> int:
     log(f"[card] {smi}")
     log(f"[versions] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; cudnn.allow_tf32=False, cuda.matmul.allow_tf32=False")
+    from cvm_tpu_torch.cli.doctor import run_checks
+
+    report = run_checks("cuda")
+    log(f"[doctor] {json.dumps(report)}")
+    if not report["ok"]:
+        raise AssertionError(f"cli.doctor: a required check failed: {report}")
 
     # Phase 1: build both kernels from the checkout's sources, in parallel.
     from cvm_tpu_torch.ops.cuda import _build
@@ -1877,6 +2256,23 @@ def main() -> int:
         t0 = time.perf_counter()
         dmds = phase_dmds(dev, workdir, smi)
         log(f"[dmds] phase 21 took {time.perf_counter() - t0:.1f} s")
+    # Phases 22-24: the record path (decode, train, evaluate, serve, HTTP).
+    t0 = time.perf_counter()
+    phase_decode(dev, smi)
+    log(f"[decode] phase 22 took {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as workdir:
+        shard = os.path.join(workdir, "fixture_x10.cvrec")
+        log(f"[records] {make_record_shard(shard)} records (the fixture's 8, 10 times over)")
+        t0 = time.perf_counter()
+        rec_k1, rec_step_ms, _, _ = phase_record_train(dev, os.path.join(workdir, "w"), shard,
+                                                       smi)
+        log(f"[records-train] phase 23 took {time.perf_counter() - t0:.1f} s; config-B step "
+            f"from records {rec_step_ms:.3f} ms beside phase 8's synthetic flagship step "
+            f"{step_ms:.3f} ms (B16, 10 classes)")
+        t0 = time.perf_counter()
+        serve_k2, http_k2, _ = phase_record_serve(dev, os.path.join(workdir, "w"), shard, smi)
+        log(f"[serve-records] phase 24 took {time.perf_counter() - t0:.1f} s")
+
     log(f"[zoo3d] on {smi}: 3D batch-8 predict fp {lat3d['fp']:.3f} ms, int8 "
         f"{lat3d['int8']:.3f} ms; 3D training {step3d_ms:.3f} ms/step; DMDS training "
         f"{dmds['step_ms']:.3f} ms/step ({dmds['scenes_ms']:.1f} ms of host scenes), "
@@ -1884,6 +2280,7 @@ def main() -> int:
         f"(artifact {dmds['artifact_ms']:.3f} ms); DMDS reaches no TPU kernel (the "
         "reference refuses W8A8 for it)")
 
+    log(f"[smoke] phases 1-24 took {time.perf_counter() - t_smoke:.1f} s")
     log(f"[card] {nvidia_smi()}")
     # K2's numbers are those of one config-B int8 forward; launches count
     # every main-path run (config B and each dense path), with each path's
@@ -1899,6 +2296,8 @@ def main() -> int:
                                    plain_ms=k2["3d"]["plain"], bound_ms=k2["3d"]["bound"],
                                    library_ms=k2["3d"]["lib"])
     k2_paths["3D artifact w8a8_fused"] = dict(launches=export3d_launches["w8a8_fused"])
+    k2_paths["cli.serve --records"] = dict(launches=serve_k2)
+    k2_paths["HTTP ModelServer"] = dict(launches=http_k2)
     k2_shapes = sorted({f"k{c['k']} B{c['B']} {c['H']}x{c['W']} {c['cin']}->{c['cout']}"
                         for calls in dense_calls.values() for c in calls})
     print(json.dumps({"kernels": [{
@@ -1910,13 +2309,14 @@ def main() -> int:
         "dense_shapes_checked": k2_shapes}, {
         "name": "gaussian_splat", "route": "cuda", "source": SPLAT_SOURCE,
         "replaces": SPLAT_REPLACES,
-        "launches": splat_launches + dense_k1 + qat_launches + train3d_launches,
+        "launches": splat_launches + dense_k1 + qat_launches + train3d_launches + rec_k1,
         "max_abs_err": splat_err,
         "ms": splat_times["flagship"][0], "plain_ms": splat_times["flagship"][1],
         "bound_ms": splat_times["bound_ms"], "bound_by": "bytes", "library_ms": None,
         "paths": {"flagship training": dict(launches=splat_launches),
                   "qat fine-tune": dict(launches=qat_launches),
                   "3D training": dict(launches=train3d_launches),
+                  "training from records": dict(launches=rec_k1),
                   "multitask training": dict(launches=dense_k1,
                                              ms=splat_times["multitask"][0],
                                              plain_ms=splat_times["multitask"][1],

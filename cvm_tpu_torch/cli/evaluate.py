@@ -18,8 +18,13 @@ row-normalised confusion matrix), depth models abs_rel, rmse and the delta
 thresholds; multitask all three; a ``with_3d`` CenterNet adds the 3D
 metrics (``center_err_3d_m``, ``depth3d_abs_rel``, ``matched_3d_frac``);
 dmds its median-scaled depth metrics, and refuses the W8A8 postures as the
-reference does. ``.cvrec`` data raises "not ported yet" with its ROADMAP
-item.
+reference does. ``--data <glob>[,<glob>]`` scores ``.cvrec`` shards
+instead of synthetic scenes, in every posture: the ``--split`` (``val`` by
+default, ``train`` or ``all``) of ``RecordDataset.split_ids()``, read by a
+``RecordLoader`` that does not loop and decodes with ``--device``'s
+decoder (``data/jpeg.py``), as RGB or, for a yuv420 artifact, as planes.
+Calibration for the static postures stays on synthetic scenes, as
+``cli.export``'s.
 """
 
 from __future__ import annotations
@@ -29,11 +34,22 @@ import json
 import sys
 
 
-def _build_val(args, cfg, pad_hw, yuv420=False):
+def _build_val(args, cfg, pad_hw, device, yuv420=False):
     """Held-out eval source: fixed-seed synthetic scenes (two frames for
-    dmds, 3D labels for a ``with_3d`` model), RGB or (for a yuv420
-    artifact) as planes."""
+    dmds, 3D labels for a ``with_3d`` model) or the ``--split`` of
+    ``.cvrec`` shards, RGB or (for a yuv420 artifact) as planes."""
     import numpy as np
+
+    if args.data != "synthetic":
+        from cvm_tpu_torch.data.loader import RecordLoader
+        from cvm_tpu_torch.data.records import RecordDataset
+
+        ds = RecordDataset([p for p in args.data.split(",") if p])
+        train_ids, val_ids = ds.split_ids()
+        ids = {"val": val_ids, "train": train_ids, "all": None}[args.split]
+        return RecordLoader(ds, cfg.batch_size, pad_hw, ids=ids, shuffle=False, loop=False,
+                            max_objects=getattr(cfg, "max_objects", 128),
+                            output_format="yuv420" if yuv420 else "rgb", device=device)
 
     from cvm_tpu_torch.data.synthetic import synthetic_batch
 
@@ -105,7 +121,7 @@ def _evaluate_artifact(parser, args, overrides):
         if tuple(parse_hw(args.pad_hw, "--pad_hw")) != pad_hw:
             parser.error(f"--pad_hw must match the artifact's static canvas "
                          f"{pad_hw[0]},{pad_hw[1]}")
-    val = _build_val(args, cfg, pad_hw, yuv420=sm.input_format == "yuv420")
+    val = _build_val(args, cfg, pad_hw, sm.device, yuv420=sm.input_format == "yuv420")
     m = evaluate_model(name, cfg, None, val, max_batches=args.batches, device=sm.device,
                        per_class=args.per_class, size_buckets=args.size_ap,
                        confusion=args.confusion, pr_curves=args.pr_out is not None,
@@ -140,7 +156,7 @@ def main(argv=None):
                         help="explicit checkpoint dir (overrides <workdir>/checkpoints — "
                              "e.g. <workdir>/best from --keep_best)")
     parser.add_argument("--data", default="synthetic",
-                        help="'synthetic' (.cvrec record data is not ported yet)")
+                        help="'synthetic' or .cvrec glob(s), comma-separated")
     parser.add_argument("--split", default="val", choices=("val", "train", "all"),
                         help="which id split of a record dataset to evaluate")
     parser.add_argument("--batches", type=int, default=50)
@@ -190,9 +206,6 @@ def main(argv=None):
     if args.pr_out and args.model not in ("centernet", "multitask"):
         parser.error(f"--pr_out needs a detection-capable model "
                      f"(centernet/multitask), got {args.model!r}")
-    if args.data != "synthetic":
-        raise SystemExit("--data: .cvrec record data is not ported yet (ROADMAP Queue 1 "
-                         "item 11, the record loader); use --data synthetic")
     w8a8_fused = args.quantize in ("w8a8_fused", "w8a8_fused_chain")
     if args.quantize.startswith("w8a8") and args.model == "dmds":
         parser.error("w8a8 evaluation is not supported for two-frame dmds "
@@ -252,7 +265,7 @@ def main(argv=None):
             parser.error(f"--average_last: {e}")
         print(f"[cvm_tpu_torch] averaged checkpoints at steps {list(steps)}", file=sys.stderr)
 
-    val = _build_val(args, cfg, pad_hw)
+    val = _build_val(args, cfg, pad_hw, trainer.device)
     # EMA parameters when on, with the live BatchNorm statistics.
     model = trainer.eval_model(use_ema=cfg.ema_decay > 0.0)
 

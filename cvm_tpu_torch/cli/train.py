@@ -1,5 +1,6 @@
 """Training entry point: ``python -m cvm_tpu_torch.cli.train --model
-centernet|semseg|depth|multitask|dmds --data synthetic --device cuda ...``.
+centernet|semseg|depth|multitask|dmds --data synthetic|<.cvrec glob>[,glob]
+--device cuda ...``.
 
 Mirrors ``cvm_tpu/cli/train.py::main``: every field of the model's params
 class (``models/registry.py``) is a ``--field value`` flag, with the
@@ -10,14 +11,23 @@ of it. Metrics go to ``<workdir>/metrics.jsonl``. The synthetic scenes
 carry two frames for ``--model dmds`` and 3D labels for ``--with_3d
 true``, as the reference's.
 
+``--data <glob>[,<glob>]`` trains from ``.cvrec`` shards instead
+(``data/loader.py::RecordLoader``, one process: the train ids of
+``split_ids()``), decoding each JPEG at the smallest power-of-2 DCT scale
+that covers ``--decode_target`` (``auto``: 1.3x ``input_hw``; ``off``;
+or ``H,W``), with the decoder of ``--device`` (``data/jpeg.py``). Its
+evals read the val split through a loader that does not loop, and the
+run ends by printing the loader's per-stage host times. A resumed run
+starts the record stream from its beginning, as the reference's does.
+
 ``--eval_every N`` trains in chunks that end at multiples of N and scores
-the model after each (``evaluate_model`` on fixed-seed synthetic scenes,
-``val_*`` rows in ``metrics.jsonl``); ``--keep_best METRIC`` keeps the best
-checkpoint by that metric in ``<workdir>/best`` (loadable by
-``cli.evaluate --checkpoint_dir``); ``--early_stop P`` stops after P evals
-without improvement. The chunks end at multiples of N (the reference ends
-them N steps after the start), so a run that is stopped and resumed
-evaluates at the same steps as one that is not.
+the model after each (``evaluate_model`` on fixed-seed synthetic scenes or
+the records' val split, ``val_*`` rows in ``metrics.jsonl``); ``--keep_best
+METRIC`` keeps the best checkpoint by that metric in ``<workdir>/best``
+(loadable by ``cli.evaluate --checkpoint_dir``); ``--early_stop P`` stops
+after P evals without improvement. The chunks end at multiples of N (the
+reference ends them N steps after the start), so a run that is stopped and
+resumed evaluates at the same steps as one that is not.
 
 ``--qat true`` trains with fake-quantized convs (``train/qat.py``). Flipped
 on a run resumed from an fp checkpoint (the reference's QAT fine-tune
@@ -40,7 +50,7 @@ _NOT_PORTED = {
     "auto_restart": (0, "11 (the stall watchdog)"), "tensorboard": (False, "16"),
     "eval_images": (0, "16"), "model_parallel": (1, "17"), "dcn_slices": (1, "17"),
     "coordinator": (None, "17"), "num_processes": (None, "17"), "process_id": (None, "17"),
-    "profile_steps": (0, "16"), "debug_nans": (False, "16"), "decode_target": ("auto", "11"),
+    "profile_steps": (0, "16"), "debug_nans": (False, "16"),
 }
 _NOT_PORTED_CFG = {"remat": (False, "16"),
                    "aug_rotate_deg": (0.0, "16"), "tensor_parallel": (False, "17")}
@@ -81,7 +91,8 @@ def main(argv=None) -> int:
     parser.add_argument("--model", required=True,
                         help="zoo name: centernet, semseg, depth, multitask or dmds")
     parser.add_argument("--data", default="synthetic",
-                        help="'synthetic' (.cvrec record data is not ported yet)")
+                        help="'synthetic' or .cvrec glob(s); comma-separate to mix datasets "
+                             "(matched label spaces)")
     parser.add_argument("--steps", type=int, default=1000,
                         help="TOTAL training steps (global step target): a run resumed "
                              "from a checkpoint trains only the remainder")
@@ -116,7 +127,9 @@ def main(argv=None) -> int:
     parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--profile_steps", type=int, default=0)
     parser.add_argument("--debug_nans", action="store_true")
-    parser.add_argument("--decode_target", default="auto")
+    parser.add_argument("--decode_target", default="auto",
+                        help="scale-aware JPEG decode target: 'auto' (1.3x input), 'off', "
+                             "or 'H,W'")
     args, overrides = parser.parse_known_args(argv)
 
     if args.keep_best and args.eval_every <= 0:
@@ -131,12 +144,10 @@ def main(argv=None) -> int:
     for flag, (off, item) in _NOT_PORTED.items():
         if getattr(args, flag) != off:
             raise _not_ported(flag, item)
-    if args.data != "synthetic":
-        raise SystemExit("--data: .cvrec record data is not ported yet (ROADMAP Queue 1 "
-                         "item 11, the record loader); use --data synthetic")
 
     import numpy as np
 
+    from cvm_tpu_torch.data.loader import RecordLoader
     from cvm_tpu_torch.data.synthetic import SyntheticIterator, synthetic_batch
     from cvm_tpu_torch.models.registry import get_model
     from cvm_tpu_torch.train.checkpoints import BestCheckpoint, load_params_cfg
@@ -157,6 +168,17 @@ def main(argv=None) -> int:
               else (int(cfg.input_hw[0] * 1.5), int(cfg.input_hw[1] * 1.5)))
     nc = min(getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 3)), 10)
     scenes = dict(two_frame=args.model == "dmds", with_3d=bool(getattr(cfg, "with_3d", False)))
+    records = None
+    if args.data != "synthetic":
+        from cvm_tpu_torch.data.records import RecordDataset
+
+        records = RecordDataset([p for p in args.data.split(",") if p])
+        if args.decode_target == "auto":
+            target_hw = (int(cfg.input_hw[0] * 1.3), int(cfg.input_hw[1] * 1.3))
+        elif args.decode_target == "off":
+            target_hw = (0, 0)
+        else:
+            target_hw = parse_hw(args.decode_target, "--decode_target")
     _record_qat_flip(args.workdir, cfg, bool(args.keep_best), spec.params_cls, load_params_cfg)
 
     trainer = Trainer(cfg, args.device, checkpoint_dir=f"{args.workdir}/checkpoints",
@@ -169,11 +191,18 @@ def main(argv=None) -> int:
                if args.early_stop > 0 else None)
 
     def run_eval(it):
-        # Held-out scenes from their own generator: the training streams
-        # (data, augmentation) and the training model are not touched.
-        rng = np.random.default_rng(999)
-        val = [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=nc, **scenes)
-               for _ in range(args.eval_batches)]
+        # Held-out data: scenes from their own generator, or the records'
+        # val split; the training streams (data, augmentation) and the
+        # training model are not touched.
+        if records is None:
+            rng = np.random.default_rng(999)
+            val = [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=nc, **scenes)
+                   for _ in range(args.eval_batches)]
+        else:
+            val = RecordLoader(records, cfg.batch_size, pad_hw, ids=records.split_ids()[1],
+                               shuffle=False, loop=False,
+                               max_objects=getattr(cfg, "max_objects", 128),
+                               device=trainer.device)
         t0 = time.perf_counter()
         m = evaluate_model(args.model, cfg, trainer.eval_model(), val,
                            max_batches=args.eval_batches, device=trainer.device)
@@ -187,8 +216,9 @@ def main(argv=None) -> int:
                 print(f"[cvm_tpu_torch] --keep_best {args.keep_best!r} not in eval "
                       f"metrics {sorted(m)} — no best checkpoint recorded",
                       file=sys.stderr, flush=True)
-            elif best.update(step, trainer.checkpoint_state(it.state_dict()),
-                             m[args.keep_best]):
+            elif best.update(step, trainer.checkpoint_state(
+                    it.state_dict() if hasattr(it, "state_dict") else None),
+                    m[args.keep_best]):
                 print(f"[cvm_tpu_torch] new best {args.keep_best}={m[args.keep_best]:.4f} "
                       f"@step {step} -> {args.workdir}/best", flush=True)
         return m
@@ -205,12 +235,22 @@ def main(argv=None) -> int:
                                 args=(f"--max_seconds {args.max_seconds:g} reached",))
         timer.daemon = True
         timer.start()
+    it = None
     try:
-        # The reference's synthetic stream: batch_size scenes per batch, at
-        # most 10 classes, padded to its default of 8 boxes (no max_objects).
-        it = SyntheticIterator(args.seed, cfg.batch_size, pad_hw, num_classes=nc, **scenes)
+        if records is None:
+            # The reference's synthetic stream: batch_size scenes per batch,
+            # at most 10 classes, padded to its default of 8 boxes (no
+            # max_objects).
+            it = SyntheticIterator(args.seed, cfg.batch_size, pad_hw, num_classes=nc,
+                                   **scenes)
+        else:
+            loader = RecordLoader(records, cfg.batch_size, pad_hw,
+                                  ids=records.split_ids()[0],
+                                  max_objects=getattr(cfg, "max_objects", 128),
+                                  seed=args.seed, target_hw=target_hw, device=trainer.device)
+            it = iter(loader)
         trainer.init_state()
-        if trainer.data_state is not None:
+        if trainer.data_state is not None and records is None:
             it.load_state_dict(trainer.data_state)
         start_step = trainer.state.step
         print(f"[cvm_tpu_torch] model={args.model} device={trainer.device} "
@@ -241,7 +281,13 @@ def main(argv=None) -> int:
                     break
         elif steps > 0:
             metrics = trainer.fit(it, steps)
+        if records is not None:
+            # read / decode / assemble ms per batch on the host: decode
+            # beside the step time shows a host-decode-bound run
+            print(f"[cvm_tpu_torch] input pipeline: {loader.stats()}", flush=True)
     finally:
+        if records is not None and it is not None:
+            it.close()  # releases the loader's worker thread
         if timer is not None:
             timer.cancel()
         signal.signal(signal.SIGTERM, old_handler)

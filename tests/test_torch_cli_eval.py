@@ -148,7 +148,7 @@ def test_evaluate_breakdowns(workdir, tmp_path):
     (["--artifact", "x", "--quantize", "w8a8"], None),
     (["--artifact", "x", "--input_hw", "32,32"], None),
     (["--model", "semseg", "--pr_out", "x"], None),
-    (["--data", "a.cvrec"], "item 11"),
+    (["--data", "a.cvrec", "--split", "test"], None),
 ])
 def test_evaluate_refusals(workdir, extra, match):
     argv = ["--model", "centernet", "--workdir", str(workdir), "--device", "cpu"] + extra

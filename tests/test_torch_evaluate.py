@@ -12,6 +12,10 @@ a tiny size (``backbone="tiny"``, 32x32 input, batches of 2).
   does), so near-equal scores reorder and a box can cross an IoU threshold;
   on this weak model many boxes sit near one (measured: up to 0.016 in
   mAP50, with BN folded, and 0.003 in mAP).
+* From ``.cvrec`` shards: the port's and the reference's ``RecordLoader``
+  over the same shard feed each side's ``evaluate_model``: exactly equal
+  metrics with the same injected predictions, and within 0.03 (as above)
+  through the trained model, in RGB and yuv420.
 * ``tta="hflip"`` heads within 3% of the head's magnitude (one bf16 step,
   as ``tests/test_torch_slice.py``); the fused int8 posture's heads within
   6% (a bf16 step upstream can move an activation by one lattice step).
@@ -190,6 +194,57 @@ def test_evaluate_model_matches_reference(trained, fmt, fold_bn):
     assert got["mAP50"] > 0.15
     for k in ref:
         assert abs(got[k] - ref[k]) <= 0.03, (k, got[k], ref[k])
+
+
+def _record_loaders(tmp_path, fmt):
+    from cvm_tpu.data.loader import RecordLoader as RefLoader
+    from cvm_tpu.data.records import RecordDataset as RefDataset
+    from cvm_tpu_torch.data.loader import RecordLoader
+    from cvm_tpu_torch.data.records import RecordDataset
+
+    from test_torch_records import load_reference_decoder, make_shard
+
+    load_reference_decoder()  # the reference loader's, never its PIL fallback
+    path = make_shard(tmp_path / "val.cvrec", [(40, 44), (48, 46), (90, 88), (36, 48)] * 4,
+                      seed=12)
+    kw = dict(batch_size=2, pad_hw=PAD, shuffle=False, loop=False, max_objects=8,
+              output_format=fmt)
+    return RecordLoader(RecordDataset([path]), **kw), RefLoader(RefDataset([path]), **kw)
+
+
+def test_evaluate_model_from_records_with_injected_predictions_is_exact(tmp_path):
+    cfg = CenternetParams(**CFG)
+    jp = get_model("centernet").params_cls(**CFG)
+    port, ref = _record_loaders(tmp_path, "rgb")
+    rng = np.random.default_rng(4)
+    preds = []
+    for b in ref:
+        out = {"boxes": [], "scores": [], "classes": []}
+        for i in range(2):
+            n = int(b["num_objects"][i])
+            det, scores, det_c, *_ = random_image(rng, 0, 20, 3)
+            det[:n] = b["boxes"][i][:n] + rng.normal(0, 1.5, (n, 4))
+            det_c[:n] = b["classes"][i][:n]
+            for k, v in zip(out, (det, scores, det_c)):
+                out[k].append(v)
+        preds.append({k: np.stack(v) for k, v in out.items()})
+    got = t_eval.evaluate_model("centernet", cfg, None, port, device="cpu",
+                                predict_fn=_replay(preds), per_class=True)
+    want = j_eval.evaluate_model(get_model("centernet"), jp, None, ref,
+                                 predict_fn=_replay(preds), per_class=True)
+    assert got == want and 0.02 < got["mAP"] < 1.0
+
+
+@pytest.mark.parametrize("fmt", ["rgb", "yuv420"])
+def test_evaluate_model_from_records_matches_reference(trained, tmp_path, fmt):
+    spec, jp, cfg, model, variables = trained
+    port, ref = _record_loaders(tmp_path, fmt)
+    want = j_eval.evaluate_model(spec, jp, variables, ref)
+    got = t_eval.evaluate_model("centernet", cfg, model, port, device="cpu")
+    assert set(got) == set(want) == {"mAP", "mAP50", "mAP75"}
+    assert got["mAP50"] > 0.1
+    for k in want:
+        assert abs(got[k] - want[k]) <= 0.03, (k, got[k], want[k])
 
 
 def _reference_heads(spec, jp, variables, proc, **kw):

@@ -55,6 +55,9 @@ def test_every_module_imports_with_jax_blocked():
                 f"cvm_tpu_torch.models.{m}.{part}" for m in ("semseg", "depth", "multitask")
                 for part in ("params", "model", "loss", "processor")} | {
                 "cvm_tpu_torch.ops.warp", "cvm_tpu_torch.ops.ssim"} | {
+                f"cvm_tpu_torch.data.{m}" for m in (
+                    "jpeg", "records", "label_spec", "images", "loader")} | {
+                "cvm_tpu_torch.cli.doctor", "cvm_tpu_torch.infer.server"} | {
                 f"cvm_tpu_torch.models.dmds.{part}" for part in (
                     "params", "model", "loss", "processor", "train", "evaluate",
                     "inference")} <= set(_module_names())

@@ -433,3 +433,336 @@ def test_dmds_loss_gradient_on_the_card_is_finite(cuda_device):
     assert torch.isfinite(loss) and all(torch.isfinite(v).all() for v in metrics.values())
     assert all(torch.isfinite(g).all() for g in grads)
     assert sum(float(g.abs().sum()) for g in grads) > 0
+
+
+# -- the JPEG decoder of the card's machine (csrc/jpeg_nvjpeg.cu) -----------
+
+
+def libjpeg_rgb_from_planes(Y, U, V, num):
+    """What csrc/jpeg_nvjpeg.cu computes from a 4:2:0 JPEG's component
+    planes (libjpeg's raw planes, or nvJPEG's) for the RGB output at scale
+    num/8, in numpy: at full scale libjpeg's h2v2 fancy upsampling and
+    YCbCr -> RGB tables; at a reduced scale the luma box-averaged by 8/num
+    and the chroma by 4/num, without upsampling."""
+    H, W = Y.shape
+    f = 8 // num
+    oh, ow = -(-H // f), -(-W // f)
+
+    def box(P, g):
+        h, w = P.shape
+        ys = np.clip(np.arange(oh * g), 0, h - 1)
+        xs = np.clip(np.arange(ow * g), 0, w - 1)
+        q = P.astype(np.int64)[ys][:, xs].reshape(oh, g, ow, g).sum((1, 3))
+        return (q + g * g // 2) // (g * g)
+
+    def fancy(C):
+        ch, cw = C.shape
+        C = C.astype(np.int64)
+        ys, xs = np.arange(H), np.arange(W)
+        if cw <= 2:
+            return C[ys >> 1][:, xs >> 1]
+        other = np.clip(np.where(ys & 1, (ys >> 1) + 1, (ys >> 1) - 1), 0, ch - 1)
+        nb = np.clip(np.where(xs & 1, (xs >> 1) + 1, (xs >> 1) - 1), 0, cw - 1)
+        cs = 3 * C[ys >> 1] + C[other]
+        return (3 * cs[:, xs >> 1] + cs[:, nb] + np.where(xs & 1, 7, 8)) >> 4
+
+    if f == 1:
+        y, cb, cr = Y.astype(np.int64), fancy(U), fancy(V)
+    else:
+        y, cb, cr = box(Y, f), box(U, f // 2), box(V, f // 2)
+    xcb, xcr = cb - 128, cr - 128
+    r = y + ((91881 * xcr + 32768) >> 16)
+    g = y + ((-22554 * xcb + 32768 - 46802 * xcr) >> 16)
+    b = y + ((116130 * xcb + 32768) >> 16)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
+def feeder_yuv_from_rgb(rgb):
+    """jpeg_feeder.cc's RGB -> planar 4:2:0 (its path for scaled or
+    non-4:2:0 sources; k_yuv_from_rgb on the card), in numpy: fixed-point Y
+    per pixel, chroma from the rounded 2x2 average of RGB, an odd last row
+    or column paired with itself."""
+    p = rgb.astype(np.int64)
+    h, w, _ = p.shape
+    y = (77 * p[..., 0] + 150 * p[..., 1] + 29 * p[..., 2] + 128) >> 8
+    ys = np.minimum(np.arange(0, h, 2)[:, None] + np.arange(2), h - 1)
+    xs = np.minimum(np.arange(0, w, 2)[:, None] + np.arange(2), w - 1)
+    m = (p[ys[:, :, None, None], xs[None, None]].sum((1, 3)) + 2) >> 2
+    r, g, b = m[..., 0], m[..., 1], m[..., 2]
+    u = ((-43 * r - 85 * g + 128 * b + 128) >> 8) + 128
+    v = ((128 * r - 107 * g - 21 * b + 128) >> 8) + 128
+    return tuple(np.clip(c, 0, 255).astype(np.uint8) for c in (y, u, v))
+
+
+def yuv_follows_rgb(jpegs, device, threads=(1, 4)):
+    """Each frame at the reduced scales 1/2, 1/4, 1/8 (an even pad around
+    the scaled extent, so the scale choice lands on it and the decoder
+    converts RGB to 4:2:0): the planes equal ``feeder_yuv_from_rgb`` of the
+    same decoder's RGB at that scale; the pad stays Y 0, U/V 128."""
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch, decode_jpeg_batch_yuv420
+    from cvm_tpu_torch.data.images import jpeg_size
+
+    for i, data in enumerate(jpegs):
+        h, w = jpeg_size(data)
+        for num in (4, 2, 1):
+            oh, ow = -(-h * num // 8), -(-w * num // 8)
+            ph, pw = oh + oh % 2, ow + ow % 2
+            for t in threads:
+                rgb, hw = decode_jpeg_batch([data] * 2, ph, pw, t, device=device)
+                Y, U, V, yhw = decode_jpeg_batch_yuv420([data] * 2, ph, pw, t, device=device)
+                assert hw.tolist() == yhw.tolist() == [[oh, ow]] * 2, (i, num, hw, yhw)
+                ch, cw = (oh + 1) // 2, (ow + 1) // 2
+                for k in range(2):
+                    want = feeder_yuv_from_rgb(rgb[k, :oh, :ow])
+                    for got, wnt, pad in ((Y[k], want[0], 0), (U[k], want[1], 128),
+                                          (V[k], want[2], 128)):
+                        np.testing.assert_array_equal(got[:wnt.shape[0], :wnt.shape[1]], wnt,
+                                                      err_msg=f"frame {i} num {num}")
+                        rest = got.copy()
+                        rest[:wnt.shape[0], :wnt.shape[1]] = pad
+                        assert (rest == pad).all(), (i, num)
+                assert (ch, cw) == want[1].shape
+
+
+def test_jpeg_decoder_holds_to_the_fixture(cuda_device):
+    """Frame by frame: the full-scale frames within IDCT rounding of the
+    reference's libjpeg, the 1/2-scale frame within the reference's own
+    fallback gap on that frame (chip_smoke.fixture_decode_check)."""
+    import chip_smoke
+
+    res = chip_smoke.fixture_decode_check(cuda_device)
+    print(res)
+    assert res["case"].startswith("b")
+    assert res["no_target rgb"]["bound"] == ["idct"] * 7 + ["fallback"]
+
+
+def test_jpeg_decoder_converts_rgb_to_yuv420_as_the_feeder(cuda_device):
+    """k_yuv_from_rgb exactly: the card's planes against jpeg_feeder.cc's
+    integer formulas applied to the card's own RGB, with 1 and 4 threads."""
+    import chip_smoke
+
+    jpegs, _ = chip_smoke.fixture_jpegs()
+    yuv_follows_rgb(jpegs, cuda_device)
+
+
+def other_subsamplings():
+    """The fixture's 4:4:4, 4:2:2 and grayscale JPEGs with the reference
+    decoder's RGB at each scale (``scripts/make_torch_record_fixture.py``):
+    [(name, jpeg, {num: (hw, sha256, pixels, fallback gap)})]."""
+    import lzma
+
+    import chip_smoke
+
+    from cvm_tpu_torch.data.records import RecordDataset
+
+    ds = RecordDataset([f"{chip_smoke.FIXTURE_DIR}/subsamplings.cvrec"])
+    out = []
+    for k in range(len(ds)):
+        meta, blobs = ds.get(k)
+        flat = np.frombuffer(lzma.decompress(blobs["rgb"]), np.uint8)
+        scales, at = {}, 0
+        for num in (8, 4, 2, 1):
+            d = meta["decoded"][str(num)]
+            size = d["hw"][0] * d["hw"][1] * 3
+            scales[num] = (d["hw"], d["sha256"], flat[at:at + size].reshape(*d["hw"], 3),
+                           d["fallback_gap"])
+            at += size
+        assert at == flat.size
+        out.append((meta["id"], blobs["jpeg"], scales))
+    return out
+
+
+def check_other_subsamplings(device):
+    """Each of the fixture's 4:4:4, 4:2:2 and grayscale JPEGs at each scale
+    (a pad of exactly the scaled extent), with 1 and 4 threads, against the
+    reference decoder's recorded RGB: ``hw`` equal, and the pixels
+    identical on the CPU (the same libjpeg). Elsewhere, at full scale,
+    within what IDCT rounding can do (``chip_smoke.IDCT_GAP``; 1 for
+    grayscale, R = G = B = Y); at a reduced scale, where the box average of
+    the clipped full-scale IDCT is not libjpeg's clipped reduced IDCT,
+    within the reference's own fallback gap at that scale. Then the YUV420
+    output of the same JPEGs follows their RGB. Returns the readings
+    {name: {num: (mean |d|, max |d|)}}."""
+    import hashlib
+
+    import chip_smoke
+
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch
+
+    exact = torch.device(device).type == "cpu"
+    readings = {}
+    jpegs = []
+    for name, data, scales in other_subsamplings():
+        jpegs.append(data)
+        for num, (hw, sha, want, fallback) in scales.items():
+            for threads in (1, 4):
+                out, ohw = decode_jpeg_batch([data] * 2, *hw, threads, device=device)
+                assert ohw.tolist() == [hw] * 2, (name, num, ohw)
+                assert (out[0] == out[1]).all()
+                if exact:
+                    assert hashlib.sha256(out[0].tobytes()).hexdigest() == sha, (name, num)
+                d = np.abs(out[0].astype(int) - want)
+                readings.setdefault(name, {})[num] = (float(d.mean()), int(d.max()))
+                bound = dict(chip_smoke.IDCT_GAP["rgb"]) if num == 8 else fallback
+                if num == 8 and name == "gray":
+                    bound["max_abs"] = 1
+                assert d.mean() <= bound["mean_abs"] and d.max() <= bound["max_abs"], (
+                    name, num, readings[name], bound)
+    yuv_follows_rgb(jpegs, device)
+    return readings
+
+
+def test_jpeg_decoder_other_subsamplings_follow_libjpeg(cuda_device):
+    """4:4:4, 4:2:2 and grayscale on the card (k_rgb_from_planes' other
+    branches, and k_yuv_from_rgb at full scale) against libjpeg's recorded
+    decode, at every scale."""
+    print(check_other_subsamplings(cuda_device))
+
+
+def as_440(jpeg_422: bytes) -> bytes:
+    """A 4:2:2 baseline JPEG turned into a valid 4:4:0 one: the luma's
+    sampling factors (2, 1) become (1, 2) and the frame's height and width
+    swap, so that the MCUs (4 blocks each) keep their count and order."""
+    data = bytearray(jpeg_422)
+    at = data.index(b"\xff\xc0")
+    h, w = data[at + 5:at + 7], data[at + 7:at + 9]
+    data[at + 5:at + 7], data[at + 7:at + 9] = w, h
+    assert data[at + 9] == 3 and data[at + 11] == 0x21
+    data[at + 11] = 0x12
+    return bytes(data)
+
+
+def test_jpeg_decoder_other_layouts_box_average(cuda_device):
+    """A 4:4:0 JPEG (nvJPEG's own RGB, then k_box_rgb): each reduced scale
+    equals the rounded box average of the card's own full-scale decode,
+    edges replicated. Its gap to libjpeg (PIL) at full scale is printed:
+    nvJPEG's upsampling is not libjpeg's there."""
+    import io
+
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch
+
+    data = as_440(other_subsamplings()[1][1])
+    W, H = 99, 133  # swapped
+    full, hw = decode_jpeg_batch([data], H, W, device=cuda_device)
+    assert hw.tolist() == [[H, W]]
+    try:
+        from PIL import Image
+
+        pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        d = np.abs(full[0].astype(int) - pil)
+        print("4:4:0 vs libjpeg (PIL): mean", float(d.mean()), "max", int(d.max()))
+    except ImportError:
+        print("4:4:0 vs libjpeg: no PIL")
+    for num in (4, 2, 1):
+        f = 8 // num
+        oh, ow = -(-H // f), -(-W // f)
+        ys = np.clip(np.arange(oh * f), 0, H - 1)
+        xs = np.clip(np.arange(ow * f), 0, W - 1)
+        q = full[0].astype(np.int64)[ys][:, xs].reshape(oh, f, ow, f, 3).sum((1, 3))
+        want = ((q + f * f // 2) // (f * f)).astype(np.uint8)
+        out, ohw = decode_jpeg_batch([data], oh, ow, device=cuda_device)
+        assert ohw.tolist() == [[oh, ow]], num
+        np.testing.assert_array_equal(out[0], want, err_msg=f"4:4:0 num {num}")
+
+
+def test_jpeg_decoder_scales_follow_the_planes(cuda_device):
+    """Each frame at each scale (a pad of exactly its scaled extent, so the
+    scale choice lands on it): the RGB equals the numpy model applied to
+    the card's own full-scale planes (its YUV420 raw path), with 1 and 4
+    threads."""
+    import chip_smoke
+
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch, decode_jpeg_batch_yuv420
+
+    jpegs, _ = chip_smoke.fixture_jpegs()
+    Y, U, V, hw = decode_jpeg_batch_yuv420(jpegs, 1152, 1152, device=cuda_device)
+    for i, (h, w) in enumerate(hw.tolist()):
+        planes = (Y[i, :h, :w], U[i, :(h + 1) // 2, :(w + 1) // 2],
+                  V[i, :(h + 1) // 2, :(w + 1) // 2])
+        for num in (8, 4, 2, 1):
+            oh, ow = -(-h * num // 8), -(-w * num // 8)
+            want = libjpeg_rgb_from_planes(*planes, num)
+            for threads in (1, 4):
+                out, ohw = decode_jpeg_batch([jpegs[i]] * 2, oh, ow, threads,
+                                             device=cuda_device)
+                assert ohw.tolist() == [[oh, ow]] * 2, (i, num, ohw)
+                np.testing.assert_array_equal(out[0], want, err_msg=f"frame {i} num {num}")
+                np.testing.assert_array_equal(out[1], want)
+
+
+def test_jpeg_decoder_marks_corrupt_bytes(cuda_device):
+    """Bytes that are not a JPEG, and JPEGs cut short or with corrupt
+    entropy data, are the image's fault: a zero frame with hw (1, 1) or
+    what nvJPEG recovers, never a raise; the good frames beside them
+    decode."""
+    import chip_smoke
+
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch, decode_jpeg_batch_yuv420
+
+    jpegs, _ = chip_smoke.fixture_jpegs()
+    flipped = bytearray(jpegs[2])
+    flipped[len(flipped) // 2:len(flipped) // 2 + 64] = bytes(64)
+    batch = [jpegs[0], b"not a jpeg", jpegs[1][:200], b"", b"\xff\xd8", jpegs[3][:1000],
+             jpegs[4][:len(jpegs[4]) // 2], bytes(flipped), b"\xff\xd8" + bytes(500)]
+    not_jpeg = [1, 2, 3, 4, 8]  # no frame header: nothing to recover
+    out, hw = decode_jpeg_batch(batch, 768, 768, device=cuda_device)
+    print("rgb hw", hw.tolist())
+    for i in not_jpeg:
+        assert hw[i].tolist() == [1, 1] and not out[i].any(), i
+    assert hw[0].tolist() != [1, 1]
+    Y, U, V, yhw = decode_jpeg_batch_yuv420(batch, 768, 768, device=cuda_device)
+    print("yuv420 hw", yhw.tolist())
+    for i in not_jpeg:
+        assert yhw[i].tolist() == [1, 1] and not Y[i].any() and (U[i] == 128).all(), i
+    assert yhw[0].tolist() != [1, 1]
+
+
+def test_jpeg_decoder_raises_on_a_fault_of_its_own(cuda_device, tmp_path, monkeypatch):
+    """A decoder that cannot run on the card raises and names the fault; it
+    does not hand out the corrupt-image zero frames. A fresh copy of the
+    library (its own handle) is pointed at a card that does not exist."""
+    import shutil
+
+    import chip_smoke
+
+    from cvm_tpu_torch.data import jpeg
+
+    built = jpeg.get_lib(cuda_device)
+    shutil.copy(built._name, tmp_path / "jpeg_nvjpeg_copy.so")
+    lib = jpeg._declare_nvjpeg(__import__("ctypes").CDLL(str(tmp_path / "jpeg_nvjpeg_copy.so")))
+    assert lib.cvm_decode_set_device(torch.cuda.device_count() + 7) == 0
+    monkeypatch.setattr(jpeg, "get_lib", lambda device: lib)
+    jpegs, _ = chip_smoke.fixture_jpegs()
+    with pytest.raises(RuntimeError, match="could not start on the card.*cudaSetDevice"):
+        jpeg.decode_jpeg_batch(jpegs[:2], 768, 768, device=cuda_device)
+    with pytest.raises(RuntimeError, match="could not start on the card"):
+        jpeg.decode_jpeg_batch_yuv420(jpegs[:2], 768, 768, device=cuda_device)
+
+
+def test_record_loader_batch_on_the_card(cuda_device):
+    """A RecordLoader batch of the fixture, decoded on the card: the frames
+    as decode_jpeg_batch gives them, the labels from the metas."""
+    import chip_smoke
+
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch_yuv420
+    from cvm_tpu_torch.data.loader import RecordLoader
+    from cvm_tpu_torch.data.records import RecordDataset
+
+    ds = RecordDataset([f"{chip_smoke.FIXTURE_DIR}/scenes.cvrec"])
+    jpegs, metas = chip_smoke.fixture_jpegs()
+    loader = RecordLoader(ds, 8, (768, 768), shuffle=False, loop=False,
+                          output_format="yuv420", device=cuda_device)
+    (batch,) = list(loader)
+    Y, U, V, hw = decode_jpeg_batch_yuv420(jpegs, 768, 768, device=cuda_device)
+    np.testing.assert_array_equal(batch["y"], Y)
+    np.testing.assert_array_equal(batch["u"], U)
+    np.testing.assert_array_equal(batch["image_hw"], hw)
+    for i, m in enumerate(metas):
+        n = len(m["boxes"])
+        assert batch["num_objects"][i] == n
+        sy, sx = hw[i][0] / m["height"], hw[i][1] / m["width"]
+        np.testing.assert_allclose(batch["boxes"][i, :n],
+                                   np.float32(m["boxes"]) * np.float32([sx, sy, sx, sy]),
+                                   rtol=1e-6)
+    assert set(loader.stats()) == {"read_ms_per_batch", "decode_ms_per_batch",
+                                   "assemble_ms_per_batch", "batches"}

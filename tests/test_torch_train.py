@@ -397,5 +397,5 @@ def test_cli_trains_resumes_and_refuses_unported_flags(tmp_path, capsys):
                   ["--aug_rotate_deg", "5"], ["--model_parallel", "2"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli_main(base + extra)
-    with pytest.raises(SystemExit, match="not ported yet"):
-        cli_main(base + ["--data", "train.cvrec"])
+    with pytest.raises(FileNotFoundError):
+        cli_main(base + ["--data", str(tmp_path / "train.cvrec")])
