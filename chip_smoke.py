@@ -20,8 +20,11 @@ with ``--with_3d true``, exported) and DMDS, config E (192x640, batch 8,
 ``small``, ``motion_features`` 128, object motion on); then the record
 path at config B's width: JPEG decode (nvJPEG on the card), training and
 evaluation from ``.cvrec`` records, and serving records and HTTP requests
-through an exported artifact. ``cli.doctor``'s report (the card, the
-toolchain and the JPEG decoders' prerequisites) is printed first:
+through an exported artifact; then the data tools and offline inference:
+a COCO-layout tree packed, validated, counted, rendered and repacked,
+config B trained from the packed shard, and ``cli.infer`` over its images
+through an exported artifact and a checkpoint. ``cli.doctor``'s report (the
+card, the toolchain and the JPEG decoders' prerequisites) is printed first:
 
   1. card, versions, both kernel builds (one nvcc each, started together);
   2. the fused W8A8 ConvBN kernel K2 vs its plain PyTorch version at every
@@ -128,7 +131,25 @@ toolchain and the JPEG decoders' prerequisites) is printed first:
      ``ModelServer`` on 127.0.0.1 answering 16 concurrent POSTs of the
      fixture's JPEGs (24 K2 launches per dispatched batch, classes equal
      and boxes within 1e-3 px of a direct ``ServingModel`` call on the
-     same decoded frame), with its batch fill and latency percentiles.
+     same decoded frame), with its batch fill and latency percentiles;
+ 25. pack and check: a COCO-layout tree (``annotations/instances_val2017.json``
+     with COCO's 80 category ids, gaps included; 64 synthetic scenes at
+     640x480 and 480x640, six as PNGs, two as 4:4:0 JPEGs) through
+     ``cli.pack --dataset coco``, ``cli.validate`` (0 errors, every JPEG
+     decoded on the card), ``cli.stats`` (class counts equal to the
+     annotation file's), ``cli.inspect`` (4 PNGs) and ``cli.repack`` on the
+     card (every plane equal to the card's decode of the same bytes); the
+     4:4:0 frames within the IDCT gap of PIL's decode; each tool's seconds;
+ 26. ``cli.train --data`` on that shard at config B (512^2, ``small``, 80
+     classes, batch 8), 20 steps: one K1 launch per step, ms/step;
+ 27. offline inference: ``cli.export --input_format rgb --quantize
+     w8a8_fused_chain --batch_size 8`` of that checkpoint, then
+     ``cli.infer --artifact`` over the tree's images with ``--visualize``
+     and ``--score_threshold 0``: 8 batches, 24 K2 launches per call, every
+     JSON line equal to the eager pipeline's of the same posture on the
+     same decoded batch, one PNG per image at the source size; then
+     ``cli.infer --checkpoint_dir`` in fp, with ``--w8a8`` (``torch._int_mm``,
+     0 K2 launches) and over ``--records``; ms per batch of each.
 
 Device times come from CUDA events around 20 back-to-back calls while the
 card first sleeps through the host's enqueueing (``cuda_ms``). Any failure
@@ -318,6 +339,38 @@ def fixture_jpegs():
     ds = RecordDataset([os.path.join(FIXTURE_DIR, "scenes.cvrec")])
     recs = [ds.get(i) for i in range(len(ds))]
     return [b["jpeg"] for _, b in recs], [m for m, _ in recs]
+
+
+# (source layout, luma sampling byte) -> (target luma sampling byte, MCU
+# width, MCU height of the target). "1x4": luma sampled 1 across and 4
+# down, chroma at full width and a quarter of the height.
+_RELAYOUT = {"4:4:0": (0x21, 0x12, 8, 16), "4:1:1": (0x22, 0x41, 32, 8),
+             "1x4": (0x22, 0x14, 8, 32)}
+
+
+def relayout_jpeg(jpeg: bytes, layout: str) -> bytes:
+    """A baseline JPEG of ``layout`` ("4:4:0", "4:1:1" or "1x4"), which no
+    encoder at hand writes, from a baseline 4:2:2 (for 4:4:0) or 4:2:0 (for
+    the others) one: the luma's sampling factors are re-declared (each MCU
+    keeps its 4 or 6 blocks in their order) and the frame is re-cut to the
+    same grid of MCUs, one pixel short of it each way, so that its height
+    and width are odd. Each MCU's luma blocks come out stacked (4:4:0, 1x4)
+    or in a row (4:1:1) instead of side by side."""
+    import struct
+
+    source, target, mcu_w, mcu_h = _RELAYOUT[layout]
+    data = bytearray(jpeg)
+    at = data.index(b"\xff\xc0")
+    h, w = struct.unpack_from(">HH", data, at + 5)
+    if data[at + 9] != 3 or data[at + 11] != source:
+        raise ValueError(f"{layout} is made from a 3-component JPEG whose luma sampling "
+                         f"byte is {source:#x}, got {data[at + 9]} components, "
+                         f"{data[at + 11]:#x}")
+    src_w, src_h = (16, 8) if source == 0x21 else (16, 16)
+    nx, ny = -(-w // src_w), -(-h // src_h)
+    struct.pack_into(">HH", data, at + 5, ny * mcu_h - 1, nx * mcu_w - 1)
+    data[at + 11] = target
+    return bytes(data)
 
 
 # What IDCT rounding alone can do to a frame decoded at full scale by
@@ -2036,6 +2089,279 @@ def phase_record_serve(dev, workdir, shard, smi):
     return records_launches, http_launches, st
 
 
+# Phases 25-27: the data tools and offline inference on a COCO-layout tree
+# (COCO's 80 category ids, gaps included; the names of data/label_spec.py).
+COCO_IDS = [i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83)]
+COCO_IMAGES = 64
+COCO_TRAIN_FLAGS = ["--model", "centernet", "--batch_size", str(B), "--warmup_steps", "5",
+                    "--total_steps", "5000", "--log_every", "1", "--checkpoint_every", "20",
+                    "--seed", "0", "--steps", "20", "--eval_every", "0"]
+
+
+def write_coco_tree(root: str, n: int, seed: int = 0) -> dict:
+    """A COCO-layout tree, ``annotations/instances_val2017.json`` and
+    ``val2017/``: ``n`` synthetic scenes (``data/synthetic.py``: 10 classes,
+    each labelled with every 8th of COCO's 80, up to 12 objects) at 640x480
+    and 480x640, as quality-90 4:2:0 JPEGs,
+    six as PNGs and two as 4:4:0 JPEGs (a 240x1280 scene encoded 4:2:2 and
+    re-declared, ``relayout_jpeg``: 479x639, each MCU's content at the same
+    grid place, so its boxes are the scene's scaled by (1/2, 2)). Returns
+    the annotation file's per-class box counts, the files and their sizes."""
+    import io
+
+    from PIL import Image
+
+    from cvm_tpu_torch.data.label_spec import COCO_CLASSES
+    from cvm_tpu_torch.data.synthetic import synthetic_sample
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "val2017"), exist_ok=True)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    images, anns, counts, files = [], [], {}, {}
+    for i in range(n):
+        kind = "png" if i % 10 == 3 and i < 60 else ("440" if i in (5, 37) else "jpg")
+        name = f"{i:012d}." + ("png" if kind == "png" else "jpg")
+        path = os.path.join(root, "val2017", name)
+        if kind == "440":
+            s = synthetic_sample(rng, (240, 1280), num_classes=10, max_objects=12)
+            buf = io.BytesIO()
+            Image.fromarray(s["image"]).save(buf, format="JPEG", quality=90, subsampling=1)
+            with open(path, "wb") as f:
+                f.write(relayout_jpeg(buf.getvalue(), "4:4:0"))
+            h, w, scale = 479, 639, np.float32([0.5, 2.0, 0.5, 2.0])
+        else:
+            h, w = (480, 640) if i % 2 == 0 else (640, 480)
+            s = synthetic_sample(rng, (h, w), num_classes=10, max_objects=12)
+            Image.fromarray(s["image"]).save(path, quality=90)
+            scale = np.float32([1, 1, 1, 1])
+        images.append({"id": 1000 + i, "file_name": name, "height": h, "width": w})
+        files[path] = (h, w)
+        for k in range(int(s["num_objects"])):
+            x0, y0, x1, y1 = (float(v) for v in s["boxes"][k] * scale)
+            c = 8 * int(s["classes"][k])
+            anns.append({"id": len(anns) + 1, "image_id": 1000 + i,
+                         "category_id": COCO_IDS[c], "bbox": [x0, y0, x1 - x0, y1 - y0],
+                         "area": (x1 - x0) * (y1 - y0), "iscrowd": 0})
+            counts[c] = counts.get(c, 0) + int((x1 - x0) * (y1 - y0) >= 4.0)
+    cats = [{"id": cid, "name": COCO_CLASSES[j], "supercategory": "none"}
+            for j, cid in enumerate(COCO_IDS)]
+    with open(os.path.join(root, "annotations", "instances_val2017.json"), "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": cats}, f)
+    return {"counts": {str(k): v for k, v in sorted(counts.items()) if v}, "files": files}
+
+
+def _cli(main, argv):
+    """(exit code, stdout lines, stderr) of an in-process CLI ``main``."""
+    import contextlib
+    import io
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = main(argv)
+        except SystemExit as e:
+            rc = e.code
+    return rc, out.getvalue().splitlines(), err.getvalue()
+
+
+def phase_pack(dev, root, smi):
+    """Phase 25: a COCO-layout tree through cli.pack, cli.validate (sample
+    decode on the card), cli.stats, cli.inspect and cli.repack (on the
+    card); the repacked planes against the card's decode of the same bytes;
+    the 4:4:0 files against PIL within the IDCT gap."""
+    import io
+
+    from PIL import Image
+
+    from cvm_tpu_torch.cli import inspect, pack, repack, stats, validate
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch, decode_jpeg_batch_yuv420
+    from cvm_tpu_torch.data.records import RecordDataset
+
+    t0 = time.perf_counter()
+    tree = write_coco_tree(os.path.join(root, "coco"), COCO_IMAGES)
+    secs = {"tree": time.perf_counter() - t0}
+    shard, yuv = os.path.join(root, "coco.cvrec"), os.path.join(root, "coco_yuv.cvrec")
+    steps = [
+        ("pack", pack.main, ["--dataset", "coco", "--src", os.path.join(root, "coco"),
+                             "--split", "val2017", "--out", shard]),
+        ("validate", validate.main, ["--data", shard, "--sample_decode", str(COCO_IMAGES),
+                                     "--device", str(dev)]),
+        ("stats", stats.main, ["--data", shard, "--json"]),
+        ("inspect", inspect.main, ["--data", shard, "--out", os.path.join(root, "inspect"),
+                                   "--num", "4"]),
+        ("repack", repack.main, ["--src", shard, "--out", yuv, "--device", str(dev)]),
+    ]
+    res = {}
+    for name, main, argv in steps:
+        t0 = time.perf_counter()
+        rc, lines, err = _cli(main, argv)
+        secs[name] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"cli.{name} exited {rc}: {lines[-3:]} {err[-2000:]}")
+        res[name] = json.loads(lines[-1])
+    if res["pack"] != {"written": COCO_IMAGES, "skipped": 0, "num_classes": 80}:
+        raise AssertionError(f"cli.pack: {res['pack']}")
+    if res["validate"]["errors"] or res["validate"]["sample_decoded_ok"] != COCO_IMAGES:
+        raise AssertionError(f"cli.validate: {res['validate']}")
+    if res["stats"]["box_classes"] != tree["counts"]:
+        raise AssertionError(f"cli.stats class counts {res['stats']['box_classes']} != the "
+                             f"annotation file's {tree['counts']}")
+    pngs = [f for f in os.listdir(os.path.join(root, "inspect")) if f.endswith(".png")]
+    if res["inspect"]["rendered"] != 4 or len(pngs) != 4:
+        raise AssertionError(f"cli.inspect: {res['inspect']}, {pngs}")
+    if res["repack"]["written"] != COCO_IMAGES or res["repack"]["failed"]:
+        raise AssertionError(f"cli.repack: {res['repack']}")
+    src, planes = RecordDataset([shard]), RecordDataset([yuv])
+    for i in range(len(src)):
+        meta, blobs = src.get(i)
+        h, w = meta["height"], meta["width"]
+        Y, U, V, hw = decode_jpeg_batch_yuv420([blobs["jpeg"]], h + h % 2, w + w % 2,
+                                               device=dev)
+        dh, dw = h - h % 2, w - w % 2
+        got = planes.get(i)[1]
+        for k, want in (("y", Y[0, :dh, :dw]), ("u", U[0, :dh // 2, :dw // 2]),
+                        ("v", V[0, :dh // 2, :dw // 2])):
+            if not np.array_equal(got[k], want):
+                raise AssertionError(f"repacked {k} plane of record {i} differs from the "
+                                     "card's decode of its JPEG")
+    gaps = {}
+    for path, (h, w) in tree["files"].items():
+        with open(path, "rb") as f:
+            data = f.read()
+        if (h, w) != (479, 639):
+            continue
+        rgb, _ = decode_jpeg_batch([data], h, w, device=dev)
+        d = np.abs(rgb[0].astype(int) - np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))
+        gaps[os.path.basename(path)] = (round(float(d.mean()), 4), int(d.max()))
+        if d.mean() > IDCT_GAP["rgb"]["mean_abs"] or d.max() > IDCT_GAP["rgb"]["max_abs"]:
+            raise AssertionError(f"4:4:0 {path}: {gaps} beyond the IDCT gap {IDCT_GAP}")
+    log(f"[pack] {COCO_IMAGES} COCO-layout images (6 PNG, 2 4:4:0): pack {res['pack']}; "
+        f"validate 0 errors, {res['validate']['sample_decoded_ok']} decoded on the card; "
+        f"stats {res['stats']['boxes_total']} boxes in {len(tree['counts'])} classes = the "
+        f"annotation file's; inspect 4 PNGs; repack {res['repack']} (planes = the card's "
+        f"decode); 4:4:0 vs PIL (mean, max |d|) {gaps}; seconds on {smi}: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items()))
+    return shard, tree, secs
+
+
+def phase_coco_train(dev, workdir, shard, smi):
+    """Phase 26: cli.train --data on the packed COCO shard at config B
+    (512^2, small, 80 classes, batch 8), 20 steps."""
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+
+    t0 = time.perf_counter()
+    gs.reset_counts()
+    train_main(COCO_TRAIN_FLAGS + _pad_flag() + ["--data", shard, "--workdir", workdir,
+                                                 "--device", str(dev)])
+    launches = gs.render_heatmap.launches
+    steps = [r for r in read_metrics(os.path.join(workdir, "metrics.jsonl")) if "loss" in r]
+    losses = [r["loss"] for r in steps]
+    step_ms = statistics.median(1e3 / r["steps_per_sec"] for r in steps[5:])
+    log(f"[coco-train] 20 config-B steps (80 classes, batch {B}) from the packed COCO shard in "
+        f"{time.perf_counter() - t0:.1f} s: {launches} K1 launches; loss first 3 "
+        f"{np.round(losses[:3], 4).tolist()}, last 3 {np.round(losses[-3:], 4).tolist()}; "
+        f"median {step_ms:.3f} ms/step on {smi} (steps 6-20)")
+    if [r["step"] for r in steps] != list(range(1, 21)):
+        raise AssertionError(f"expected 20 logged steps, got {[r['step'] for r in steps]}")
+    if not all(np.isfinite(r[k]) for r in steps for k in ("loss", "grad_norm")):
+        raise AssertionError("non-finite loss or grad_norm")
+    if launches != 20:
+        raise AssertionError(f"expected one K1 launch per step (20), got {launches}")
+    return launches, step_ms
+
+
+def phase_infer(dev, workdir, shard, tree, smi):
+    """Phase 27: that checkpoint exported (rgb, w8a8_fused_chain, batch 8)
+    and run by cli.infer --artifact over the tree's images with
+    --visualize; every JSON line against the eager pipeline of the same
+    posture on the same decoded batch; then cli.infer --checkpoint_dir in
+    fp, with --w8a8 and over --records."""
+    from PIL import Image
+
+    from cvm_tpu_torch.cli.export import calibration_scales
+    from cvm_tpu_torch.cli.export import main as export_main
+    from cvm_tpu_torch.cli.infer import main as infer_main
+    from cvm_tpu_torch.data.images import read_image_as_jpeg
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.models.registry import get_model
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+    from cvm_tpu_torch.train.loop import Trainer
+
+    ckdir, art = os.path.join(workdir, "checkpoints"), os.path.join(workdir, "art_rgb")
+    vis = os.path.join(workdir, "vis")
+    images = os.path.join(os.path.dirname(next(iter(tree["files"]))), "*")
+    t0 = time.perf_counter()
+    rc = export_main(["--model", "centernet", "--checkpoint_dir", ckdir, "--out", art,
+                      "--input_format", "rgb", "--quantize", "w8a8_fused_chain",
+                      "--batch_size", str(B), "--device", str(dev)] + _pad_flag())
+    t_export = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.export exited {rc}")
+    fq.reset_counts()
+    rc, lines, err = _cli(infer_main, ["--artifact", art, "--images", images, "--visualize", vis,
+                                       "--score_threshold", "0", "--device", str(dev)])
+    launches = fq.fused_qconv.launches
+    if rc != 0:
+        raise AssertionError(f"cli.infer --artifact exited {rc}: {err[-2000:]}")
+    summary = {"artifact": json.loads(err.splitlines()[-1])}
+    recs = [json.loads(x) for x in lines]
+    n_batches = -(-COCO_IMAGES // B)
+    if summary["artifact"]["batches"] != n_batches or launches != K2_PER_FORWARD * n_batches:
+        raise AssertionError(f"cli.infer --artifact: {summary['artifact']}, {launches} K2 "
+                             f"launches (expected {K2_PER_FORWARD} per batch-{B} call)")
+    with open(os.path.join(art, "artifact.json")) as f:
+        params_cfg = json.load(f)["params_cfg"]
+    tr = Trainer(get_model("centernet").params_cls.from_dict(params_cfg), dev,
+                 checkpoint_dir=ckdir)
+    tr.init_state()
+    model = tr.eval_model()
+    eager = InferencePipeline(tr.cfg, model, dev, input_format="rgb",
+                              w8a8=calibration_scales(tr.cfg, model, PAD_HW, 3, B, dev),
+                              w8a8_fused=True, w8a8_chain=True)
+    files = sorted(tree["files"])
+    same = 0
+    for s in range(0, len(files), B):
+        jpegs = [read_image_as_jpeg(f)[0] for f in files[s:s + B]]
+        img, hw = decode_jpeg_batch(jpegs, *PAD_HW, device=dev)
+        out = {k: v.cpu().numpy() for k, v in eager({"image": img, "image_hw": hw}).items()}
+        for i, rec in enumerate(recs[s:s + B]):
+            want = {k: out[k][i].tolist() for k in ("boxes", "scores", "classes")}
+            if rec["input"] != os.path.basename(files[s + i]):
+                raise AssertionError(f"cli.infer line {s + i} is {rec['input']}")
+            same += all(json.dumps(rec[k]) == json.dumps(want[k])
+                        for k in ("boxes", "scores", "classes"))
+    pngs = 0
+    for f, (h, w) in tree["files"].items():
+        png = os.path.join(vis, os.path.basename(f) + ".png")
+        pngs += Image.open(png).size == (w, h)
+    log(f"[infer] export rgb w8a8_fused_chain (bucket {B}) in {t_export:.1f} s; cli.infer "
+        f"--artifact over {len(recs)} images: {summary['artifact']}, {launches} K2 launches, "
+        f"{same}/{len(recs)} lines equal to the eager pipeline's, {pngs} PNGs at the source "
+        f"sizes")
+    if len(recs) != COCO_IMAGES or same != len(recs):
+        raise AssertionError(f"cli.infer --artifact: {same}/{len(recs)} lines equal")
+    if pngs != COCO_IMAGES:
+        raise AssertionError(f"--visualize: {pngs}/{COCO_IMAGES} PNGs at the source size")
+    for name, extra in (("fp", ["--images", images]), ("w8a8", ["--images", images, "--w8a8"]),
+                        ("records", ["--records", shard])):
+        fq.reset_counts()
+        rc, lines, err = _cli(infer_main, ["--model", "centernet", "--checkpoint_dir", ckdir,
+                                           "--device", str(dev)] + extra)
+        if rc != 0:
+            raise AssertionError(f"cli.infer --checkpoint_dir ({name}) exited {rc}: {err[-2000:]}")
+        summary[name] = json.loads(err.splitlines()[-1])
+        n = summary[name]["images"]
+        if n != COCO_IMAGES or fq.fused_qconv.launches != 0:
+            raise AssertionError(f"cli.infer {name}: {summary[name]}, "
+                                 f"{fq.fused_qconv.launches} K2 launches (expected 0)")
+    log(f"[infer] cli.infer ms per batch of {B} (host clock: decode excluded, predict and the "
+        f"copy to the host) on {smi}: " + ", ".join(
+            f"{k} {v['ms_per_batch_avg']}" for k, v in summary.items()))
+    return launches, summary
+
+
 def main() -> int:
     import torch
 
@@ -2273,6 +2599,20 @@ def main() -> int:
         serve_k2, http_k2, _ = phase_record_serve(dev, os.path.join(workdir, "w"), shard, smi)
         log(f"[serve-records] phase 24 took {time.perf_counter() - t0:.1f} s")
 
+    # Phases 25-27: the data tools, training from a packed COCO tree, and
+    # offline inference through an exported artifact.
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        coco_shard, tree, _ = phase_pack(dev, workdir, smi)
+        log(f"[pack] phase 25 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        coco_k1, coco_step_ms = phase_coco_train(dev, os.path.join(workdir, "w"), coco_shard,
+                                                 smi)
+        log(f"[coco-train] phase 26 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        infer_k2, _ = phase_infer(dev, os.path.join(workdir, "w"), coco_shard, tree, smi)
+        log(f"[infer] phase 27 took {time.perf_counter() - t0:.1f} s")
+
     log(f"[zoo3d] on {smi}: 3D batch-8 predict fp {lat3d['fp']:.3f} ms, int8 "
         f"{lat3d['int8']:.3f} ms; 3D training {step3d_ms:.3f} ms/step; DMDS training "
         f"{dmds['step_ms']:.3f} ms/step ({dmds['scenes_ms']:.1f} ms of host scenes), "
@@ -2280,7 +2620,7 @@ def main() -> int:
         f"(artifact {dmds['artifact_ms']:.3f} ms); DMDS reaches no TPU kernel (the "
         "reference refuses W8A8 for it)")
 
-    log(f"[smoke] phases 1-24 took {time.perf_counter() - t_smoke:.1f} s")
+    log(f"[smoke] phases 1-27 took {time.perf_counter() - t_smoke:.1f} s")
     log(f"[card] {nvidia_smi()}")
     # K2's numbers are those of one config-B int8 forward; launches count
     # every main-path run (config B and each dense path), with each path's
@@ -2298,6 +2638,7 @@ def main() -> int:
     k2_paths["3D artifact w8a8_fused"] = dict(launches=export3d_launches["w8a8_fused"])
     k2_paths["cli.serve --records"] = dict(launches=serve_k2)
     k2_paths["HTTP ModelServer"] = dict(launches=http_k2)
+    k2_paths["cli.infer --artifact"] = dict(launches=infer_k2)
     k2_shapes = sorted({f"k{c['k']} B{c['B']} {c['H']}x{c['W']} {c['cin']}->{c['cout']}"
                         for calls in dense_calls.values() for c in calls})
     print(json.dumps({"kernels": [{
@@ -2309,7 +2650,8 @@ def main() -> int:
         "dense_shapes_checked": k2_shapes}, {
         "name": "gaussian_splat", "route": "cuda", "source": SPLAT_SOURCE,
         "replaces": SPLAT_REPLACES,
-        "launches": splat_launches + dense_k1 + qat_launches + train3d_launches + rec_k1,
+        "launches": (splat_launches + dense_k1 + qat_launches + train3d_launches + rec_k1
+                     + coco_k1),
         "max_abs_err": splat_err,
         "ms": splat_times["flagship"][0], "plain_ms": splat_times["flagship"][1],
         "bound_ms": splat_times["bound_ms"], "bound_by": "bytes", "library_ms": None,
@@ -2317,6 +2659,7 @@ def main() -> int:
                   "qat fine-tune": dict(launches=qat_launches),
                   "3D training": dict(launches=train3d_launches),
                   "training from records": dict(launches=rec_k1),
+                  "training from a packed COCO shard": dict(launches=coco_k1),
                   "multitask training": dict(launches=dense_k1,
                                              ms=splat_times["multitask"][0],
                                              plain_ms=splat_times["multitask"][1],

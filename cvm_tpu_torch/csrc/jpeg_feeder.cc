@@ -336,6 +336,86 @@ void* batch_worker(void* arg) {
   return nullptr;
 }
 
+// One JPEG's component planes at scale num/8 as libjpeg's IDCT hands them
+// to its upsampler (raw_data_out): Y, then Cb and Cr, packed into `out`
+// (cap bytes); dims = {components, h, w of each}. Returns 0, 1 unreadable,
+// 2 bad header, 3 `out` too small. The tests hold a model of libjpeg's
+// upsampling and color conversion, applied to these planes, to
+// cvm_decode_into's RGB.
+int cvm_decode_planes(const uint8_t* jpeg, unsigned long len, int num, uint8_t* out,
+                      unsigned long cap, int* dims) {
+  jpeg_decompress_struct cinfo;
+  ErrMgr jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = error_exit;
+  if (setjmp(jerr.jump)) {
+    jpeg_destroy_decompress(&cinfo);
+    return 1;
+  }
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, jpeg, len);
+  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK ||
+      (cinfo.num_components != 1 && cinfo.num_components != 3)) {
+    jpeg_destroy_decompress(&cinfo);
+    return 2;
+  }
+  cinfo.raw_data_out = TRUE;
+  cinfo.scale_num = num;
+  cinfo.scale_denom = 8;
+  jpeg_start_decompress(&cinfo);
+  const int nc = cinfo.num_components;
+#if JPEG_LIB_VERSION >= 70
+  const int min_size = cinfo.min_DCT_v_scaled_size;
+#else
+  const int min_size = cinfo.min_DCT_scaled_size;
+#endif
+  size_t need = 0;
+  for (int c = 0; c < nc; ++c)
+    need += (size_t)cinfo.comp_info[c].downsampled_width * cinfo.comp_info[c].downsampled_height;
+  if (need > cap) {
+    jpeg_destroy_decompress(&cinfo);
+    return 3;
+  }
+  // One iMCU row of each component, MCU-padded, per jpeg_read_raw_data;
+  // libjpeg's image pool owns the rows (freed by jpeg_destroy, also after
+  // an error's longjmp).
+  JSAMPARRAY planes[3];
+  int nrows[3], done[3] = {0, 0, 0};
+  size_t at[3];
+  size_t off = 0;
+  for (int c = 0; c < nc; ++c) {
+    const jpeg_component_info* comp = &cinfo.comp_info[c];
+#if JPEG_LIB_VERSION >= 70
+    const int size = comp->DCT_h_scaled_size;
+#else
+    const int size = comp->DCT_scaled_size;
+#endif
+    const int bw = (int)comp->width_in_blocks * size;
+    nrows[c] = comp->v_samp_factor * size;
+    planes[c] = (*cinfo.mem->alloc_sarray)(reinterpret_cast<j_common_ptr>(&cinfo), JPOOL_IMAGE,
+                                           (JDIMENSION)bw, (JDIMENSION)nrows[c]);
+    at[c] = off;
+    off += (size_t)comp->downsampled_width * comp->downsampled_height;
+  }
+  while (cinfo.output_scanline < cinfo.output_height) {
+    if (jpeg_read_raw_data(&cinfo, planes, cinfo.max_v_samp_factor * min_size) == 0) break;
+    for (int c = 0; c < nc; ++c) {
+      const jpeg_component_info* comp = &cinfo.comp_info[c];
+      for (int r = 0; r < nrows[c] && done[c] < (int)comp->downsampled_height; ++r, ++done[c])
+        memcpy(out + at[c] + (size_t)done[c] * comp->downsampled_width, planes[c][r],
+               comp->downsampled_width);
+    }
+  }
+  dims[0] = nc;
+  for (int c = 0; c < nc; ++c) {
+    dims[1 + 2 * c] = (int)cinfo.comp_info[c].downsampled_height;
+    dims[2 + 2 * c] = (int)cinfo.comp_info[c].downsampled_width;
+  }
+  jpeg_abort_decompress(&cinfo);
+  jpeg_destroy_decompress(&cinfo);
+  return 0;
+}
+
 // Decode a batch with a transient thread pool. Returns count of failures.
 int cvm_decode_batch(int n, const uint8_t* const* jpegs,
                      const unsigned long* lens, uint8_t* out, int max_h,

@@ -25,13 +25,23 @@
 //     path, under the same condition), else RGB converted on the card with
 //     jpeg_feeder.cc's integer formulas (Y per pixel, chroma from the 2x2
 //     RGB average).
-// Grayscale is its Y plane, replicated. Other layouts (4:4:0, 4:1:1, four
-// components) decode to RGB through nvJPEG's own upsampling and color
-// conversion, box-averaged at reduced scales.
+// 4:4:0 and 4:1:1 chroma libjpeg decodes at the luma's DCT scale (the
+// sampling factors never allow more), so their planes are box-averaged by
+// 8/num, then upsampled as libjpeg upsamples them: 4:4:0 with its vertical
+// "fancy" blend (h1v2_fancy_upsample: 3/4 nearer + 1/4 further row, bias 1
+// above and 2 below, edges replicated) while the scale is above 1/8, rows
+// replicated at 1/8; 4:1:1 by replicating each sample 4 times across
+// (int_upsample: libjpeg has no fancy h4v1).
+// Grayscale is its Y plane, replicated. A three-component JPEG that
+// libjpeg reads as RGB (is_rgb_jpeg below) takes the same upsampling and
+// no color conversion. Other layouts are refused as unreadable (1): four
+// components (CMYK, YCCK), which libjpeg cannot convert to RGB either, and
+// sampling factors other than the five above (4:1:0, 1x4 luma), which
+// libjpeg decodes and nvJPEG's own upsampling does not decode as it does.
 //
 // Return codes per image: 0 decoded; the data faults of jpeg_feeder.cc, 1
-// unreadable (nvJPEG's BAD_JPEG, JPEG_NOT_SUPPORTED or INCOMPLETE_BITSTREAM)
-// and 3 too large even at 1/8; and the decoder's own faults, which are not
+// unreadable (nvJPEG's BAD_JPEG, JPEG_NOT_SUPPORTED or INCOMPLETE_BITSTREAM,
+// or a refused layout) and 3 too large even at 1/8; and the decoder's own faults, which are not
 // the image's: 4 a CUDA call failed, 5 the decoder could not start (device,
 // handle or state), 6 nvJPEG failed otherwise. cvm_decode_last_error()
 // names the last fault.
@@ -92,7 +102,7 @@ int nvjpeg_rc(const char* what, nvjpegStatus_t s) {
 struct Worker {
   nvjpegJpegState_t state = nullptr;
   cudaStream_t stream = nullptr;
-  uint8_t* planes = nullptr;  // nvJPEG's output: Y, U, V planes or RGBI
+  uint8_t* planes = nullptr;  // nvJPEG's output: the component planes
   size_t planes_cap = 0;
   uint8_t* rgb = nullptr;     // the (scaled) RGB frame, oh x ow x 3
   size_t rgb_cap = 0;
@@ -183,14 +193,14 @@ __device__ __forceinline__ int clampi(int v, int lo, int hi) {
 
 __device__ __forceinline__ uint8_t sat(int v) { return (uint8_t)clampi(v, 0, 255); }
 
-// Rounded mean of the f x f block at (y*f, x*f) of a w x h plane (pitch p,
-// element stride s), edges replicated; f is a power of 2 (1..8).
-__device__ __forceinline__ int box(const uint8_t* p, int pitch, int s, int w, int h,
-                                   int y, int x, int f, int shift) {
+// Rounded mean of the f x f block at (y*f, x*f) of a w x h plane, edges
+// replicated; f is a power of 2 (1..8).
+__device__ __forceinline__ int box(const uint8_t* p, int w, int h, int y, int x, int f,
+                                   int shift) {
   int acc = 0;
   for (int i = 0; i < f; ++i) {
-    const uint8_t* row = p + (size_t)clampi(y * f + i, 0, h - 1) * pitch;
-    for (int j = 0; j < f; ++j) acc += row[(size_t)clampi(x * f + j, 0, w - 1) * s];
+    const uint8_t* row = p + (size_t)clampi(y * f + i, 0, h - 1) * w;
+    for (int j = 0; j < f; ++j) acc += row[clampi(x * f + j, 0, w - 1)];
   }
   return (acc + ((f * f) >> 1)) >> shift;
 }
@@ -216,32 +226,51 @@ __device__ __forceinline__ void ycc_rgb(int y, int cb, int cr, uint8_t* o) {
 __device__ __forceinline__ int h2v1(const uint8_t* C, int cw, int ch, int y, int x, int g,
                                     int gs, bool fancy) {
   const int rcw = (cw + g - 1) / g, cx = x >> 1;
-  const int near = box(C, cw, 1, cw, ch, y, cx, g, gs);
+  const int near = box(C, cw, ch, y, cx, g, gs);
   if (!fancy || rcw <= 2) return near;
   const int nb = (x & 1) ? min(cx + 1, rcw - 1) : max(cx - 1, 0);
-  return (3 * near + box(C, cw, 1, cw, ch, y, nb, g, gs) + ((x & 1) ? 2 : 1)) >> 2;
+  return (3 * near + box(C, cw, ch, y, nb, g, gs) + ((x & 1) ? 2 : 1)) >> 2;
+}
+
+// A 4:4:0 chroma sample at output (x, y): the chroma plane (cw x ch, as
+// many columns as the luma) box-averaged by g, then libjpeg's vertical
+// upsampling: "fancy" (3/4 nearer + 1/4 further row, bias 1 for the upper
+// and 2 for the lower output row, edges replicated; jdsample.c
+// h1v2_fancy_upsample) when `fancy`, else the row replicated (int_upsample).
+__device__ __forceinline__ int h1v2(const uint8_t* C, int cw, int ch, int y, int x, int g,
+                                    int gs, bool fancy) {
+  const int rch = (ch + g - 1) / g, cy = y >> 1;
+  const int near = box(C, cw, ch, cy, x, g, gs);
+  if (!fancy) return near;
+  const int nb = (y & 1) ? min(cy + 1, rch - 1) : max(cy - 1, 0);
+  return (3 * near + box(C, cw, ch, nb, x, g, gs) + ((y & 1) ? 2 : 1)) >> 2;
 }
 
 // Component planes -> RGB at scale 8/f, with libjpeg's arithmetic after its
-// IDCT; the luma is box-averaged by f. Chroma by its horizontal and
+// IDCT; the luma (or R) is box-averaged by f. Chroma by its horizontal and
 // vertical subsampling (sh, sv):
 //   * (2, 2), 4:2:0: at f == 1 libjpeg's h2v2 fancy upsampling (plain
 //     replication when the chroma plane is 2 samples wide or less, as
 //     jdsample.c does); at f > 1 box-averaged by f/2, without upsampling;
 //   * (2, 1), 4:2:2: h2v1 as above, fancy while f < 8 (libjpeg upsamples
 //     plainly at 1/8);
+//   * (1, 2), 4:4:0: h1v2 as above, fancy while f < 8;
+//   * (4, 1), 4:1:1: box-averaged by f, each sample replicated 4 times
+//     across;
 //   * (1, 1), 4:4:4: box-averaged by f;
 //   * no chroma planes (U null), grayscale: Cb = Cr = 128, i.e. R = G = B.
+// Then libjpeg's YCbCr tables, or, when `rgb`, the three samples as they
+// are (libjpeg's null conversion).
 __global__ void k_rgb_from_planes(const uint8_t* Y, const uint8_t* U, const uint8_t* V,
                                   int w, int h, int cw, int ch, int sh, int sv, int f,
-                                  int shift, uint8_t* out, int ow, int oh) {
+                                  int shift, bool rgb, uint8_t* out, int ow, int oh) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= ow || y >= oh) return;
-  const int yy = f == 1 ? Y[(size_t)y * w + x] : box(Y, w, 1, w, h, y, x, f, shift);
+  const int yy = f == 1 ? Y[(size_t)y * w + x] : box(Y, w, h, y, x, f, shift);
   int cb = 128, cr = 128;
   if (U == nullptr) {
-  } else if (sv == 2 && f == 1) {
+  } else if (sh == 2 && sv == 2 && f == 1) {
     const int cy = y >> 1, cx = x >> 1;
     if (cw > 2) {
       const int other = clampi((y & 1) ? cy + 1 : cy - 1, 0, ch - 1);
@@ -257,29 +286,31 @@ __global__ void k_rgb_from_planes(const uint8_t* Y, const uint8_t* U, const uint
       cb = U[(size_t)cy * cw + cx];
       cr = V[(size_t)cy * cw + cx];
     }
-  } else if (sv == 2) {
+  } else if (sh == 2 && sv == 2) {
     const int g = f >> 1, gs = shift - 2;
-    cb = box(U, cw, 1, cw, ch, y, x, g, gs);
-    cr = box(V, cw, 1, cw, ch, y, x, g, gs);
+    cb = box(U, cw, ch, y, x, g, gs);
+    cr = box(V, cw, ch, y, x, g, gs);
   } else if (sh == 2) {
     cb = h2v1(U, cw, ch, y, x, f, shift, f < 8);
     cr = h2v1(V, cw, ch, y, x, f, shift, f < 8);
+  } else if (sv == 2) {
+    cb = h1v2(U, cw, ch, y, x, f, shift, f < 8);
+    cr = h1v2(V, cw, ch, y, x, f, shift, f < 8);
+  } else if (sh == 4) {
+    cb = box(U, cw, ch, y, x >> 2, f, shift);
+    cr = box(V, cw, ch, y, x >> 2, f, shift);
   } else {
-    cb = box(U, cw, 1, cw, ch, y, x, f, shift);
-    cr = box(V, cw, 1, cw, ch, y, x, f, shift);
+    cb = box(U, cw, ch, y, x, f, shift);
+    cr = box(V, cw, ch, y, x, f, shift);
   }
-  ycc_rgb(yy, cb, cr, out + ((size_t)y * ow + x) * 3);
-}
-
-// Interleaved RGB (nvJPEG's own upsampling and conversion, for the
-// subsamplings libjpeg's arithmetic is not modelled for) box-averaged by f.
-__global__ void k_box_rgb(const uint8_t* in, int w, int h, int f, int shift,
-                          uint8_t* out, int ow, int oh) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= ow || y >= oh) return;
   uint8_t* o = out + ((size_t)y * ow + x) * 3;
-  for (int c = 0; c < 3; ++c) o[c] = (uint8_t)box(in + c, w * 3, 3, w, h, y, x, f, shift);
+  if (rgb) {
+    o[0] = (uint8_t)yy;
+    o[1] = (uint8_t)cb;
+    o[2] = (uint8_t)cr;
+  } else {
+    ycc_rgb(yy, cb, cr, o);
+  }
 }
 
 // jpeg_feeder.cc's RGB -> planar 4:2:0 (its path for scaled or non-4:2:0
@@ -316,15 +347,49 @@ dim3 grid_of(int w, int h, dim3 blk) {
 
 struct Decoded {
   int w, h, cw, ch, f, ow, oh;
-  int sh, sv;    // chroma subsampling of the planes; 0 when gray or RGBI
-  bool planes;   // component planes (else nvJPEG's interleaved RGB)
-  bool is420;
+  int sh, sv;    // chroma subsampling of the planes; 0 when gray
+  bool rgb;      // the three planes are R, G, B (libjpeg's JCS_RGB)
+  bool is420;    // YCbCr 4:2:0
 };
 
+// libjpeg's guess of a three-component JPEG's color space (jdapimin.c
+// default_decompress_parms, from the markers before the frame header): a
+// JFIF marker means YCbCr; else an Adobe marker's transform, 0 RGB and any
+// other YCbCr; else component ids 'R', 'G', 'B' mean RGB, any others YCbCr.
+// True for RGB.
+bool is_rgb_jpeg(const uint8_t* p, unsigned long len) {
+  bool jfif = false, adobe = false;
+  int transform = 1;
+  unsigned long i = 2;
+  while (i + 4 <= len && p[i] == 0xFF) {
+    const int m = p[i + 1];
+    if (m == 0xFF) {  // fill byte
+      ++i;
+      continue;
+    }
+    const unsigned long seg = ((unsigned long)p[i + 2] << 8) | p[i + 3];
+    if (seg < 2 || i + 2 + seg > len) return false;
+    const uint8_t* d = p + i + 4;
+    const unsigned long n = seg - 2;
+    if (m == 0xE0 && n >= 14 && memcmp(d, "JFIF", 5) == 0) jfif = true;
+    if (m == 0xEE && n >= 12 && memcmp(d, "Adobe", 5) == 0) {
+      adobe = true;
+      transform = d[11];
+    }
+    if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {  // SOFn
+      if (jfif) return false;
+      if (adobe) return transform == 0;
+      return n >= 15 && d[5] == 3 && d[6] == 'R' && d[9] == 'G' && d[12] == 'B';
+    }
+    i += 2 + seg;
+  }
+  return false;
+}
+
 // Header, scale choice and nvJPEG decode into the worker's planes: 4:2:0,
-// 4:2:2 and 4:4:4 as Y, U, V planes, grayscale as the Y plane, anything
-// else as interleaved RGB. Returns 0 or the image's code (see the top of
-// the file).
+// 4:2:2, 4:4:4, 4:4:0 and 4:1:1 as three planes, grayscale as the Y plane;
+// any other layout is refused. Returns 0 or the image's code (see the top
+// of the file).
 int decode_planes(Worker* wk, const uint8_t* jpeg, unsigned long len, int max_h, int max_w,
                   int target_h, int target_w, Decoded* d) {
   // libjpeg's "Not a JPEG file": no start-of-image marker.
@@ -343,35 +408,31 @@ int decode_planes(Worker* wk, const uint8_t* jpeg, unsigned long len, int max_h,
   d->f = 8 / num;
   d->ow = (d->w * num + 7) / 8;
   d->oh = (d->h * num + 7) / 8;
-  const bool ycc = ncomp == 3 &&
-      (css == NVJPEG_CSS_420 || css == NVJPEG_CSS_422 || css == NVJPEG_CSS_444);
-  d->is420 = ncomp == 3 && css == NVJPEG_CSS_420;
-  d->planes = ycc || (ncomp == 1 && css == NVJPEG_CSS_GRAY);
-  d->sh = ycc ? (css == NVJPEG_CSS_444 ? 1 : 2) : 0;
-  d->sv = ycc ? (css == NVJPEG_CSS_420 ? 2 : 1) : 0;
-  d->cw = ycc ? widths[1] : 0;
-  d->ch = ycc ? heights[1] : 0;
+  const bool three = ncomp == 3 &&
+      (css == NVJPEG_CSS_420 || css == NVJPEG_CSS_422 || css == NVJPEG_CSS_444 ||
+       css == NVJPEG_CSS_440 || css == NVJPEG_CSS_411);
+  if (!three && !(ncomp == 1 && css == NVJPEG_CSS_GRAY)) return kUnreadable;
+  d->rgb = three && is_rgb_jpeg(jpeg, len);
+  d->is420 = three && !d->rgb && css == NVJPEG_CSS_420;
+  d->sh = !three ? 0 : css == NVJPEG_CSS_411 ? 4
+        : (css == NVJPEG_CSS_420 || css == NVJPEG_CSS_422) ? 2 : 1;
+  d->sv = !three ? 0 : (css == NVJPEG_CSS_420 || css == NVJPEG_CSS_440) ? 2 : 1;
+  d->cw = three ? widths[1] : 0;
+  d->ch = three ? heights[1] : 0;
   nvjpegImage_t img;
   memset(&img, 0, sizeof(img));
-  if (d->planes) {
-    const size_t ysz = (size_t)d->w * d->h, csz = (size_t)d->cw * d->ch;
-    if ((rc = grow(&wk->planes, &wk->planes_cap, ysz + 2 * csz)) != 0) return rc;
-    img.channel[0] = wk->planes;
-    img.pitch[0] = d->w;
-    if (ycc) {
-      img.channel[1] = wk->planes + ysz;
-      img.channel[2] = wk->planes + ysz + csz;
-      img.pitch[1] = img.pitch[2] = d->cw;
-    }
-    return nvjpeg_rc("nvjpegDecode",
-                     nvjpegDecode(g_handle, wk->state, jpeg, len,
-                                  ycc ? NVJPEG_OUTPUT_YUV : NVJPEG_OUTPUT_Y, &img, wk->stream));
-  }
-  if ((rc = grow(&wk->planes, &wk->planes_cap, (size_t)d->w * d->h * 3)) != 0) return rc;
+  const size_t ysz = (size_t)d->w * d->h, csz = (size_t)d->cw * d->ch;
+  if ((rc = grow(&wk->planes, &wk->planes_cap, ysz + 2 * csz)) != 0) return rc;
   img.channel[0] = wk->planes;
-  img.pitch[0] = (size_t)d->w * 3;
-  return nvjpeg_rc("nvjpegDecode", nvjpegDecode(g_handle, wk->state, jpeg, len,
-                                                NVJPEG_OUTPUT_RGBI, &img, wk->stream));
+  img.pitch[0] = d->w;
+  if (three) {
+    img.channel[1] = wk->planes + ysz;
+    img.channel[2] = wk->planes + ysz + csz;
+    img.pitch[1] = img.pitch[2] = d->cw;
+  }
+  return nvjpeg_rc("nvjpegDecode",
+                   nvjpegDecode(g_handle, wk->state, jpeg, len,
+                                three ? NVJPEG_OUTPUT_YUV : NVJPEG_OUTPUT_Y, &img, wk->stream));
 }
 
 // The decoded frame as RGB (oh x ow x 3) in the worker's rgb buffer.
@@ -379,16 +440,11 @@ int to_rgb(Worker* wk, const Decoded& d) {
   if (const int rc = grow(&wk->rgb, &wk->rgb_cap, (size_t)d.ow * d.oh * 3)) return rc;
   const dim3 blk(32, 8);
   const int shift = 2 * log2i(d.f);
-  if (d.planes) {
-    const uint8_t* Y = wk->planes;
-    const uint8_t* U = d.sh ? Y + (size_t)d.w * d.h : nullptr;
-    const uint8_t* V = d.sh ? U + (size_t)d.cw * d.ch : nullptr;
-    k_rgb_from_planes<<<grid_of(d.ow, d.oh, blk), blk, 0, wk->stream>>>(
-        Y, U, V, d.w, d.h, d.cw, d.ch, d.sh, d.sv, d.f, shift, wk->rgb, d.ow, d.oh);
-  } else {
-    k_box_rgb<<<grid_of(d.ow, d.oh, blk), blk, 0, wk->stream>>>(
-        wk->planes, d.w, d.h, d.f, shift, wk->rgb, d.ow, d.oh);
-  }
+  const uint8_t* Y = wk->planes;
+  const uint8_t* U = d.sh ? Y + (size_t)d.w * d.h : nullptr;
+  const uint8_t* V = d.sh ? U + (size_t)d.cw * d.ch : nullptr;
+  k_rgb_from_planes<<<grid_of(d.ow, d.oh, blk), blk, 0, wk->stream>>>(
+      Y, U, V, d.w, d.h, d.cw, d.ch, d.sh, d.sv, d.f, shift, d.rgb, wk->rgb, d.ow, d.oh);
   const cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : cuda_fault(kCuda, "kernel launch", e);
 }
@@ -429,7 +485,7 @@ int decode_yuv420_into(Worker* wk, const uint8_t* jpeg, unsigned long len, uint8
   Decoded d;
   int rc = decode_planes(wk, jpeg, len, max_h, max_w, target_h, target_w, &d);
   const size_t cp = (size_t)max_w / 2;
-  // jpeg_feeder.cc's raw-plane condition: full scale, 4:2:0, and the
+  // jpeg_feeder.cc's raw-plane condition: full scale, YCbCr 4:2:0, and the
   // MCU-padded width within the buffer.
   const bool raw = rc == 0 && d.is420 && d.f == 1 && ((d.w + 15) / 16) * 16 <= max_w;
   if (raw) {
@@ -539,6 +595,38 @@ int cvm_decode_set_device(int device) {
 
 // The last fault of the decoder (codes 4-6), or "".
 const char* cvm_decode_last_error() { return g_error; }
+
+// One JPEG's component planes as nvJPEG decodes them, before any
+// upsampling: Y, then Cb and Cr, packed into `out` (cap bytes); dims =
+// {components, h, w of each}. nvJPEG decodes at full scale only, so num
+// must be 8. Returns 0, an image's code (1; 3 when `out` is too small) or
+// a fault of the decoder (4-6). The tests hold k_rgb_from_planes to a
+// model of libjpeg's arithmetic applied to these planes.
+int cvm_decode_planes(const uint8_t* jpeg, unsigned long len, int num, uint8_t* out,
+                      unsigned long cap, int* dims) {
+  if (num != 8) return kUnreadable;
+  if (!ensure_handle()) return kNoStart;
+  const cudaError_t e = cudaSetDevice(g_device);
+  if (e != cudaSuccess) return cuda_fault(kNoStart, "cudaSetDevice", e);
+  Worker* wk = acquire();
+  if (wk == nullptr) return kNoStart;
+  Decoded d;
+  int rc = decode_planes(wk, jpeg, len, 1 << 20, 1 << 20, 0, 0, &d);
+  const size_t ysz = (size_t)d.w * d.h, csz = d.sh ? (size_t)d.cw * d.ch : 0;
+  if (rc == 0 && ysz + 2 * csz > cap) rc = kTooLarge;
+  if (rc == 0) rc = copy_rect(out, ysz + 2 * csz, wk->planes, ysz + 2 * csz, ysz + 2 * csz, 1,
+                              wk->stream);
+  rc = finish(wk, rc);
+  release(wk);
+  if (rc == 0) {
+    dims[0] = d.sh ? 3 : 1;
+    dims[1] = d.h;
+    dims[2] = d.w;
+    dims[3] = dims[5] = d.ch;
+    dims[4] = dims[6] = d.cw;
+  }
+  return rc;
+}
 
 int cvm_decode_batch(int n, const uint8_t* const* jpegs, const unsigned long* lens,
                      uint8_t* out, int max_h, int max_w, int target_h, int target_w,

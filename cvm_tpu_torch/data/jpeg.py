@@ -40,6 +40,9 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cvm_decode_batch.argtypes = head + [u8p] + tail
     lib.cvm_decode_batch_yuv420.restype = ctypes.c_int
     lib.cvm_decode_batch_yuv420.argtypes = head + [u8p, u8p, u8p] + tail
+    lib.cvm_decode_planes.restype = ctypes.c_int
+    lib.cvm_decode_planes.argtypes = [ctypes.c_char_p, ctypes.c_ulong, ctypes.c_int, u8p,
+                                      ctypes.c_ulong, ip]
     return lib
 
 
@@ -199,6 +202,37 @@ def decode_jpeg_batch_yuv420(jpegs: Sequence[bytes], max_h: int, max_w: int,
         V[bad] = 128
         out_hw[bad] = 1
     return Y, U, V, out_hw
+
+
+def decode_jpeg_planes(jpeg: bytes, num: int = 8, device: DeviceLike = "cpu"):
+    """One JPEG's component planes before any upsampling: [Y] or [Y, Cb,
+    Cr] uint8 arrays, each at its own size. On the CPU, libjpeg's at scale
+    num/8 (what its IDCT hands to its upsampler); on a card, nvJPEG's, at
+    full scale only. The tests hold each decoder's RGB to a model of
+    libjpeg's upsampling and color conversion applied to these planes."""
+    if num not in (1, 2, 4, 8):
+        raise ValueError(f"num must be 1, 2, 4 or 8, got {num}")
+    if resolve_device(device).type != "cpu" and num != 8:
+        raise ValueError("the card's decoder hands out full-scale planes only (num=8)")
+    from cvm_tpu_torch.data.images import jpeg_size
+
+    lib = get_lib(device)
+    h, w = jpeg_size(jpeg)
+    cap = 3 * h * w  # the planes of a frame at full scale, 4:4:4, at most
+    out = np.empty(cap, np.uint8)
+    dims = np.zeros(7, np.int32)
+    rc = lib.cvm_decode_planes(jpeg, len(jpeg), num,
+                               out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), cap,
+                               dims.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    if rc != 0:
+        _undecoded(lib, np.asarray([rc]), device)
+        raise ValueError(f"the JPEG's planes could not be decoded (code {rc})")
+    planes, at = [], 0
+    for c in range(int(dims[0])):
+        ph, pw = int(dims[1 + 2 * c]), int(dims[2 + 2 * c])
+        planes.append(out[at:at + ph * pw].reshape(ph, pw).copy())
+        at += ph * pw
+    return planes
 
 
 def _rgb_to_yuv420_np(rgb: np.ndarray):

@@ -1,7 +1,8 @@
 """Canonical label schema (reference: data/label_spec.py, SURVEY.md §2).
 
-The port's copy of ``cvm_tpu/data/label_spec.py``; the dataset adapters are
-not ported (ROADMAP Queue 1 item 11), so their class lists are copied here.
+The port's copy of ``cvm_tpu/data/label_spec.py``: the KITTI and nuScenes
+class lists live in their adapters (``data/adapters/kitti.py``,
+``nuimages.py``) and are imported here, as the reference's are.
 
 Defines the framework-wide label contract used by adapters (producers), the
 record store (carrier), loaders (assemblers) and processors (consumers):
@@ -30,17 +31,11 @@ from __future__ import annotations
 
 from typing import Dict, Sequence, Tuple
 
+from cvm_tpu_torch.data.adapters.kitti import KITTI_CLASSES  # noqa: F401
+from cvm_tpu_torch.data.adapters.nuimages import NUSCENES_CLASSES  # noqa: F401
 from cvm_tpu_torch.models.semseg.params import SEMSEG_CLASSES, SEMSEG_PALETTE  # noqa: F401
 
 IGNORE_INDEX = 255
-
-# cvm_tpu/data/adapters/kitti.py and nuimages.py.
-KITTI_CLASSES: Tuple[str, ...] = ("Car", "Van", "Truck", "Pedestrian", "Person_sitting",
-                                  "Cyclist", "Tram")
-NUSCENES_CLASSES: Tuple[str, ...] = (
-    "car", "truck", "bus", "trailer", "construction_vehicle",
-    "pedestrian", "motorcycle", "bicycle", "traffic_cone", "barrier",
-)
 
 # COCO-80 names in contiguous id order (sorted by original category id).
 COCO_CLASSES: Tuple[str, ...] = (

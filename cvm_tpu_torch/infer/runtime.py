@@ -114,7 +114,14 @@ class ServingModel:
         """A dict batch through the artifact: the arguments in the export's
         order, the outputs as numpy arrays trimmed to the batch's rows. The
         one place the trace-argument contract lives on the consumer side
-        (``cli.evaluate --artifact`` calls it)."""
+        (``cli.evaluate --artifact`` and ``cli.infer --artifact`` call it).
+        A 3D artifact's batch without ``intrinsics`` (bare image files) is
+        decoded against the identity camera [1, 1, 0, 0], as the
+        reference's: centres and yaw stay meaningful, metric
+        back-projection does not."""
+        if "intrinsics" in self.keys and "intrinsics" not in batch:
+            n = np.asarray(batch["image_hw"]).shape[0]
+            batch = dict(batch, intrinsics=np.tile(np.float32([[1.0, 1.0, 0.0, 0.0]]), (n, 1)))
         dtypes = {"image_hw": np.int32, "intrinsics": np.float32}
         data = [np.ascontiguousarray(batch[k], dtype=dtypes.get(k, np.uint8))
                 for k in self.keys]

@@ -1,15 +1,14 @@
 """``python -m cvm_tpu_torch.models.dmds.inference ...``: the reference's
-per-model entry point (``cvm_tpu/models/dmds/inference.py``), which
-delegates to ``cli.infer``; that CLI (decoding image and video files) is
-not ported yet, so this exits with its ROADMAP item."""
+per-model entry point (``cvm_tpu/models/dmds/inference.py``), delegating
+to ``cvm_tpu_torch.cli.infer`` with ``--model dmds``."""
 
 import sys
 
+from cvm_tpu_torch.cli.infer import main as _main
+
 
 def main(argv=None):
-    raise SystemExit("cvm_tpu_torch.models.dmds.inference: cli.infer is not ported yet "
-                     "(ROADMAP Queue 1 item 11); serve two-frame batches through "
-                     "cvm_tpu_torch.infer.pipeline.InferencePipeline")
+    return _main(["--model", "dmds"] + list(argv if argv is not None else sys.argv[1:]))
 
 
 if __name__ == "__main__":

@@ -1,0 +1,15 @@
+"""``python -m cvm_tpu_torch.models.multitask.train ...``: the reference's
+per-model entry point (``cvm_tpu/models/multitask/train.py``), delegating to
+``cvm_tpu_torch.cli.train`` with ``--model multitask``."""
+
+import sys
+
+from cvm_tpu_torch.cli.train import main as _main
+
+
+def main(argv=None):
+    return _main(["--model", "multitask"] + list(argv if argv is not None else sys.argv[1:]))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

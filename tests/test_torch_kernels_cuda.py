@@ -382,6 +382,49 @@ def test_3d_config_b_int8_forward_launches(cuda_device):
     assert set(out) >= {"depth3d", "dims3d", "rot"} and out["rot"].shape == (8, 128, 128, 2)
 
 
+def test_cli_infer_artifact_launches_k2_24_times_per_batch(cuda_device, tmp_path):
+    """``cli.infer --artifact`` over image files, on a config-B
+    ``w8a8_fused_chain`` RGB export (batch 8, 768^2) of a fresh checkpoint:
+    24 K2 launches per batch-8 call (10 images: two calls, the second
+    padded), one JSON line per image."""
+    import contextlib
+    import io
+    import json
+
+    from PIL import Image
+
+    from cvm_tpu_torch.cli.export import main as export_main
+    from cvm_tpu_torch.cli.infer import main as infer_main
+    from cvm_tpu_torch.data.synthetic import synthetic_sample
+    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+    from cvm_tpu_torch.train.loop import Trainer
+
+    tr = Trainer(CenternetParams(), cuda_device, checkpoint_dir=str(tmp_path / "ck"))
+    tr.init_state()
+    tr.state.step = 1
+    tr.ckpt.save(1, tr.checkpoint_state(None))
+    art = str(tmp_path / "art")
+    assert export_main(["--model", "centernet", "--checkpoint_dir", str(tmp_path / "ck"),
+                        "--out", art, "--input_format", "rgb", "--quantize",
+                        "w8a8_fused_chain", "--batch_size", "8", "--pad_hw", "768,768"]) == 0
+    rng = np.random.default_rng(0)
+    (tmp_path / "img").mkdir()
+    for i in range(10):
+        s = synthetic_sample(rng, (480, 640), num_classes=10)
+        Image.fromarray(s["image"]).save(tmp_path / "img" / f"{i}.jpg", quality=90)
+    out = io.StringIO()
+    fq.reset_counts()
+    with contextlib.redirect_stdout(out):
+        assert infer_main(["--artifact", art, "--images", str(tmp_path / "img" / "*"),
+                           "--score_threshold", "0"]) == 0
+    torch.cuda.synchronize()
+    assert fq.fused_qconv.launches == 2 * 24
+    lines = [json.loads(x) for x in out.getvalue().splitlines()]
+    assert [x["input"] for x in lines] == [f"{i}.jpg" for i in range(10)]
+    assert all(len(x["scores"]) == 100 for x in lines)
+
+
 def test_warp_and_ssim_on_the_card_match_the_cpu(cuda_device):
     """The warp's sampled frame, valid mask and depth, and the SSIM map,
     within 1e-5 of the CPU's on the same inputs; its projected coordinates
@@ -438,6 +481,26 @@ def test_dmds_loss_gradient_on_the_card_is_finite(cuda_device):
 # -- the JPEG decoder of the card's machine (csrc/jpeg_nvjpeg.cu) -----------
 
 
+def box_mean(P, g, oh, ow):
+    """The rounded mean of each g x g block of the plane P, its last row and
+    column replicated, over an oh x ow grid (libjpeg's reduced IDCT in
+    exact arithmetic; the card's k_rgb_from_planes ``box``)."""
+    h, w = P.shape
+    ys = np.clip(np.arange(oh * g), 0, h - 1)
+    xs = np.clip(np.arange(ow * g), 0, w - 1)
+    q = P.astype(np.int64)[ys][:, xs].reshape(oh, g, ow, g).sum((1, 3))
+    return (q + g * g // 2) // (g * g)
+
+
+def ycc_rgb(y, cb, cr):
+    """libjpeg's YCbCr -> RGB tables (jdcolor.c, SCALEBITS 16)."""
+    xcb, xcr = cb - 128, cr - 128
+    r = y + ((91881 * xcr + 32768) >> 16)
+    g = y + ((-22554 * xcb + 32768 - 46802 * xcr) >> 16)
+    b = y + ((116130 * xcb + 32768) >> 16)
+    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+
+
 def libjpeg_rgb_from_planes(Y, U, V, num):
     """What csrc/jpeg_nvjpeg.cu computes from a 4:2:0 JPEG's component
     planes (libjpeg's raw planes, or nvJPEG's) for the RGB output at scale
@@ -447,13 +510,6 @@ def libjpeg_rgb_from_planes(Y, U, V, num):
     H, W = Y.shape
     f = 8 // num
     oh, ow = -(-H // f), -(-W // f)
-
-    def box(P, g):
-        h, w = P.shape
-        ys = np.clip(np.arange(oh * g), 0, h - 1)
-        xs = np.clip(np.arange(ow * g), 0, w - 1)
-        q = P.astype(np.int64)[ys][:, xs].reshape(oh, g, ow, g).sum((1, 3))
-        return (q + g * g // 2) // (g * g)
 
     def fancy(C):
         ch, cw = C.shape
@@ -467,14 +523,60 @@ def libjpeg_rgb_from_planes(Y, U, V, num):
         return (3 * cs[:, xs >> 1] + cs[:, nb] + np.where(xs & 1, 7, 8)) >> 4
 
     if f == 1:
-        y, cb, cr = Y.astype(np.int64), fancy(U), fancy(V)
-    else:
-        y, cb, cr = box(Y, f), box(U, f // 2), box(V, f // 2)
-    xcb, xcr = cb - 128, cr - 128
-    r = y + ((91881 * xcr + 32768) >> 16)
-    g = y + ((-22554 * xcb + 32768 - 46802 * xcr) >> 16)
-    b = y + ((116130 * xcb + 32768) >> 16)
-    return np.clip(np.stack([r, g, b], -1), 0, 255).astype(np.uint8)
+        return ycc_rgb(Y.astype(np.int64), fancy(U), fancy(V))
+    return ycc_rgb(box_mean(Y, f, oh, ow), box_mean(U, f // 2, oh, ow),
+                   box_mean(V, f // 2, oh, ow))
+
+
+def libjpeg_rgb_440_411(Y, U, V, layout, num, full_scale_planes):
+    """libjpeg's RGB at scale num/8 of a 4:4:0 or 4:1:1 JPEG from its
+    component planes, in numpy. libjpeg decodes their chroma at the luma's
+    DCT scale, then upsamples: 4:4:0 with h1v2_fancy_upsample (each output
+    row (3 * nearer + further chroma row + bias) >> 2, bias 1 for the upper
+    and 2 for the lower row of a pair, the first and last chroma rows
+    replicated beyond the edge) while the scale is above 1/8, rows
+    replicated at 1/8; 4:1:1 with int_upsample (each sample 4 times across,
+    at every scale); then its YCbCr -> RGB tables. ``full_scale_planes``:
+    the planes are at full scale (nvJPEG's) and are first box-averaged by
+    8/num, as the card does; else they are libjpeg's own at that scale."""
+    f = 8 // num
+    if full_scale_planes:
+        H, W = Y.shape
+        oh, ow = -(-H // f), -(-W // f)
+        Y = box_mean(Y, f, oh, ow)
+        U, V = (box_mean(C, f, -(-C.shape[0] // f), -(-C.shape[1] // f)) for C in (U, V))
+    oh, ow = Y.shape
+    ys, xs = np.arange(oh), np.arange(ow)
+
+    def up(C):
+        C = C.astype(np.int64)
+        if layout == "4:1:1":
+            return C[:, xs >> 2]
+        near = C[ys >> 1]
+        if num == 1:
+            return near
+        other = C[np.clip(np.where(ys & 1, (ys >> 1) + 1, (ys >> 1) - 1), 0, C.shape[0] - 1)]
+        return (3 * near + other + np.where(ys & 1, 2, 1)[:, None]) >> 2
+
+    return ycc_rgb(Y.astype(np.int64), up(U), up(V))
+
+
+def relaid_frames():
+    """A 4:4:0 and a 4:1:1 JPEG (``chip_smoke.relayout_jpeg``; odd height
+    and width) made from the fixture's subsampling frames: the 4:2:2 JPEG
+    re-declared, and the 4:4:4 frame's recorded pixels encoded as 4:2:0
+    (PIL, quality 90) and re-declared."""
+    import io
+
+    import chip_smoke
+    from PIL import Image
+
+    frames = {name: (data, scales) for name, data, scales in other_subsamplings()}
+    buf = io.BytesIO()
+    Image.fromarray(frames["444"][1][8][2]).save(buf, format="JPEG", quality=90,
+                                                 subsampling=2)
+    return {"4:4:0": chip_smoke.relayout_jpeg(frames["422"][0], "4:4:0"),
+            "4:1:1": chip_smoke.relayout_jpeg(buf.getvalue(), "4:1:1")}
 
 
 def feeder_yuv_from_rgb(rgb):
@@ -619,50 +721,192 @@ def test_jpeg_decoder_other_subsamplings_follow_libjpeg(cuda_device):
     print(check_other_subsamplings(cuda_device))
 
 
-def as_440(jpeg_422: bytes) -> bytes:
-    """A 4:2:2 baseline JPEG turned into a valid 4:4:0 one: the luma's
-    sampling factors (2, 1) become (1, 2) and the frame's height and width
-    swap, so that the MCUs (4 blocks each) keep their count and order."""
-    data = bytearray(jpeg_422)
-    at = data.index(b"\xff\xc0")
-    h, w = data[at + 5:at + 7], data[at + 7:at + 9]
-    data[at + 5:at + 7], data[at + 7:at + 9] = w, h
-    assert data[at + 9] == 3 and data[at + 11] == 0x21
-    data[at + 11] = 0x12
-    return bytes(data)
-
-
-def test_jpeg_decoder_other_layouts_box_average(cuda_device):
-    """A 4:4:0 JPEG (nvJPEG's own RGB, then k_box_rgb): each reduced scale
-    equals the rounded box average of the card's own full-scale decode,
-    edges replicated. Its gap to libjpeg (PIL) at full scale is printed:
-    nvJPEG's upsampling is not libjpeg's there."""
+def check_440_411(device):
+    """The 4:4:0 and 4:1:1 frames of ``relaid_frames`` (odd height and
+    width) decoded by ``device``'s decoder, RGB: at full scale within what
+    IDCT rounding can do of libjpeg's (PIL's) decode (``chip_smoke.IDCT_GAP``);
+    at every scale identical to ``libjpeg_rgb_440_411`` applied to the
+    decoder's own planes (``decode_jpeg_planes``: the card's at full scale,
+    libjpeg's on the CPU at that scale), with 1 and 4 threads; then their
+    YUV420 output follows their RGB. Returns {layout: (mean |d|, max |d|)
+    against PIL at full scale}."""
     import io
 
-    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch
+    import chip_smoke
+    from PIL import Image
 
-    data = as_440(other_subsamplings()[1][1])
-    W, H = 99, 133  # swapped
-    full, hw = decode_jpeg_batch([data], H, W, device=cuda_device)
-    assert hw.tolist() == [[H, W]]
-    try:
-        from PIL import Image
+    from cvm_tpu_torch.data.images import jpeg_size
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch, decode_jpeg_planes
 
+    on_card = torch.device(device).type != "cpu"
+    readings = {}
+    frames = relaid_frames()
+    for layout, data in frames.items():
+        H, W = jpeg_size(data)
         pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
-        d = np.abs(full[0].astype(int) - pil)
-        print("4:4:0 vs libjpeg (PIL): mean", float(d.mean()), "max", int(d.max()))
-    except ImportError:
-        print("4:4:0 vs libjpeg: no PIL")
-    for num in (4, 2, 1):
-        f = 8 // num
-        oh, ow = -(-H // f), -(-W // f)
-        ys = np.clip(np.arange(oh * f), 0, H - 1)
-        xs = np.clip(np.arange(ow * f), 0, W - 1)
-        q = full[0].astype(np.int64)[ys][:, xs].reshape(oh, f, ow, f, 3).sum((1, 3))
-        want = ((q + f * f // 2) // (f * f)).astype(np.uint8)
-        out, ohw = decode_jpeg_batch([data], oh, ow, device=cuda_device)
-        assert ohw.tolist() == [[oh, ow]], num
-        np.testing.assert_array_equal(out[0], want, err_msg=f"4:4:0 num {num}")
+        for num in (8, 4, 2, 1):
+            oh, ow = -(-H * num // 8), -(-W * num // 8)
+            planes = decode_jpeg_planes(data, 8 if on_card else num, device=device)
+            want = libjpeg_rgb_440_411(*planes, layout, num, full_scale_planes=on_card)
+            for threads in (1, 4):
+                out, hw = decode_jpeg_batch([data] * 2, oh, ow, threads, device=device)
+                assert hw.tolist() == [[oh, ow]] * 2, (layout, num, hw)
+                np.testing.assert_array_equal(out[0], want, err_msg=f"{layout} num {num}")
+                np.testing.assert_array_equal(out[1], want)
+            if num == 8:
+                d = np.abs(out[0].astype(int) - pil)
+                readings[layout] = (float(d.mean()), int(d.max()))
+                bound = chip_smoke.IDCT_GAP["rgb"]
+                assert d.mean() <= bound["mean_abs"] and d.max() <= bound["max_abs"], (
+                    layout, readings[layout], bound)
+    yuv_follows_rgb(list(frames.values()), device)
+    return readings
+
+
+def test_jpeg_decoder_440_and_411_follow_libjpeg(cuda_device):
+    """4:4:0 and 4:1:1 on the card (k_rgb_from_planes' h1v2 and 4:1:1
+    branches): within the IDCT gap of libjpeg (PIL) at full scale, and
+    exactly libjpeg's upsampling and color arithmetic applied to nvJPEG's
+    planes at every scale."""
+    print(check_440_411(cuda_device))
+
+
+def color_space_frames():
+    """Three-component 4:4:4 JPEGs whose color space libjpeg guesses from
+    their markers (jdapimin.c): {name: (jpeg, "rgb" or "ycc")}. PIL writes
+    the fixture's 4:4:4 frame's recorded pixels with ``keep_rgb`` (an Adobe
+    marker with transform 0, component ids 'R', 'G', 'B', no JFIF marker);
+    then the same bytes with the Adobe transform set to 1, with the Adobe
+    marker cut (the ids decide), and with a JFIF marker put first (JFIF
+    means YCbCr whatever follows)."""
+    import io
+
+    from PIL import Image
+
+    frames = {name: (data, scales) for name, data, scales in other_subsamplings()}
+    buf = io.BytesIO()
+    Image.fromarray(frames["444"][1][8][2]).save(buf, format="JPEG", quality=90,
+                                                 keep_rgb=True, subsampling=0)
+    data = buf.getvalue()
+    assert b"JFIF" not in data
+    at = data.index(b"\xff\xee")  # APP14
+    end = at + 2 + int.from_bytes(data[at + 2:at + 4], "big")
+    assert data[at + 4:at + 9] == b"Adobe" and data[at + 15] == 0
+    jfif = b"\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00"
+    return {"adobe 0": (data, "rgb"),
+            "adobe 1": (data[:at + 15] + b"\x01" + data[at + 16:], "ycc"),
+            "ids RGB": (data[:at] + data[end:], "rgb"),
+            "JFIF, adobe 0": (data[:2] + jfif + data[2:], "ycc")}
+
+
+def check_color_spaces(device):
+    """Each frame of ``color_space_frames`` decoded by ``device``'s decoder
+    at every scale, with 1 and 4 threads: exactly its planes
+    (``decode_jpeg_planes``: the card's at full scale, box-averaged by
+    8/num as the card does; libjpeg's own at that scale on the CPU) taken
+    as R, G, B, or through libjpeg's YCbCr tables, as libjpeg guesses the
+    color space; at full scale within the IDCT gap of PIL's (libjpeg's)
+    decode. Then their YUV420 follows their RGB (a 4:4:4 frame has no raw
+    4:2:0 planes to hand over). Returns {name: (mean |d|, max |d|) against
+    PIL at full scale}."""
+    import io
+
+    import chip_smoke
+    from PIL import Image
+
+    from cvm_tpu_torch.data.images import jpeg_size
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch, decode_jpeg_planes
+
+    on_card = torch.device(device).type != "cpu"
+    readings = {}
+    frames = color_space_frames()
+    for name, (data, space) in frames.items():
+        H, W = jpeg_size(data)
+        pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        for num in (8, 4, 2, 1):
+            f = 8 // num
+            oh, ow = -(-H // f), -(-W // f)
+            planes = decode_jpeg_planes(data, 8 if on_card else num, device=device)
+            if on_card:
+                planes = [box_mean(P, f, oh, ow) for P in planes]
+            want = (np.stack(planes, -1).astype(np.uint8) if space == "rgb"
+                    else ycc_rgb(*(P.astype(np.int64) for P in planes)))
+            for threads in (1, 4):
+                out, hw = decode_jpeg_batch([data] * 2, oh, ow, threads, device=device)
+                assert hw.tolist() == [[oh, ow]] * 2, (name, num, hw)
+                np.testing.assert_array_equal(out[0], want, err_msg=f"{name} num {num}")
+                np.testing.assert_array_equal(out[1], want)
+            if num == 8:
+                d = np.abs(out[0].astype(int) - pil)
+                readings[name] = (float(d.mean()), int(d.max()))
+                bound = chip_smoke.IDCT_GAP["rgb"]
+                assert d.mean() <= bound["mean_abs"] and d.max() <= bound["max_abs"], (
+                    name, readings[name], bound)
+    yuv_follows_rgb([data for data, _ in frames.values()], device)
+    return readings
+
+
+def test_jpeg_decoder_follows_libjpegs_color_space(cuda_device):
+    """RGB and YCbCr 4:4:4 JPEGs as libjpeg tells them apart (Adobe
+    transform, component ids, JFIF): k_rgb_from_planes converts the YCbCr
+    ones and hands the RGB ones over as they are, exactly as libjpeg does
+    with the card's planes, and within the IDCT gap of PIL."""
+    print(check_color_spaces(cuda_device))
+
+
+def refused_frames():
+    """The fixture's 4:4:4 frame's recorded pixels as a CMYK JPEG (PIL) and
+    as a 1x4 one (a PIL 4:2:0 JPEG re-declared by
+    ``chip_smoke.relayout_jpeg``): {"cmyk": jpeg, "1x4": jpeg}."""
+    import io
+
+    import chip_smoke
+    from PIL import Image
+
+    frames = {name: (data, scales) for name, data, scales in other_subsamplings()}
+    rgb = frames["444"][1][8][2]
+    cmyk, src = io.BytesIO(), io.BytesIO()
+    Image.fromarray(rgb).convert("CMYK").save(cmyk, format="JPEG", quality=90)
+    Image.fromarray(rgb).save(src, format="JPEG", quality=90, subsampling=2)
+    return {"cmyk": cmyk.getvalue(), "1x4": chip_smoke.relayout_jpeg(src.getvalue(), "1x4")}
+
+
+def check_refused_layouts(device):
+    """The CMYK JPEG of ``refused_frames`` is unreadable to both decoders,
+    as to libjpeg, which cannot convert it to RGB: the zero frame, hw
+    (1, 1), no fault. The 1x4 frame libjpeg decodes, and the CPU's decoder
+    with it, as PIL does; the card refuses it in the same way as the CMYK
+    one (nvJPEG's own upsampling is not libjpeg's, and its RGB output fails
+    on this layout). Returns {name: hw at full scale}."""
+    import io
+
+    from PIL import Image
+
+    from cvm_tpu_torch.data.images import jpeg_size
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch, decode_jpeg_batch_yuv420
+
+    on_card = torch.device(device).type != "cpu"
+    hws = {}
+    for name, data in refused_frames().items():
+        H, W = jpeg_size(data)
+        H, W = H + H % 2, W + W % 2
+        out, hw = decode_jpeg_batch([data], H, W, device=device)
+        Y, U, V, yhw = decode_jpeg_batch_yuv420([data], H, W, device=device)
+        hws[name] = hw[0].tolist()
+        if name == "cmyk" or on_card:
+            assert hw.tolist() == yhw.tolist() == [[1, 1]], (name, hw, yhw)
+            assert not out.any() and not Y.any() and (U == 128).all() and (V == 128).all()
+        else:
+            pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+            assert hw.tolist() == [list(pil.shape[:2])]
+            np.testing.assert_array_equal(out[0, :pil.shape[0], :pil.shape[1]], pil)
+    return hws
+
+
+def test_jpeg_decoder_refuses_the_layouts_it_does_not_model(cuda_device):
+    """CMYK and 1x4 JPEGs on the card: the zero frame and hw (1, 1), and no
+    fault of the decoder raised."""
+    assert check_refused_layouts(cuda_device) == {"cmyk": [1, 1], "1x4": [1, 1]}
 
 
 def test_jpeg_decoder_scales_follow_the_planes(cuda_device):

@@ -314,6 +314,59 @@ def test_other_subsamplings_decode_as_recorded():
     assert all(r == (0.0, 0) for v in readings.values() for r in v.values())
 
 
+@pytest.mark.parametrize("layout", ["4:4:0", "4:1:1"])
+def test_440_and_411_planes_have_libjpegs_sizes(layout):
+    """``decode_jpeg_planes`` on the CPU: libjpeg's component planes at each
+    scale, the chroma of 4:4:0 half as tall and of 4:1:1 a quarter as wide
+    as the luma (rounded up), on frames of odd height and width."""
+    from test_torch_kernels_cuda import relaid_frames
+
+    data = relaid_frames()[layout]
+    H, W = jpeg_size(data)
+    assert H % 2 == 1 and W % 2 == 1
+    sub_h, sub_w = (2, 1) if layout == "4:4:0" else (1, 4)
+    for num in (8, 4, 2, 1):
+        Y, U, V = jpeg.decode_jpeg_planes(data, num)
+        assert Y.shape == (-(-H * num // 8), -(-W * num // 8))
+        assert U.shape == V.shape == (-(-H * num // (8 * sub_h)), -(-W * num // (8 * sub_w)))
+
+
+def test_440_and_411_upsampling_model_is_libjpegs():
+    """The card decoder's arithmetic for 4:4:0 and 4:1:1 (modelled in numpy,
+    ``test_torch_kernels_cuda.libjpeg_rgb_440_411``: h1v2 fancy upsampling
+    above 1/8, replication at 1/8; 4:1:1 replicated 4 times across) applied
+    to libjpeg's own planes at each scale gives libjpeg's RGB identically,
+    at 1/1, 1/2, 1/4 and 1/8, with 1 and 4 threads (the card check
+    ``check_440_411``, run here on the CPU decoder); libjpeg's full-scale
+    frame is PIL's."""
+    from test_torch_kernels_cuda import check_440_411
+
+    assert check_440_411("cpu") == {"4:4:0": (0.0, 0), "4:1:1": (0.0, 0)}
+
+
+def test_color_space_model_is_libjpegs():
+    """libjpeg's guess of a 4:4:4 JPEG's color space from its markers (an
+    Adobe transform of 0 or 1, component ids 'R', 'G', 'B', a JFIF marker
+    first), as the card decoder copies it: each frame's RGB at every scale
+    is libjpeg's planes taken as R, G, B or through the YCbCr tables, as
+    ``color_space_frames`` says (the card check ``check_color_spaces``,
+    run here on the CPU decoder), and PIL's at full scale."""
+    from test_torch_kernels_cuda import check_color_spaces
+
+    assert check_color_spaces("cpu") == {
+        name: (0.0, 0) for name in ("adobe 0", "adobe 1", "ids RGB", "JFIF, adobe 0")}
+
+
+def test_refused_layouts_on_the_cpu():
+    """A CMYK JPEG is unreadable to libjpeg (the zero frame, no fault); a
+    1x4 one it decodes as PIL does, which the card decoder refuses instead
+    (``check_refused_layouts``)."""
+    from test_torch_kernels_cuda import check_refused_layouts
+
+    hws = check_refused_layouts("cpu")
+    assert hws["cmyk"] == [1, 1] and hws["1x4"][0] % 2 == 1
+
+
 def _off_by(delta, every, only_frame=None):
     """Wrappers of the CPU decoders that move every ``every``-th valid
     sample of each frame (or of ``only_frame``) by ``delta``."""
