@@ -23,7 +23,10 @@ evaluation from ``.cvrec`` records, and serving records and HTTP requests
 through an exported artifact; then the data tools and offline inference:
 a COCO-layout tree packed, validated, counted, rendered and repacked,
 config B trained from the packed shard, and ``cli.infer`` over its images
-through an exported artifact and a checkpoint. ``cli.doctor``'s report (the
+through an exported artifact and a checkpoint; then the rest of the single-
+card surface (video inference, the stall watchdog and re-exec, profiling,
+``--debug_nans``, TensorBoard, the LR finder, rotation, remat and tiled
+inference, phases 28-33, run after 27). ``cli.doctor``'s report (the
 card, the toolchain and the JPEG decoders' prerequisites) is printed first:
 
   1. card, versions, both kernel builds (one nvcc each, started together);
@@ -149,7 +152,36 @@ card, the toolchain and the JPEG decoders' prerequisites) is printed first:
      JSON line equal to the eager pipeline's of the same posture on the
      same decoded batch, one PNG per image at the source size; then
      ``cli.infer --checkpoint_dir`` in fp, with ``--w8a8`` (``torch._int_mm``,
-     0 K2 launches) and over ``--records``; ms per batch of each.
+     0 K2 launches) and over ``--records``; ms per batch of each;
+ 33b. video: ``run_video`` over those images, decoded on the card as
+     ``cli.infer`` decodes them, through that artifact's ``predict``
+     (``cli.video.artifact_predict``): every JSON line equal to ``cli.infer
+     --artifact``'s (boxes and classes identical, scores after rounding), 24
+     K2 launches per batch-8 call; then, where ``cli.doctor`` finds ``cv2``,
+     the full ``cli.video --artifact`` (decode, annotate, encode) over a
+     16-frame mp4;
+ 28. the stall watchdog: config-B training in a child process
+     (``tests/torch_hang_child.py``, threshold 4 s, re-exec armed) whose
+     step 4 sleeps on the device for 20 s: the stall reported as the
+     device's, AUTO-RESTART 1/1, the new process image resumed from the
+     step-2 checkpoint to step 12 (the detection latency and the time to the
+     first step after the exec); a second child stopped (SIGSTOP) for 10 s
+     and continued finishes 40 steps without a restart;
+ 29. ``cli.train --profile_steps 5`` on config B: the trace's five longest
+     CUDA kernels, K1 among them; ``--debug_nans`` on a run a huge learning
+     rate makes non-finite raises at step 3, naming the tensors;
+ 30. ``cli.train --tensorboard --eval_every 5 --eval_images 2``: the event
+     file (read back by the port's reader) holds every step's scalars, the
+     evals' and two images per eval;
+ 31. ``cli.lr_find`` on config B (a 20-step sweep): a finite suggestion;
+     20 config-B steps with ``--aug_rotate_deg 15``: finite loss, one K1
+     launch per step;
+ 32. ``remat``: one config-B step with and without, from the same weights
+     and batch: loss and gradient-norm gap, peak device memory, ms/step;
+     then config-B ``fit`` steps/s with the watchdog's in-flight bound (8
+     steps) and without, four pairs after a warm-up run;
+ 33a. ``cli.infer --tiled`` of a config-A semseg checkpoint over three
+     720x1280 images: tiles and ms per image.
 
 Device times come from CUDA events around 20 back-to-back calls while the
 card first sleeps through the host's enqueueing (``cuda_ms``). Any failure
@@ -371,6 +403,115 @@ def relayout_jpeg(jpeg: bytes, layout: str) -> bytes:
     struct.pack_into(">HH", data, at + 5, ny * mcu_h - 1, nx * mcu_w - 1)
     data[at + 11] = target
     return bytes(data)
+
+
+def _huffman_table(symbols, length):
+    """Codes of one length for every symbol (a legal, if not a small, JPEG
+    Huffman table): {symbol: (code, length)} and its DHT counts."""
+    counts = [0] * 16
+    counts[length - 1] = len(symbols)
+    return {s: (i, length) for i, s in enumerate(symbols)}, counts
+
+
+def encode_jpeg(rgb: np.ndarray, factors, quality: int = 90) -> bytes:
+    """A baseline JFIF (YCbCr) JPEG of the (H, W, 3) uint8 frame ``rgb`` with
+    the components' sampling factors ``factors`` ((h, v) of Y, Cb, Cr; e.g.
+    ((4, 2), (1, 1), (1, 1)) for 4:1:0), which no encoder at hand writes:
+    JFIF's YCbCr, each chroma plane the rounded mean of its source pixels,
+    a float DCT, the standard luminance table scaled to ``quality`` for
+    every component, and Huffman tables of one code length."""
+    import struct
+
+    p = rgb.astype(np.float64)
+    ycc = np.stack([0.299 * p[..., 0] + 0.587 * p[..., 1] + 0.114 * p[..., 2],
+                    -0.168736 * p[..., 0] - 0.331264 * p[..., 1] + 0.5 * p[..., 2] + 128,
+                    0.5 * p[..., 0] - 0.418688 * p[..., 1] - 0.081312 * p[..., 2] + 128], 0)
+    H, W = rgb.shape[:2]
+    mh, mv = max(f[0] for f in factors), max(f[1] for f in factors)
+    mcu_x, mcu_y = -(-W // (8 * mh)), -(-H // (8 * mv))
+    luma = np.array([16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55, 14, 13,
+                     16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62, 18, 22, 37, 56,
+                     68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92, 49, 64, 78, 87, 103,
+                     121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]).reshape(8, 8)
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    q = np.clip((luma * scale + 50) // 100, 1, 255)
+    zz = sorted(((i, j) for i in range(8) for j in range(8)),
+                key=lambda t: (t[0] + t[1], t[0] if (t[0] + t[1]) % 2 else -t[0]))
+    zi, zj = np.array([t[0] for t in zz]), np.array([t[1] for t in zz])
+    k = np.arange(8)
+    dct = np.sqrt(np.where(k == 0, 1 / 8, 2 / 8))[:, None] * np.cos(
+        (2 * k[None, :] + 1) * k[:, None] * np.pi / 16)
+    dc_codes, dc_counts = _huffman_table(list(range(12)), 4)
+    ac_syms = [0x00, 0xF0] + [(r << 4) | s for r in range(16) for s in range(1, 11)]
+    ac_codes, ac_counts = _huffman_table(ac_syms, 8)
+    planes = []
+    for c, (h, v) in enumerate(factors):
+        # the component's plane, then padded to whole MCUs by replication
+        ph, pw = -(-H * v // mv), -(-W * h // mh)
+        fy, fx = mv // v, mh // h
+        src = np.pad(ycc[c], ((0, ph * fy - H), (0, pw * fx - W)), mode="edge")
+        plane = src.reshape(ph, fy, pw, fx).mean((1, 3))
+        plane = np.pad(plane, ((0, mcu_y * v * 8 - ph), (0, mcu_x * h * 8 - pw)), mode="edge")
+        planes.append(plane - 128.0)
+    bits = []
+    out = bytearray()
+
+    def put(code, length):
+        for b in range(length - 1, -1, -1):
+            bits.append((code >> b) & 1)
+
+    def put_value(v):
+        size = int(abs(v)).bit_length()
+        return size, (v if v >= 0 else v + (1 << size) - 1)
+
+    pred = [0] * len(factors)
+    for my in range(mcu_y):
+        for mx in range(mcu_x):
+            for c, (h, v) in enumerate(factors):
+                for by in range(v):
+                    for bx in range(h):
+                        y0, x0 = (my * v + by) * 8, (mx * h + bx) * 8
+                        co = dct @ planes[c][y0:y0 + 8, x0:x0 + 8] @ dct.T
+                        z = np.round(co / q).astype(int)[zi, zj]
+                        size, bitsv = put_value(int(z[0]) - pred[c])
+                        pred[c] = int(z[0])
+                        put(*dc_codes[size])
+                        put(bitsv, size)
+                        run = 0
+                        last = max([i for i in range(1, 64) if z[i]], default=0)
+                        for i in range(1, last + 1):
+                            if z[i] == 0:
+                                run += 1
+                                continue
+                            while run > 15:
+                                put(*ac_codes[0xF0])
+                                run -= 16
+                            size, bitsv = put_value(int(z[i]))
+                            put(*ac_codes[(run << 4) | size])
+                            put(bitsv, size)
+                            run = 0
+                        if last < 63:
+                            put(*ac_codes[0x00])
+    bits.extend([1] * (-len(bits) % 8))
+    for i in range(0, len(bits), 8):
+        byte = int("".join(map(str, bits[i:i + 8])), 2)
+        out.append(byte)
+        if byte == 0xFF:
+            out.append(0)
+
+    def seg(marker, body):
+        return bytes([0xFF, marker]) + struct.pack(">H", len(body) + 2) + body
+
+    nc = len(factors)
+    head = b"\xff\xd8" + seg(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")
+    head += seg(0xDB, bytes([0]) + bytes(int(q[i, j]) for i, j in zz))
+    head += seg(0xC0, struct.pack(">BHHB", 8, H, W, nc) + b"".join(
+        bytes([c + 1, (h << 4) | v, 0]) for c, (h, v) in enumerate(factors)))
+    head += seg(0xC4, bytes([0x00] + dc_counts) + bytes(range(12)))
+    head += seg(0xC4, bytes([0x10] + ac_counts) + bytes(ac_syms))
+    head += seg(0xDA, bytes([nc]) + b"".join(bytes([c + 1, 0x00]) for c in range(nc))
+                + bytes([0, 63, 0]))
+    return head + bytes(out) + b"\xff\xd9"
 
 
 # What IDCT rounding alone can do to a frame decoded at full scale by
@@ -2359,7 +2500,403 @@ def phase_infer(dev, workdir, shard, tree, smi):
     log(f"[infer] cli.infer ms per batch of {B} (host clock: decode excluded, predict and the "
         f"copy to the host) on {smi}: " + ", ".join(
             f"{k} {v['ms_per_batch_avg']}" for k, v in summary.items()))
-    return launches, summary
+    return launches, summary, art, files, recs
+
+
+# Phases 28-33: the rest of the single-card surface at config B's width
+# (512^2, small, 80 classes, batch 8, 768^2 synthetic scenes).
+SYN_B_FLAGS = ["--model", "centernet", "--data", "synthetic", "--batch_size", str(B),
+               "--warmup_steps", "5", "--total_steps", "5000", "--log_every", "1",
+               "--seed", "0"]
+WATCHDOG_THRESHOLD_S, WATCHDOG_HANG_S = 4, 20
+HANG_CHILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                          "torch_hang_child.py")
+
+
+def _child_lines(out: str, tag: str):
+    return [line.split()[1:] for line in out.splitlines() if line.startswith(tag)]
+
+
+def phase_watchdog(workdir, smi):
+    """Phase 28: the stall watchdog on config-B training in a child process
+    (``tests/torch_hang_child.py``, threshold 4 s, ``--auto_restart 1``'s
+    Trainer): step 4 sleeps on the device for 20 s; the stall must be
+    reported as the device's, re-exec'd once (AUTO-RESTART 1/1), and the
+    new process image resume from the step-2 checkpoint and reach step 12.
+    Then a second child, stopped (SIGSTOP) for 10 s mid-run and continued,
+    must finish its 40 steps without a restart."""
+    import signal
+
+    env = dict(os.environ, CVM_STALL_THRESHOLD_S=str(WATCHDOG_THRESHOLD_S),
+               CVM_HANG_S=str(WATCHDOG_HANG_S))
+    env.pop("CVM_RESTART_COUNT", None)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, HANG_CHILD, os.path.join(workdir, "hang"), "12",
+                           "cuda", "B", "hang"], capture_output=True, text=True, env=env,
+                          timeout=600)
+    out, err = proc.stdout, proc.stderr
+    if proc.returncode != 0:
+        raise AssertionError(f"watchdog child exited {proc.returncode}:\n{out}\n{err[-3000:]}")
+    hang = _child_lines(out, "HANGING")
+    resumed = _child_lines(out, "RESUMED")
+    firsts = _child_lines(out, "FIRST")
+    done = _child_lines(out, "DONE")
+    if "no training step completed on the device" not in err or "AUTO-RESTART 1/1" not in err:
+        raise AssertionError(f"the stall was not reported as the device's and re-exec'd:\n{err}")
+    if [r[0] for r in resumed] != ["0", "2"] or len(hang) != 1 or len(firsts) != 2:
+        raise AssertionError(f"expected one stall, then a resume from step 2:\n{out}")
+    if not done or done[-1][0] != "12":
+        raise AssertionError(f"the resumed run did not reach step 12:\n{out}")
+    exec_at = float(resumed[1][1])
+    detect_s = exec_at - float(hang[0][0])
+    first_s = float(firsts[1][0]) - exec_at
+    k1 = int(done[-1][1])
+    log(f"[watchdog] config-B child, threshold {WATCHDOG_THRESHOLD_S} s, device sleep "
+        f"{WATCHDOG_HANG_S} s in step 4, on {smi}: stall reported as the device's, "
+        f"AUTO-RESTART 1/1 {detect_s:.2f} s after the stalled step was enqueued; the new "
+        f"image's first step done {first_s:.2f} s after the exec (python start, CUDA init, "
+        f"model, a step); resumed at step 2, done at step 12 with {k1} K1 launches; "
+        f"{time.perf_counter() - t0:.1f} s in all")
+    if k1 != 10:
+        raise AssertionError(f"expected 10 K1 launches after the resume, got {k1}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, HANG_CHILD, os.path.join(workdir, "pause"), "40",
+                             "cuda", "B", "pause"], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    lines = []
+    first = threading.Event()
+
+    def drain():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("FIRST"):
+                first.set()
+
+    reader = threading.Thread(target=drain, daemon=True)
+    reader.start()
+    try:
+        if not first.wait(300):
+            raise AssertionError(f"the paused child never stepped:\n{''.join(lines)}")
+        proc.send_signal(signal.SIGSTOP)
+        time.sleep(10.0)
+        proc.send_signal(signal.SIGCONT)
+        rc = proc.wait(timeout=300)
+        reader.join(timeout=30)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+    out = "".join(lines)
+    done = _child_lines(out, "DONE")
+    if rc != 0 or "AUTO-RESTART" in out or "looks stalled" in out or done[0][0] != "40":
+        raise AssertionError(f"the stopped child restarted or failed (rc {rc}):\n{out}")
+    log(f"[watchdog] a config-B child stopped for 10 s (SIGSTOP, SIGCONT) mid-run: no restart, "
+        f"40 steps, {done[0][1]} K1 launches, {time.perf_counter() - t0:.1f} s")
+    return k1 + int(done[0][1])
+
+
+def phase_profile_nans(dev, workdir, smi):
+    """Phase 29: ``cli.train --profile_steps 5`` on config B (5 warm-up
+    steps, then 5 traced): the trace's five longest CUDA kernels by device
+    time, K1 among the names; then ``--debug_nans`` on a run that a huge
+    learning rate makes non-finite raises FloatingPointError at step 3."""
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+
+    t0 = time.perf_counter()
+    gs.reset_counts()
+    rc = train_main(SYN_B_FLAGS + _pad_flag() + ["--steps", "10", "--profile_steps", "5",
+                                                 "--checkpoint_every", "100", "--workdir",
+                                                 os.path.join(workdir, "prof"),
+                                                 "--device", str(dev)])
+    launches = gs.render_heatmap.launches
+    if rc != 0:
+        raise AssertionError(f"cli.train --profile_steps exited {rc}")
+    with open(os.path.join(workdir, "prof", "trace", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    by_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + float(e.get("dur", 0.0))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    splat = {n: d for n, d in by_name.items() if "gaussian_splat" in n}
+    log(f"[profile] --profile_steps 5 on config B, {launches} K1 launches in 10 steps; the "
+        f"trace's five longest CUDA kernels over 5 steps (device us) on {smi}: "
+        + "; ".join(f"{n[:70]} {d:.1f}" for n, d in top)
+        + f"; K1 {sorted(splat.items())} of {sum(by_name.values()):.1f} us in "
+        f"{len(by_name)} kernels")
+    if not splat or launches != 10:
+        raise AssertionError(f"K1 not in the trace ({len(by_name)} kernels) or {launches} "
+                             "launches (expected 10)")
+    try:
+        train_main(SYN_B_FLAGS + _pad_flag() + ["--steps", "6", "--debug_nans",
+                                                "--warmup_steps", "1", "--lr_schedule",
+                                                "constant", "--learning_rate", "1e30",
+                                                "--checkpoint_every", "100", "--workdir",
+                                                os.path.join(workdir, "nans"),
+                                                "--device", str(dev)])
+    except FloatingPointError as e:
+        log(f"[debug_nans] raised as expected: {e}")
+        if "step 3" not in str(e):
+            raise AssertionError(f"--debug_nans named another step: {e}")
+    else:
+        raise AssertionError("--debug_nans let a non-finite run through")
+    log(f"[profile] phase 29 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def phase_tensorboard(dev, workdir, smi):
+    """Phase 30: ``cli.train --tensorboard --eval_every 5 --eval_images 2``
+    on config B, 10 steps: the event file, read back by the port's reader,
+    holds every step's scalars, the evals' and two images per eval."""
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+    from cvm_tpu_torch.train.tensorboard import read_scalar_events
+
+    t0 = time.perf_counter()
+    wd = os.path.join(workdir, "tb_run")
+    gs.reset_counts()
+    rc = train_main(SYN_B_FLAGS + _pad_flag() + [
+        "--steps", "10", "--eval_every", "5", "--eval_batches", "1", "--tensorboard",
+        "--eval_images", "2", "--checkpoint_every", "100", "--workdir", wd,
+        "--device", str(dev)])
+    launches = gs.render_heatmap.launches
+    if rc != 0:
+        raise AssertionError(f"cli.train --tensorboard exited {rc}")
+    (path,) = [os.path.join(wd, "tb", f) for f in os.listdir(os.path.join(wd, "tb"))]
+    ev = read_scalar_events(path)
+    steps = [e["step"] for e in ev if "loss" in e.get("scalars", {})]
+    evals = [e["step"] for e in ev if "val_mAP" in e.get("scalars", {})]
+    images = [(e["step"], tag, img["height"], img["width"]) for e in ev
+              for tag, img in e.get("images", {}).items()]
+    log(f"[tensorboard] {len(ev)} events in {os.path.basename(path)}: loss at steps {steps}, "
+        f"val_mAP at {evals}, images {images}; {launches} K1 launches; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if steps != list(range(1, 11)) or evals != [5, 10] or len(images) != 4 or launches != 10:
+        raise AssertionError("the TensorBoard events miss scalars or images")
+    return launches
+
+
+def phase_lr_find_rotate(dev, workdir, smi):
+    """Phase 31: ``cli.lr_find`` on config B (a 20-step sweep) prints a
+    finite suggestion; config B trains 20 steps with ``--aug_rotate_deg
+    15`` to a finite loss. K1's launches for both."""
+    from cvm_tpu_torch.cli.lr_find import main as lr_main
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+
+    t0 = time.perf_counter()
+    gs.reset_counts()
+    rc, lines, _ = _cli(lr_main, ["--model", "centernet", "--batch_size", str(B),
+                                  "--num_steps", "20", "--lr_min", "1e-5", "--lr_max", "1.0",
+                                  "--device", str(dev)] + _pad_flag())
+    lr_k1 = gs.render_heatmap.launches
+    res = json.loads(lines[-1]) if rc == 0 else {}
+    log(f"[lr_find] 20-step sweep on config B on {smi}: {res}; {lr_k1} K1 launches; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if rc != 0 or not np.isfinite(res["suggestion"]) or lr_k1 != res["steps_run"]:
+        raise AssertionError(f"cli.lr_find: rc {rc}, {res}, {lr_k1} K1 launches")
+    t0 = time.perf_counter()
+    wd = os.path.join(workdir, "rot")
+    gs.reset_counts()
+    train_main(SYN_B_FLAGS + _pad_flag() + ["--steps", "20", "--aug_rotate_deg", "15",
+                                            "--checkpoint_every", "100", "--workdir", wd,
+                                            "--device", str(dev)])
+    rot_k1 = gs.render_heatmap.launches
+    steps = [r for r in read_metrics(os.path.join(wd, "metrics.jsonl")) if "loss" in r]
+    losses = [r["loss"] for r in steps]
+    step_ms = statistics.median(1e3 / r["steps_per_sec"] for r in steps[5:])
+    log(f"[rotate] 20 config-B steps with --aug_rotate_deg 15: loss first 3 "
+        f"{np.round(losses[:3], 4).tolist()}, last 3 {np.round(losses[-3:], 4).tolist()}; "
+        f"{rot_k1} K1 launches; median {step_ms:.3f} ms/step on {smi}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if len(steps) != 20 or not np.isfinite(losses).all() or rot_k1 != 20:
+        raise AssertionError("rotation training: missing steps, non-finite loss or K1 launches")
+    return lr_k1, rot_k1
+
+
+def phase_remat(dev, smi):
+    """Phase 32: one config-B training step (batch 8, 768^2 synthetic
+    scenes) with and without ``remat`` from the same weights and batch:
+    the loss and gradient-norm gap, the peak device memory of each, and
+    ms per step (5 more steps each, synchronized)."""
+    import torch
+
+    from cvm_tpu_torch.data.loader import prefetch_to_device
+    from cvm_tpu_torch.data.synthetic import synthetic_batch
+    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.train.loop import Trainer, step_generator
+
+    batch = synthetic_batch(np.random.default_rng(7), B, PAD_HW, num_classes=10)
+    res = {}
+    for remat in (False, True):
+        tr = Trainer(CenternetParams(batch_size=B, warmup_steps=1, remat=remat), dev)
+        tr.init_state()
+        raw = next(prefetch_to_device(iter([batch]), dev))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        _, m = tr.train_step(tr.state, raw, step_generator(dev, 0, 0))
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        peak = torch.cuda.max_memory_allocated(dev) - base
+        times = []
+        for s in range(1, 6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.train_step(tr.state, raw, step_generator(dev, 0, s))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        res[remat] = dict(loss=loss, grad_norm=gnorm, peak_mib=peak / 2 ** 20,
+                          ms=statistics.median(times))
+        del tr, raw
+        torch.cuda.empty_cache()
+    d_loss = abs(res[True]["loss"] - res[False]["loss"])
+    d_gn = abs(res[True]["grad_norm"] - res[False]["grad_norm"])
+    log(f"[remat] one config-B step (batch {B}, from the same weights and batch) on {smi}: "
+        f"|d loss| {d_loss:.3e}, |d grad_norm| {d_gn:.3e}; peak memory above the weights "
+        f"{res[False]['peak_mib']:.1f} MiB without remat, {res[True]['peak_mib']:.1f} MiB "
+        f"with; median ms/step (5 steps, synchronized, host clock) {res[False]['ms']:.3f} "
+        f"without, {res[True]['ms']:.3f} with")
+    if d_loss > 1e-6 * abs(res[False]["loss"]) or d_gn > 1e-3 * res[False]["grad_norm"]:
+        raise AssertionError(f"remat changed the step: {res}")
+    return res
+
+
+def phase_inflight(dev, smi):
+    """Phase 32b: what ``Trainer.MAX_INFLIGHT`` (the watchdog's bound on the
+    host's run-ahead, 8 steps) does to config-B training (batch 8,
+    synthetic scenes): steps/s of ``fit`` over steps 2-25 with the bound and
+    with none (as before it), after one untimed run, in four pairs that
+    alternate which side runs first."""
+    from cvm_tpu_torch.data.synthetic import SyntheticIterator
+    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.train.loop import Trainer
+
+    rates = {8: [], None: []}
+    for i, bound in enumerate((8, 8, None, None, 8, 8, None, None, 8)):
+        tr = Trainer(CenternetParams(batch_size=B, warmup_steps=5), dev, log_every=1000)
+        tr.MAX_INFLIGHT = bound if bound is not None else 1 << 30
+        tr.init_state()
+        m = tr.fit(SyntheticIterator(0, B, PAD_HW, num_classes=10), 25)
+        if i:  # the first run warms up
+            rates[bound].append(m["steps_per_sec"])
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    log(f"[inflight] config-B fit, steps 2-25, steps/s on {smi}: bound 8 "
+        f"{[round(r, 3) for r in rates[8]]} (median {med[8]:.3f}), unbounded "
+        f"{[round(r, 3) for r in rates[None]]} (median {med[None]:.3f})")
+    return rates
+
+
+def phase_tiled(dev, workdir, smi):
+    """Phase 33a: ``cli.infer --tiled`` of a config-A semseg checkpoint
+    (256x640 input, seeded weights) over three 720x1280 PNGs: each image's
+    line at its own size, and the tiles per image and ms per image."""
+    from PIL import Image
+
+    from cvm_tpu_torch.cli.infer import main as infer_main
+    from cvm_tpu_torch.data.synthetic import synthetic_sample
+    from cvm_tpu_torch.infer.tiled import tile_positions
+    from cvm_tpu_torch.models.semseg.params import SemsegParams
+    from cvm_tpu_torch.train.loop import Trainer
+
+    cfg = SemsegParams(batch_size=1)
+    tr = Trainer(cfg, dev, checkpoint_dir=os.path.join(workdir, "semseg_ck"))
+    tr.init_state()
+    tr.ckpt.save(1, tr.checkpoint_state(None))
+    rng = np.random.default_rng(3)
+    os.makedirs(os.path.join(workdir, "big"))
+    hw = (720, 1280)
+    for i in range(3):
+        Image.fromarray(synthetic_sample(rng, hw, num_classes=10)["image"]).save(
+            os.path.join(workdir, "big", f"big{i}.png"))
+    rc, lines, err = _cli(infer_main, ["--model", "semseg", "--checkpoint_dir",
+                                       os.path.join(workdir, "semseg_ck"), "--images",
+                                       os.path.join(workdir, "big", "*.png"), "--tiled",
+                                       "--device", str(dev)])
+    if rc != 0:
+        raise AssertionError(f"cli.infer --tiled exited {rc}: {err[-2000:]}")
+    recs = [json.loads(x) for x in lines]
+    summary = json.loads(err.splitlines()[-1])
+    tiles = (len(tile_positions(hw[0], cfg.input_hw[0], 0.25))
+             * len(tile_positions(hw[1], cfg.input_hw[1], 0.25)))
+    log(f"[tiled] cli.infer --tiled, config-A semseg ({cfg.input_hw[0]}x{cfg.input_hw[1]} "
+        f"tiles, overlap 0.25) over 3 images of {hw[0]}x{hw[1]}: {tiles} tiles per image, "
+        f"{summary['ms_per_image_avg']} ms per image (host clock, first image included) "
+        f"on {smi}")
+    if len(recs) != 3 or any(r["hw"] != list(hw) or sum(r["class_histogram"]) != hw[0] * hw[1]
+                             for r in recs):
+        raise AssertionError(f"cli.infer --tiled lines: {recs}")
+
+
+def phase_video(dev, workdir, art, files, recs, smi, cv2_version):
+    """Phase 33b: ``run_video`` over the COCO tree's images, decoded on the
+    card as ``cli.infer`` decodes them, through phase 27's fused artifact's
+    ``predict`` (``cli.video.artifact_predict``): every JSON line equal to
+    ``cli.infer --artifact``'s on the same frames (boxes and classes
+    identical, scores after rounding), 24 K2 launches per batch-8 call;
+    then, where ``cli.doctor`` found cv2, the full ``cli.video`` (decode,
+    annotate, encode) over an mp4 of synthetic frames."""
+    from cvm_tpu_torch.cli import video
+    from cvm_tpu_torch.data.images import read_image_as_jpeg
+    from cvm_tpu_torch.data.jpeg import decode_jpeg_batch
+    from cvm_tpu_torch.infer.runtime import ServingModel
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+
+    t0 = time.perf_counter()
+    img, hw = decode_jpeg_batch([read_image_as_jpeg(f)[0] for f in files], *PAD_HW, device=dev)
+    frames = [(i, img[i, :hw[i, 0], :hw[i, 1]]) for i in range(len(files))]
+    sm = ServingModel(art, device=dev)
+    jsonl = os.path.join(workdir, "video.jsonl")
+    fq.reset_counts()
+    t1 = time.perf_counter()
+    n = video.run_video(video.artifact_predict(sm, PAD_HW), iter(frames), B, PAD_HW, 30.0,
+                        None, jsonl, score_threshold=0.0)
+    run_s = time.perf_counter() - t1
+    launches = fq.fused_qconv.launches
+    with open(jsonl) as f:
+        got = [json.loads(line) for line in f]
+    same = sum(g["boxes"] == w["boxes"] and g["classes"] == w["classes"]
+               and g["scores"] == np.round(np.float32(w["scores"]), 4).tolist()
+               for g, w in zip(got, recs))
+    n_calls = -(-len(files) // B)
+    log(f"[video] run_video over {n} frames through the w8a8_fused_chain artifact: {launches} "
+        f"K2 launches ({n_calls} batch-{B} calls), {same}/{n} lines equal to cli.infer "
+        f"--artifact's on the same frames; {run_s * 1e3 / n_calls:.3f} ms per batch on {smi} "
+        f"(host clock: predict, records)")
+    if n != len(recs) or same != n or launches != K2_PER_FORWARD * n_calls:
+        raise AssertionError(f"run_video: {same}/{n} lines equal, {launches} K2 launches")
+    if cv2_version is None:
+        log("[video] cli.doctor found no cv2 on this machine: the full cli.video (decode, "
+            "annotate, encode) is not run")
+        return launches
+    import cv2
+
+    from cvm_tpu_torch.data.synthetic import synthetic_sample
+
+    clip = os.path.join(workdir, "clip.mp4")
+    w = cv2.VideoWriter(clip, cv2.VideoWriter_fourcc(*"mp4v"), 30.0, (640, 480))
+    rng = np.random.default_rng(4)
+    for _ in range(2 * B):
+        w.write(np.ascontiguousarray(
+            synthetic_sample(rng, (480, 640), num_classes=10)["image"][..., ::-1]))
+    w.release()
+    fq.reset_counts()
+    out = os.path.join(workdir, "annotated.mp4")
+    rc, lines, err = _cli(video.main, ["--artifact", art, "--video", clip, "--out", out,
+                                       "--jsonl", os.path.join(workdir, "clip.jsonl"),
+                                       "--device", str(dev)])
+    cli_launches = fq.fused_qconv.launches
+    cap = cv2.VideoCapture(out)
+    written = 0
+    while cap.read()[0]:
+        written += 1
+    cap.release()
+    log(f"[video] cv2 {cv2_version} (cli.doctor): cli.video --artifact over a {2 * B}-frame "
+        f"640x480 mp4: {lines[-1] if lines else err[-500:]}, {written} annotated frames "
+        f"written, {cli_launches} K2 launches; {time.perf_counter() - t0:.1f} s for phase 33b")
+    if rc != 0 or written != 2 * B or cli_launches != 2 * K2_PER_FORWARD:
+        raise AssertionError(f"cli.video: rc {rc}, {written} frames, {cli_launches} launches")
+    return launches + cli_launches
 
 
 def main() -> int:
@@ -2610,8 +3147,35 @@ def main() -> int:
                                                  smi)
         log(f"[coco-train] phase 26 took {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        infer_k2, _ = phase_infer(dev, os.path.join(workdir, "w"), coco_shard, tree, smi)
+        infer_k2, _, art, files, recs = phase_infer(dev, os.path.join(workdir, "w"),
+                                                    coco_shard, tree, smi)
         log(f"[infer] phase 27 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        video_k2 = phase_video(dev, workdir, art, files, recs, smi, report["cv2"])
+        log(f"[video] phase 33b took {time.perf_counter() - t0:.1f} s")
+
+    # Phases 28-33a: the watchdog and re-exec, profiling and --debug_nans,
+    # TensorBoard, the LR finder and rotation, remat, tiled inference.
+    t_new = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        watchdog_k1 = phase_watchdog(workdir, smi)
+        log(f"[watchdog] phase 28 took {time.perf_counter() - t0:.1f} s")
+        prof_k1 = phase_profile_nans(dev, workdir, smi)
+        t0 = time.perf_counter()
+        tb_k1 = phase_tensorboard(dev, workdir, smi)
+        log(f"[tensorboard] phase 30 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        lr_k1, rot_k1 = phase_lr_find_rotate(dev, workdir, smi)
+        log(f"[lr_find-rotate] phase 31 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_remat(dev, smi)
+        phase_inflight(dev, smi)
+        log(f"[remat-inflight] phase 32 took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_tiled(dev, workdir, smi)
+        log(f"[tiled] phase 33a took {time.perf_counter() - t0:.1f} s")
+    log(f"[smoke] phases 28-33a took {time.perf_counter() - t_new:.1f} s")
 
     log(f"[zoo3d] on {smi}: 3D batch-8 predict fp {lat3d['fp']:.3f} ms, int8 "
         f"{lat3d['int8']:.3f} ms; 3D training {step3d_ms:.3f} ms/step; DMDS training "
@@ -2620,7 +3184,7 @@ def main() -> int:
         f"(artifact {dmds['artifact_ms']:.3f} ms); DMDS reaches no TPU kernel (the "
         "reference refuses W8A8 for it)")
 
-    log(f"[smoke] phases 1-27 took {time.perf_counter() - t_smoke:.1f} s")
+    log(f"[smoke] phases 1-33 took {time.perf_counter() - t_smoke:.1f} s")
     log(f"[card] {nvidia_smi()}")
     # K2's numbers are those of one config-B int8 forward; launches count
     # every main-path run (config B and each dense path), with each path's
@@ -2639,6 +3203,7 @@ def main() -> int:
     k2_paths["cli.serve --records"] = dict(launches=serve_k2)
     k2_paths["HTTP ModelServer"] = dict(launches=http_k2)
     k2_paths["cli.infer --artifact"] = dict(launches=infer_k2)
+    k2_paths["run_video + cli.video --artifact"] = dict(launches=video_k2)
     k2_shapes = sorted({f"k{c['k']} B{c['B']} {c['H']}x{c['W']} {c['cin']}->{c['cout']}"
                         for calls in dense_calls.values() for c in calls})
     print(json.dumps({"kernels": [{
@@ -2651,7 +3216,7 @@ def main() -> int:
         "name": "gaussian_splat", "route": "cuda", "source": SPLAT_SOURCE,
         "replaces": SPLAT_REPLACES,
         "launches": (splat_launches + dense_k1 + qat_launches + train3d_launches + rec_k1
-                     + coco_k1),
+                     + coco_k1 + watchdog_k1 + prof_k1 + tb_k1 + lr_k1 + rot_k1),
         "max_abs_err": splat_err,
         "ms": splat_times["flagship"][0], "plain_ms": splat_times["flagship"][1],
         "bound_ms": splat_times["bound_ms"], "bound_by": "bytes", "library_ms": None,
@@ -2660,6 +3225,11 @@ def main() -> int:
                   "3D training": dict(launches=train3d_launches),
                   "training from records": dict(launches=rec_k1),
                   "training from a packed COCO shard": dict(launches=coco_k1),
+                  "watchdog children (re-exec'd and stopped)": dict(launches=watchdog_k1),
+                  "--profile_steps": dict(launches=prof_k1),
+                  "--tensorboard --eval_images": dict(launches=tb_k1),
+                  "cli.lr_find": dict(launches=lr_k1),
+                  "--aug_rotate_deg": dict(launches=rot_k1),
                   "multitask training": dict(launches=dense_k1,
                                              ms=splat_times["multitask"][0],
                                              plain_ms=splat_times["multitask"][1],

@@ -9,8 +9,10 @@ round trip on distinct inputs, whether ``nvcc`` is found, one tiny
 forward of a registry model, and the JPEG facts: ``jpeglib.h`` and
 ``libjpeg`` on the host, ``nvjpeg.h`` and ``libnvjpeg`` in the CUDA
 toolkit, whether PIL imports, and which decoder ``data/jpeg.py`` uses for
-each device. There is no compilation-cache check: nothing here compiles
-ahead of use.
+each device; and whether OpenCV (``cv2``, which ``cli.video`` needs to
+read and write clips) imports, with its version (``null`` when not: not a
+failure, only ``cli.video`` needs it). There is no compilation-cache check:
+nothing here compiles ahead of use.
 """
 
 from __future__ import annotations
@@ -81,6 +83,15 @@ def jpeg_facts() -> dict:
     return facts
 
 
+def cv2_version():
+    """OpenCV's version, or None when ``cv2`` does not import."""
+    try:
+        import cv2
+    except ImportError:
+        return None
+    return cv2.__version__
+
+
 def _nvidia_smi() -> str:
     try:
         return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -147,6 +158,7 @@ def run_checks(device: str = "cuda", probe_iters: int = 8) -> dict:
     except Exception as e:  # the report names any failure of the forward
         report.update(ok=False, model_forward_error=f"{type(e).__name__}: {e}")
 
+    report["cv2"] = cv2_version()
     report["jpeg"] = facts = jpeg_facts()
     if facts[f"decoder_{dev.type}"].startswith("none"):
         report["ok"] = False

@@ -24,11 +24,18 @@ reference's loader drops it). Sources:
   ``w8a8_fused_chain`` export runs the fused int8 kernel (K2,
   ``csrc/fused_qconv.cu``) inside its program.
 
+``--tiled`` (semseg, depth, multitask from a checkpoint, with
+``--images``): each image at its own resolution through overlapping
+``input_hw`` tiles (``infer/tiled.py::tiled_predict``, ``--tile_overlap``),
+one JSON line per image (its ``hw``, the class histogram, the mean depth)
+and, with ``--visualize``, ``<name>.classes.png`` (the palette) and
+``<name>.depth.png`` (uint16, depth * 256); the images are read with PIL,
+as the reference reads them.
+
 It keeps the reference's refusals: exactly one source; flags baked into an
-artifact at export; yuv420 and two-frame artifacts; ``--w8a8`` for dmds.
-``--tiled`` (native-resolution tiles, ``infer/tiled.py``) is not ported
-yet. A summary (batches, images, ms per batch on the host clock) goes to
-stderr.
+artifact at export; yuv420 and two-frame artifacts; ``--w8a8`` for dmds;
+``--tiled`` for detection, records, ``--w8a8`` and ``--tta``. A summary
+(batches, images, ms per batch on the host clock) goes to stderr.
 """
 
 from __future__ import annotations
@@ -41,6 +48,52 @@ import sys
 import time
 
 import numpy as np
+
+
+def _run_tiled(args, cfg, trainer) -> int:
+    """Per-image native-resolution dense prediction (``infer/tiled.py``)."""
+    from PIL import Image
+
+    from cvm_tpu_torch.infer.tiled import tiled_predict
+
+    files = sorted(glob.glob(args.images))
+    if not files:
+        raise SystemExit(f"no files match {args.images!r}")
+    trainer.init_state()
+    model = trainer.eval_model(use_ema=getattr(cfg, "ema_decay", 0.0) > 0.0)
+    if args.visualize:
+        os.makedirs(args.visualize, exist_ok=True)
+    t_total = 0.0
+    for f in files:
+        img = np.asarray(Image.open(f).convert("RGB"), np.uint8)
+        t0 = time.perf_counter()
+        out = {k: v.cpu().numpy() for k, v in tiled_predict(cfg, model, img,
+                                                             overlap=args.tile_overlap).items()}
+        t_total += time.perf_counter() - t0
+        rec = {"input": os.path.basename(f), "hw": list(img.shape[:2])}
+        if "class_map" in out:
+            rec["class_histogram"] = np.bincount(out["class_map"].reshape(-1),
+                                                 minlength=1).tolist()
+        if "depth" in out:
+            rec["depth_mean"] = float(out["depth"].mean())
+        print(json.dumps(rec), flush=True)
+        if args.visualize:
+            base = os.path.join(args.visualize, os.path.basename(f))
+            if "class_map" in out:
+                from cvm_tpu_torch.models.semseg.params import SEMSEG_PALETTE
+
+                pal = np.asarray(SEMSEG_PALETTE, np.uint8)
+                Image.fromarray(pal[np.clip(out["class_map"], 0, len(pal) - 1)]).save(
+                    base + ".classes.png")
+            if "depth" in out:
+                # uint16 depth * 256, the KITTI PNG convention the adapters read
+                d = out["depth"][..., 0]
+                Image.fromarray((np.clip(d, 0, 255) * 256).astype(np.uint16)).save(
+                    base + ".depth.png")
+    print(json.dumps({"model": args.model, "tiled": True, "images": len(files),
+                      "ms_per_image_avg": round(t_total / len(files) * 1e3, 3)}),
+          file=sys.stderr, flush=True)
+    return 0
 
 
 def main(argv=None) -> int:
@@ -66,8 +119,10 @@ def main(argv=None) -> int:
                         help="test-time augmentation: hflip merges the flipped pass at the "
                              "head level (2x forward cost; rejected for with_3d/dmds)")
     parser.add_argument("--tiled", action="store_true",
-                        help="dense models: stitch predictions at each image's native "
-                             "resolution from overlapping tiles (not ported yet)")
+                        help="dense models (semseg/depth/multitask): stitch predictions at "
+                             "each image's native resolution from overlapping input_hw tiles "
+                             "instead of letterboxing to the training size")
+    parser.add_argument("--tile_overlap", type=float, default=0.25)
     parser.add_argument("--device", default="cuda", help="'cuda', 'cuda:N' or 'cpu'")
     args = parser.parse_args(argv)
 
@@ -117,7 +172,7 @@ def main(argv=None) -> int:
         if args.w8a8 or args.tta != "none":
             parser.error("--tiled does not compose with --w8a8/--tta "
                          "(qat configs quantize inside tiled_predict already)")
-        raise SystemExit("--tiled is not ported yet (ROADMAP Queue 1 item 16: infer/tiled.py)")
+        return _run_tiled(args, cfg, trainer)
 
     def batches():
         if args.images:

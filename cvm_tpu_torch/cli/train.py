@@ -34,7 +34,20 @@ on a run resumed from an fp checkpoint (the reference's QAT fine-tune
 recipe), it takes effect, and ``<workdir>/checkpoints/params.json`` is
 rewritten to say so, since evaluation and export read the config there.
 
-Flags whose machinery is not ported raise instead of being ignored.
+``--auto_restart N`` re-execs this command (``python -m
+cvm_tpu_torch.cli.train`` and the same arguments) up to N times when the
+stall watchdog finds the device stalled (``train/loop.py``); the new
+process resumes from the newest checkpoint. ``--tensorboard`` also writes
+the metrics as TensorBoard events to ``<workdir>/tb``, and ``--eval_images
+N`` renders N eval samples' predictions (``infer/visualize.py``) into them
+at every eval. ``--profile_steps N`` trains up to 20 warm-up steps, then
+records N steps with ``torch.profiler`` into ``<workdir>/trace``
+(``utils/prof.py::trace``). ``--debug_nans`` raises at the first step with
+a non-finite output, loss, gradient or parameter, naming it.
+``--aug_rotate_deg`` and ``--remat true`` are the reference's.
+
+Flags whose machinery is not ported raise instead of being ignored: the
+multi-process and multi-card ones (ROADMAP Queue 1 item 17).
 """
 
 from __future__ import annotations
@@ -47,13 +60,10 @@ import time
 
 # flag -> (value that means "off", ROADMAP Queue 1 item that ports it)
 _NOT_PORTED = {
-    "auto_restart": (0, "11 (the stall watchdog)"), "tensorboard": (False, "16"),
-    "eval_images": (0, "16"), "model_parallel": (1, "17"), "dcn_slices": (1, "17"),
-    "coordinator": (None, "17"), "num_processes": (None, "17"), "process_id": (None, "17"),
-    "profile_steps": (0, "16"), "debug_nans": (False, "16"),
+    "model_parallel": (1, "17"), "dcn_slices": (1, "17"), "coordinator": (None, "17"),
+    "num_processes": (None, "17"), "process_id": (None, "17"),
 }
-_NOT_PORTED_CFG = {"remat": (False, "16"),
-                   "aug_rotate_deg": (0.0, "16"), "tensor_parallel": (False, "17")}
+_NOT_PORTED_CFG = {"tensor_parallel": (False, "17")}
 
 
 def _not_ported(flag: str, item: str) -> SystemExit:
@@ -117,16 +127,25 @@ def main(argv=None) -> int:
     parser.add_argument("--early_stop", type=int, default=0, metavar="PATIENCE",
                         help="with --keep_best: stop after PATIENCE consecutive evals "
                              "without improvement on the --keep_best metric")
-    parser.add_argument("--eval_images", type=int, default=0)
-    parser.add_argument("--auto_restart", type=int, default=0)
-    parser.add_argument("--tensorboard", action="store_true")
+    parser.add_argument("--eval_images", type=int, default=0, metavar="N",
+                        help="with --eval_every and --tensorboard: render N eval samples' "
+                             "predictions into the TensorBoard Images tab at every eval")
+    parser.add_argument("--auto_restart", type=int, default=0, metavar="N",
+                        help="on a device stall, re-exec this command up to N times and "
+                             "resume from the latest checkpoint")
+    parser.add_argument("--tensorboard", action="store_true",
+                        help="also write TensorBoard events to <workdir>/tb")
     parser.add_argument("--model_parallel", type=int, default=1)
     parser.add_argument("--dcn_slices", type=int, default=1)
     parser.add_argument("--coordinator", default=None)
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
-    parser.add_argument("--profile_steps", type=int, default=0)
-    parser.add_argument("--debug_nans", action="store_true")
+    parser.add_argument("--profile_steps", type=int, default=0, metavar="N",
+                        help="record N steady-state steps with torch.profiler into "
+                             "<workdir>/trace (after up to 20 warm-up steps)")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="raise at the first step with a non-finite output, loss, "
+                             "gradient or parameter, naming it")
     parser.add_argument("--decode_target", default="auto",
                         help="scale-aware JPEG decode target: 'auto' (1.3x input), 'off', "
                              "or 'H,W'")
@@ -146,6 +165,7 @@ def main(argv=None) -> int:
             raise _not_ported(flag, item)
 
     import numpy as np
+    import torch
 
     from cvm_tpu_torch.data.loader import RecordLoader
     from cvm_tpu_torch.data.synthetic import SyntheticIterator, synthetic_batch
@@ -181,10 +201,17 @@ def main(argv=None) -> int:
             target_hw = parse_hw(args.decode_target, "--decode_target")
     _record_qat_flip(args.workdir, cfg, bool(args.keep_best), spec.params_cls, load_params_cfg)
 
+    # A programmatic caller's argv, not the host process's command line: the
+    # restart must re-exec the training command.
+    restart_argv = ([sys.executable, "-m", "cvm_tpu_torch.cli.train"]
+                    + list(argv if argv is not None else sys.argv[1:])
+                    if args.auto_restart > 0 else None)
     trainer = Trainer(cfg, args.device, checkpoint_dir=f"{args.workdir}/checkpoints",
                       metrics_path=f"{args.workdir}/metrics.jsonl",
+                      tensorboard_dir=f"{args.workdir}/tb" if args.tensorboard else None,
                       checkpoint_every=args.checkpoint_every, log_every=args.log_every,
-                      seed=args.seed)
+                      seed=args.seed, restart_argv=restart_argv,
+                      max_restarts=args.auto_restart, debug_nans=args.debug_nans)
     best = (BestCheckpoint(f"{args.workdir}/best", args.keep_best, args.keep_best_mode,
                            params_cfg=cfg) if args.keep_best else None)
     stopper = (EarlyStopper(args.keep_best, args.early_stop, args.keep_best_mode)
@@ -221,7 +248,39 @@ def main(argv=None) -> int:
                     m[args.keep_best]):
                 print(f"[cvm_tpu_torch] new best {args.keep_best}={m[args.keep_best]:.4f} "
                       f"@step {step} -> {args.workdir}/best", flush=True)
+        if args.eval_images > 0:
+            log_eval_images(val, step)
         return m
+
+    def log_eval_images(val, step):
+        """The first eval batch's predictions drawn on its images
+        (``infer/visualize.py::render_sample``) into the TensorBoard Images
+        tab: the reference's headless stand-in for its OpenCV windows."""
+        from cvm_tpu_torch.infer.pipeline import InferencePipeline
+        from cvm_tpu_torch.infer.visualize import render_sample
+
+        if isinstance(val, list):
+            batch0 = val[0]
+        else:
+            stream = iter(val)  # the records' val split, read anew
+            batch0 = next(stream, None)
+            stream.close()  # stops the loader's worker thread
+        if batch0 is None or "image" not in batch0:
+            print("[cvm_tpu_torch] --eval_images: no RGB eval batch — skipping image "
+                  "summaries", file=sys.stderr, flush=True)
+            return
+        host = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                for k, v in batch0.items()}
+        pipe = InferencePipeline(cfg, trainer.eval_model(), trainer.device, input_format="rgb")
+        out = {k: v.cpu().numpy() for k, v in pipe(host).items()}
+        n = min(args.eval_images, int(host["image"].shape[0]))
+        for i in range(n):
+            vis = {k: v[i] for k, v in out.items()}
+            if "centers3d" in out and "intrinsics" in host:
+                vis["intrinsics"] = host["intrinsics"][i]
+            rgb = render_sample(None, host["image"][i], host["image_hw"][i], vis)
+            trainer.metrics_writer.write_image(step, f"eval/sample_{i}", rgb)
+        print(f"[cvm_tpu_torch] wrote {n} eval image summaries @step {step}", flush=True)
 
     def stop(reason: str) -> None:
         trainer.request_stop()
@@ -260,6 +319,22 @@ def main(argv=None) -> int:
             steps = max(0, steps - start_step)
             print(f"[cvm_tpu_torch] resume: {steps} of the --steps total remain", flush=True)
         metrics = {}
+        if args.profile_steps > 0 and steps > 0:
+            from cvm_tpu_torch.utils.prof import trace
+
+            # Warm up past the kernel builds and the allocator's growth, so
+            # that the trace holds steady-state steps only.
+            warm = min(20, max(steps - args.profile_steps, 0))
+            if warm:
+                trainer.fit(it, warm)
+            n = min(args.profile_steps, steps - warm)
+            with trace(f"{args.workdir}/trace"):
+                metrics = trainer.fit(it, n)
+                if trainer.device.type == "cuda":
+                    torch.cuda.synchronize(trainer.device)
+            steps -= warm + n
+            print(f"[cvm_tpu_torch] profiler trace of {n} steps written to "
+                  f"{args.workdir}/trace", flush=True)
         if args.eval_every > 0:
             if steps == 0 and start_step > 0:
                 # Resumed past the target (stopped between the last chunk

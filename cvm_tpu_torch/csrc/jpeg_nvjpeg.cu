@@ -8,36 +8,31 @@
 // component planes; what libjpeg does after its IDCT is done here, in the
 // kernels below, with libjpeg's own integer arithmetic, so that the output
 // differs from jpeg_feeder.cc's only where the two IDCTs round differently:
-//   * RGB at full scale: libjpeg's "fancy" chroma upsampling (3/4 nearer +
-//     1/4 further sample, edges replicated; h2v2 for 4:2:0, h2v1 for 4:2:2)
-//     and its YCbCr -> RGB tables (jdsample.c, jdcolor.c);
-//   * the reduced scales 1/2, 1/4, 1/8: libjpeg's reduced-size IDCTs
-//     (jidctred.c) equal, in exact arithmetic, the box average of the full
-//     IDCT's output over 2x2, 4x4, 8x8 pixels (the average of adjacent
-//     8-point IDCT outputs drops the frequencies the reduced IDCT drops),
-//     so the luma plane is box-averaged by 8/num. libjpeg decodes 4:2:0
-//     chroma at twice the luma's DCT scale (jdmaster.c), at the output
-//     resolution, and converts without upsampling: its planes are averaged
-//     by 4/num. 4:2:2 and 4:4:4 chroma it decodes at the luma's scale (the
-//     vertical factor does not allow more), averaged by 8/num, and 4:2:2's
-//     is then h2v1-upsampled;
+//   * RGB: each component as libjpeg decodes it (plan_plane, after
+//     jdmaster.c and jdsample.c): its IDCT at the component's own DCT scale,
+//     which is the output's scale num/8 doubled while both of the frame's
+//     sampling ratios stay whole (4:2:0 chroma at twice the luma's scale at
+//     1/2, 1/4 and 1/8, and so needing no upsampling there), then its
+//     upsampler: "fancy" for 2:1 across (4:2:2), 1:2 down (4:4:0) and 2:2
+//     (4:2:0 at full scale) while the scale is above 1/8, else each sample
+//     replicated by the whole ratio (int_upsample: 4:1:1, 4:1:0, a 1x4
+//     luma, and any other whole ratio); then libjpeg's YCbCr -> RGB tables
+//     (jdsample.c, jdcolor.c). libjpeg's reduced-size IDCTs (jidctred.c)
+//     equal, in exact arithmetic, the box average of the full IDCT's output
+//     over 2x2, 4x4, 8x8 pixels (the average of adjacent 8-point IDCT
+//     outputs drops the frequencies the reduced IDCT drops), so each plane
+//     nvJPEG decodes at full scale is box-averaged by 8 / its DCT size;
 //   * planar YUV420: the raw planes at full scale (jpeg_feeder.cc's raw
 //     path, under the same condition), else RGB converted on the card with
 //     jpeg_feeder.cc's integer formulas (Y per pixel, chroma from the 2x2
 //     RGB average).
-// 4:4:0 and 4:1:1 chroma libjpeg decodes at the luma's DCT scale (the
-// sampling factors never allow more), so their planes are box-averaged by
-// 8/num, then upsampled as libjpeg upsamples them: 4:4:0 with its vertical
-// "fancy" blend (h1v2_fancy_upsample: 3/4 nearer + 1/4 further row, bias 1
-// above and 2 below, edges replicated) while the scale is above 1/8, rows
-// replicated at 1/8; 4:1:1 by replicating each sample 4 times across
-// (int_upsample: libjpeg has no fancy h4v1).
 // Grayscale is its Y plane, replicated. A three-component JPEG that
-// libjpeg reads as RGB (is_rgb_jpeg below) takes the same upsampling and
-// no color conversion. Other layouts are refused as unreadable (1): four
-// components (CMYK, YCCK), which libjpeg cannot convert to RGB either, and
-// sampling factors other than the five above (4:1:0, 1x4 luma), which
-// libjpeg decodes and nvJPEG's own upsampling does not decode as it does.
+// libjpeg reads as RGB (read_header below) takes the same upsampling and
+// no color conversion. Refused as unreadable (1): four components (CMYK,
+// YCCK), which libjpeg cannot convert to RGB either; sampling ratios that
+// are not whole, which libjpeg refuses too; and what nvJPEG itself does not
+// decode into planes of the sizes the frame header implies
+// (cvm_decode_info reports nvJPEG's own verdict).
 //
 // Return codes per image: 0 decoded; the data faults of jpeg_feeder.cc, 1
 // unreadable (nvJPEG's BAD_JPEG, JPEG_NOT_SUPPORTED or INCOMPLETE_BITSTREAM,
@@ -217,92 +212,50 @@ __device__ __forceinline__ void ycc_rgb(int y, int cb, int cr, uint8_t* o) {
   o[2] = sat(y + cb_b);
 }
 
-// A 4:2:2 chroma sample at output (x, y): the chroma plane (cw x ch, as
-// many rows as the luma) box-averaged by g, as libjpeg decodes it at the
-// luma's DCT scale, then libjpeg's h2v1 upsampling: "fancy" (3/4 nearer +
-// 1/4 further sample, edges replicated; jdsample.c h2v1_fancy_upsample)
-// when `fancy` and the reduced plane is wider than 2 samples, else
-// replication.
-__device__ __forceinline__ int h2v1(const uint8_t* C, int cw, int ch, int y, int x, int g,
-                                    int gs, bool fancy) {
-  const int rcw = (cw + g - 1) / g, cx = x >> 1;
-  const int near = box(C, cw, ch, y, cx, g, gs);
-  if (!fancy || rcw <= 2) return near;
-  const int nb = (x & 1) ? min(cx + 1, rcw - 1) : max(cx - 1, 0);
-  return (3 * near + box(C, cw, ch, y, nb, g, gs) + ((x & 1) ? 2 : 1)) >> 2;
+// How one component's plane (w x h at full scale, as nvJPEG hands it over)
+// gives the sample of output pixel (x, y), as libjpeg decodes and upsamples
+// that component (plan_plane): box-averaged by g (libjpeg's IDCT at the
+// component's own DCT scale 8/g), then upsampled by (rh, rv) output samples
+// per sample: "fancy" when `fancy` (jdsample.c h2v1_fancy_upsample for
+// (2, 1): 3/4 nearer + 1/4 further sample, bias 1 left and 2 right;
+// h1v2_fancy_upsample for (1, 2): the same with rows, bias 1 above and 2
+// below; h2v2_fancy_upsample for (2, 2): that vertical blend, then across,
+// bias 8 left and 7 right; edges replicated), else each sample replicated
+// (int_upsample; nothing to do at (1, 1)).
+struct Plane {
+  const uint8_t* p;
+  int w, h;    // at full scale
+  int g, gs;   // box factor, log2(g * g)
+  int rh, rv;  // upsampling factors
+  bool fancy;
+};
+
+__device__ __forceinline__ int sample_at(const Plane& c, int y, int x) {
+  const int cy = y / c.rv, cx = x / c.rh;
+  const int near = box(c.p, c.w, c.h, cy, cx, c.g, c.gs);
+  if (!c.fancy) return near;
+  const int rw = (c.w + c.g - 1) / c.g, rh = (c.h + c.g - 1) / c.g;
+  const int nx = clampi((x & 1) ? cx + 1 : cx - 1, 0, rw - 1);
+  const int ny = clampi((y & 1) ? cy + 1 : cy - 1, 0, rh - 1);
+  if (c.rv == 1) return (3 * near + box(c.p, c.w, c.h, cy, nx, c.g, c.gs) + ((x & 1) ? 2 : 1)) >> 2;
+  if (c.rh == 1) return (3 * near + box(c.p, c.w, c.h, ny, cx, c.g, c.gs) + ((y & 1) ? 2 : 1)) >> 2;
+  const int s = 3 * near + box(c.p, c.w, c.h, ny, cx, c.g, c.gs);
+  const int n = 3 * box(c.p, c.w, c.h, cy, nx, c.g, c.gs) + box(c.p, c.w, c.h, ny, nx, c.g, c.gs);
+  return (3 * s + n + ((x & 1) ? 7 : 8)) >> 4;
 }
 
-// A 4:4:0 chroma sample at output (x, y): the chroma plane (cw x ch, as
-// many columns as the luma) box-averaged by g, then libjpeg's vertical
-// upsampling: "fancy" (3/4 nearer + 1/4 further row, bias 1 for the upper
-// and 2 for the lower output row, edges replicated; jdsample.c
-// h1v2_fancy_upsample) when `fancy`, else the row replicated (int_upsample).
-__device__ __forceinline__ int h1v2(const uint8_t* C, int cw, int ch, int y, int x, int g,
-                                    int gs, bool fancy) {
-  const int rch = (ch + g - 1) / g, cy = y >> 1;
-  const int near = box(C, cw, ch, cy, x, g, gs);
-  if (!fancy) return near;
-  const int nb = (y & 1) ? min(cy + 1, rch - 1) : max(cy - 1, 0);
-  return (3 * near + box(C, cw, ch, nb, x, g, gs) + ((y & 1) ? 2 : 1)) >> 2;
-}
-
-// Component planes -> RGB at scale 8/f, with libjpeg's arithmetic after its
-// IDCT; the luma (or R) is box-averaged by f. Chroma by its horizontal and
-// vertical subsampling (sh, sv):
-//   * (2, 2), 4:2:0: at f == 1 libjpeg's h2v2 fancy upsampling (plain
-//     replication when the chroma plane is 2 samples wide or less, as
-//     jdsample.c does); at f > 1 box-averaged by f/2, without upsampling;
-//   * (2, 1), 4:2:2: h2v1 as above, fancy while f < 8 (libjpeg upsamples
-//     plainly at 1/8);
-//   * (1, 2), 4:4:0: h1v2 as above, fancy while f < 8;
-//   * (4, 1), 4:1:1: box-averaged by f, each sample replicated 4 times
-//     across;
-//   * (1, 1), 4:4:4: box-averaged by f;
-//   * no chroma planes (U null), grayscale: Cb = Cr = 128, i.e. R = G = B.
-// Then libjpeg's YCbCr tables, or, when `rgb`, the three samples as they
-// are (libjpeg's null conversion).
-__global__ void k_rgb_from_planes(const uint8_t* Y, const uint8_t* U, const uint8_t* V,
-                                  int w, int h, int cw, int ch, int sh, int sv, int f,
-                                  int shift, bool rgb, uint8_t* out, int ow, int oh) {
+// Component planes -> RGB (oh x ow x 3) with libjpeg's arithmetic after
+// its IDCT: each component's sample (sample_at), then libjpeg's YCbCr
+// tables, or, when `rgb`, the three samples as they are (libjpeg's null
+// conversion). Grayscale (ncomp 1): Cb = Cr = 128, i.e. R = G = B = Y.
+__global__ void k_rgb_from_planes(Plane c0, Plane c1, Plane c2, int ncomp, bool rgb,
+                                  uint8_t* out, int ow, int oh) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y * blockDim.y + threadIdx.y;
   if (x >= ow || y >= oh) return;
-  const int yy = f == 1 ? Y[(size_t)y * w + x] : box(Y, w, h, y, x, f, shift);
-  int cb = 128, cr = 128;
-  if (U == nullptr) {
-  } else if (sh == 2 && sv == 2 && f == 1) {
-    const int cy = y >> 1, cx = x >> 1;
-    if (cw > 2) {
-      const int other = clampi((y & 1) ? cy + 1 : cy - 1, 0, ch - 1);
-      const int nb = clampi((x & 1) ? cx + 1 : cx - 1, 0, cw - 1);
-      const int bias = (x & 1) ? 7 : 8;
-      const uint8_t *u0 = U + (size_t)cy * cw, *u1 = U + (size_t)other * cw;
-      const uint8_t *v0 = V + (size_t)cy * cw, *v1 = V + (size_t)other * cw;
-      const int us = 3 * u0[cx] + u1[cx], un = 3 * u0[nb] + u1[nb];
-      const int vs = 3 * v0[cx] + v1[cx], vn = 3 * v0[nb] + v1[nb];
-      cb = (3 * us + un + bias) >> 4;
-      cr = (3 * vs + vn + bias) >> 4;
-    } else {
-      cb = U[(size_t)cy * cw + cx];
-      cr = V[(size_t)cy * cw + cx];
-    }
-  } else if (sh == 2 && sv == 2) {
-    const int g = f >> 1, gs = shift - 2;
-    cb = box(U, cw, ch, y, x, g, gs);
-    cr = box(V, cw, ch, y, x, g, gs);
-  } else if (sh == 2) {
-    cb = h2v1(U, cw, ch, y, x, f, shift, f < 8);
-    cr = h2v1(V, cw, ch, y, x, f, shift, f < 8);
-  } else if (sv == 2) {
-    cb = h1v2(U, cw, ch, y, x, f, shift, f < 8);
-    cr = h1v2(V, cw, ch, y, x, f, shift, f < 8);
-  } else if (sh == 4) {
-    cb = box(U, cw, ch, y, x >> 2, f, shift);
-    cr = box(V, cw, ch, y, x >> 2, f, shift);
-  } else {
-    cb = box(U, cw, ch, y, x, f, shift);
-    cr = box(V, cw, ch, y, x, f, shift);
-  }
+  const int yy = sample_at(c0, y, x);
+  const int cb = ncomp == 3 ? sample_at(c1, y, x) : 128;
+  const int cr = ncomp == 3 ? sample_at(c2, y, x) : 128;
   uint8_t* o = out + ((size_t)y * ow + x) * 3;
   if (rgb) {
     o[0] = (uint8_t)yy;
@@ -312,7 +265,6 @@ __global__ void k_rgb_from_planes(const uint8_t* Y, const uint8_t* U, const uint
     ycc_rgb(yy, cb, cr, o);
   }
 }
-
 // jpeg_feeder.cc's RGB -> planar 4:2:0 (its path for scaled or non-4:2:0
 // sources): fixed-point Y per pixel; chroma from the rounded 2x2 average of
 // RGB, an odd last row or column paired with itself. One thread per chroma
@@ -346,18 +298,26 @@ dim3 grid_of(int w, int h, dim3 blk) {
 }
 
 struct Decoded {
-  int w, h, cw, ch, f, ow, oh;
-  int sh, sv;    // chroma subsampling of the planes; 0 when gray
-  bool rgb;      // the three planes are R, G, B (libjpeg's JCS_RGB)
-  bool is420;    // YCbCr 4:2:0
+  int w, h, f, ow, oh;  // the frame (SOF), 8 / num, the output
+  int ncomp;            // 1 or 3
+  Plane planes[3];      // each component's plane (p set by to_rgb) and plan
+  bool rgb;             // the three planes are R, G, B (libjpeg's JCS_RGB)
+  bool is420;           // YCbCr, luma 2x2, chroma 1x1
 };
 
-// libjpeg's guess of a three-component JPEG's color space (jdapimin.c
-// default_decompress_parms, from the markers before the frame header): a
-// JFIF marker means YCbCr; else an Adobe marker's transform, 0 RGB and any
-// other YCbCr; else component ids 'R', 'G', 'B' mean RGB, any others YCbCr.
-// True for RGB.
-bool is_rgb_jpeg(const uint8_t* p, unsigned long len) {
+// What decode_planes reads of the markers before the first scan.
+struct Header {
+  int w = 0, h = 0, ncomp = 0;
+  int hs[4] = {0, 0, 0, 0}, vs[4] = {0, 0, 0, 0};  // sampling factors
+  bool rgb = false;
+};
+
+// The frame header (SOFn) and libjpeg's guess of a three-component JPEG's
+// color space (jdapimin.c default_decompress_parms, from the markers before
+// the frame header): a JFIF marker means YCbCr; else an Adobe marker's
+// transform, 0 RGB and any other YCbCr; else component ids 'R', 'G', 'B'
+// mean RGB, any others YCbCr. False when there is no readable SOFn.
+bool read_header(const uint8_t* p, unsigned long len, Header* hd) {
   bool jfif = false, adobe = false;
   int transform = 1;
   unsigned long i = 2;
@@ -377,19 +337,66 @@ bool is_rgb_jpeg(const uint8_t* p, unsigned long len) {
       transform = d[11];
     }
     if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {  // SOFn
-      if (jfif) return false;
-      if (adobe) return transform == 0;
-      return n >= 15 && d[5] == 3 && d[6] == 'R' && d[9] == 'G' && d[12] == 'B';
+      if (n < 6) return false;
+      hd->h = (d[1] << 8) | d[2];
+      hd->w = (d[3] << 8) | d[4];
+      hd->ncomp = d[5];
+      if (hd->ncomp < 1 || hd->ncomp > 4 || n < 6 + 3ul * hd->ncomp) return false;
+      for (int c = 0; c < hd->ncomp; ++c) {
+        hd->hs[c] = d[7 + 3 * c] >> 4;
+        hd->vs[c] = d[7 + 3 * c] & 15;
+      }
+      if (hd->ncomp == 3 && !jfif)
+        hd->rgb = adobe ? transform == 0 : (d[6] == 'R' && d[9] == 'G' && d[12] == 'B');
+      return true;
     }
     i += 2 + seg;
   }
   return false;
 }
 
-// Header, scale choice and nvJPEG decode into the worker's planes: 4:2:0,
-// 4:2:2, 4:4:4, 4:4:0 and 4:1:1 as three planes, grayscale as the Y plane;
-// any other layout is refused. Returns 0 or the image's code (see the top
-// of the file).
+// libjpeg's plan for component c at scale num/8 (jdmaster.c
+// jpeg_calc_output_dimensions, jdsample.c jinit_upsampler): the component's
+// IDCT runs at DCT size ssize, which starts at num and doubles while it
+// stays within 8 and both of the frame's sampling ratios stay whole ("scale
+// up the chroma components via IDCT scaling rather than upsampling"); its
+// (h * ssize / num, v * ssize / num) samples then upsample onto (max_h,
+// max_v): fancy for 2:1, 1:2 and 2:2 while num > 1 (and, across, only when
+// the plane is wider than 2 samples), else replicated (int_upsample). False
+// for a ratio that is not whole, which libjpeg refuses ("Fractional sampling
+// not implemented yet").
+bool plan_plane(const Header& hd, int c, int num, int w, int h, Plane* pl) {
+  int max_h = 0, max_v = 0;
+  for (int k = 0; k < hd.ncomp; ++k) {
+    max_h = hd.hs[k] > max_h ? hd.hs[k] : max_h;
+    max_v = hd.vs[k] > max_v ? hd.vs[k] : max_v;
+  }
+  const int hc = hd.hs[c], vc = hd.vs[c];
+  int ssize = num;
+  while (ssize < 8 && (max_h * num) % (hc * ssize * 2) == 0 &&
+         (max_v * num) % (vc * ssize * 2) == 0)
+    ssize *= 2;
+  const int h_in = hc * ssize / num, v_in = vc * ssize / num;
+  if (max_h % h_in || max_v % v_in) return false;
+  pl->p = nullptr;
+  pl->w = w;
+  pl->h = h;
+  pl->g = 8 / ssize;
+  pl->gs = 2 * log2i(pl->g);
+  pl->rh = max_h / h_in;
+  pl->rv = max_v / v_in;
+  const bool wide = (w + pl->g - 1) / pl->g > 2;
+  pl->fancy = num > 1 && ((pl->rh == 2 && pl->rv == 1 && wide) ||
+                          (pl->rh == 1 && pl->rv == 2) || (pl->rh == 2 && pl->rv == 2 && wide));
+  return true;
+}
+
+// Header, scale choice and nvJPEG decode into the worker's planes: one
+// (grayscale) or three components with sampling factors 1-4 whose ratios
+// libjpeg can upsample, each plane at its own size. Any other layout (four
+// components, a fractional ratio, planes of another size than the frame
+// header implies) is refused, as is what nvJPEG itself refuses. Returns 0
+// or the image's code (see the top of the file).
 int decode_planes(Worker* wk, const uint8_t* jpeg, unsigned long len, int max_h, int max_w,
                   int target_h, int target_w, Decoded* d) {
   // libjpeg's "Not a JPEG file": no start-of-image marker.
@@ -400,55 +407,67 @@ int decode_planes(Worker* wk, const uint8_t* jpeg, unsigned long len, int max_h,
   int rc = nvjpeg_rc("nvjpegGetImageInfo",
                      nvjpegGetImageInfo(g_handle, jpeg, len, &ncomp, &css, widths, heights));
   if (rc != 0) return rc;
-  if (widths[0] <= 0 || heights[0] <= 0) return kUnreadable;
-  d->w = widths[0];
-  d->h = heights[0];
+  Header hd;
+  if (!read_header(jpeg, len, &hd) || hd.w <= 0 || hd.h <= 0 || hd.ncomp != ncomp ||
+      (ncomp != 1 && ncomp != 3))
+    return kUnreadable;
+  int smax_h = 0, smax_v = 0;  // the largest sampling factors
+  for (int c = 0; c < ncomp; ++c) {
+    if (hd.hs[c] < 1 || hd.hs[c] > 4 || hd.vs[c] < 1 || hd.vs[c] > 4) return kUnreadable;
+    smax_h = hd.hs[c] > smax_h ? hd.hs[c] : smax_h;
+    smax_v = hd.vs[c] > smax_v ? hd.vs[c] : smax_v;
+  }
+  d->w = hd.w;
+  d->h = hd.h;
   const int num = choose_num(d->h, d->w, max_h, max_w, target_h, target_w);
   if (num < 0) return kTooLarge;
   d->f = 8 / num;
   d->ow = (d->w * num + 7) / 8;
   d->oh = (d->h * num + 7) / 8;
-  const bool three = ncomp == 3 &&
-      (css == NVJPEG_CSS_420 || css == NVJPEG_CSS_422 || css == NVJPEG_CSS_444 ||
-       css == NVJPEG_CSS_440 || css == NVJPEG_CSS_411);
-  if (!three && !(ncomp == 1 && css == NVJPEG_CSS_GRAY)) return kUnreadable;
-  d->rgb = three && is_rgb_jpeg(jpeg, len);
-  d->is420 = three && !d->rgb && css == NVJPEG_CSS_420;
-  d->sh = !three ? 0 : css == NVJPEG_CSS_411 ? 4
-        : (css == NVJPEG_CSS_420 || css == NVJPEG_CSS_422) ? 2 : 1;
-  d->sv = !three ? 0 : (css == NVJPEG_CSS_420 || css == NVJPEG_CSS_440) ? 2 : 1;
-  d->cw = three ? widths[1] : 0;
-  d->ch = three ? heights[1] : 0;
+  d->ncomp = ncomp;
+  size_t total = 0;
+  for (int c = 0; c < ncomp; ++c) {
+    // libjpeg's component size (jdinput.c): ceil(w * h_c / max_h) by
+    // ceil(h * v_c / max_v).
+    const int cw = (d->w * hd.hs[c] + smax_h - 1) / smax_h;
+    const int ch = (d->h * hd.vs[c] + smax_v - 1) / smax_v;
+    if (widths[c] != cw || heights[c] != ch) return kUnreadable;
+    if (!plan_plane(hd, c, num, cw, ch, &d->planes[c])) return kUnreadable;
+    total += (size_t)cw * ch;
+  }
+  d->rgb = ncomp == 3 && hd.rgb;
+  d->is420 = ncomp == 3 && !d->rgb && hd.hs[0] == 2 && hd.vs[0] == 2 && hd.hs[1] == 1 &&
+             hd.vs[1] == 1 && hd.hs[2] == 1 && hd.vs[2] == 1;
   nvjpegImage_t img;
   memset(&img, 0, sizeof(img));
-  const size_t ysz = (size_t)d->w * d->h, csz = (size_t)d->cw * d->ch;
-  if ((rc = grow(&wk->planes, &wk->planes_cap, ysz + 2 * csz)) != 0) return rc;
-  img.channel[0] = wk->planes;
-  img.pitch[0] = d->w;
-  if (three) {
-    img.channel[1] = wk->planes + ysz;
-    img.channel[2] = wk->planes + ysz + csz;
-    img.pitch[1] = img.pitch[2] = d->cw;
+  if ((rc = grow(&wk->planes, &wk->planes_cap, total)) != 0) return rc;
+  size_t at = 0;
+  for (int c = 0; c < ncomp; ++c) {
+    img.channel[c] = wk->planes + at;
+    img.pitch[c] = d->planes[c].w;
+    at += (size_t)d->planes[c].w * d->planes[c].h;
   }
   return nvjpeg_rc("nvjpegDecode",
                    nvjpegDecode(g_handle, wk->state, jpeg, len,
-                                three ? NVJPEG_OUTPUT_YUV : NVJPEG_OUTPUT_Y, &img, wk->stream));
+                                ncomp == 3 ? NVJPEG_OUTPUT_YUV : NVJPEG_OUTPUT_Y, &img,
+                                wk->stream));
 }
 
 // The decoded frame as RGB (oh x ow x 3) in the worker's rgb buffer.
-int to_rgb(Worker* wk, const Decoded& d) {
+int to_rgb(Worker* wk, Decoded& d) {
   if (const int rc = grow(&wk->rgb, &wk->rgb_cap, (size_t)d.ow * d.oh * 3)) return rc;
+  size_t at = 0;
+  for (int c = 0; c < d.ncomp; ++c) {
+    d.planes[c].p = wk->planes + at;
+    at += (size_t)d.planes[c].w * d.planes[c].h;
+  }
   const dim3 blk(32, 8);
-  const int shift = 2 * log2i(d.f);
-  const uint8_t* Y = wk->planes;
-  const uint8_t* U = d.sh ? Y + (size_t)d.w * d.h : nullptr;
-  const uint8_t* V = d.sh ? U + (size_t)d.cw * d.ch : nullptr;
   k_rgb_from_planes<<<grid_of(d.ow, d.oh, blk), blk, 0, wk->stream>>>(
-      Y, U, V, d.w, d.h, d.cw, d.ch, d.sh, d.sv, d.f, shift, d.rgb, wk->rgb, d.ow, d.oh);
+      d.planes[0], d.planes[d.ncomp == 3 ? 1 : 0], d.planes[d.ncomp == 3 ? 2 : 0], d.ncomp,
+      d.rgb, wk->rgb, d.ow, d.oh);
   const cudaError_t e = cudaGetLastError();
   return e == cudaSuccess ? 0 : cuda_fault(kCuda, "kernel launch", e);
 }
-
 int copy_rect(uint8_t* dst, size_t dpitch, const uint8_t* src, size_t spitch, size_t width,
               size_t height, cudaStream_t s) {
   const cudaError_t e = cudaMemcpy2DAsync(dst, dpitch, src, spitch, width, height,
@@ -489,12 +508,13 @@ int decode_yuv420_into(Worker* wk, const uint8_t* jpeg, unsigned long len, uint8
   // MCU-padded width within the buffer.
   const bool raw = rc == 0 && d.is420 && d.f == 1 && ((d.w + 15) / 16) * 16 <= max_w;
   if (raw) {
+    const int cw = d.planes[1].w, ch = d.planes[1].h;
     const uint8_t* Y = wk->planes;
     const uint8_t* U = Y + (size_t)d.w * d.h;
-    const uint8_t* V = U + (size_t)d.cw * d.ch;
+    const uint8_t* V = U + (size_t)cw * ch;
     rc = copy_rect(out_y, max_w, Y, d.w, d.w, d.h, wk->stream);
-    if (rc == 0) rc = copy_rect(out_u, cp, U, d.cw, d.cw, d.ch, wk->stream);
-    if (rc == 0) rc = copy_rect(out_v, cp, V, d.cw, d.cw, d.ch, wk->stream);
+    if (rc == 0) rc = copy_rect(out_u, cp, U, cw, cw, ch, wk->stream);
+    if (rc == 0) rc = copy_rect(out_v, cp, V, cw, cw, ch, wk->stream);
   } else if (rc == 0) {
     rc = to_rgb(wk, d);
     const int cow = (d.ow + 1) / 2, coh = (d.oh + 1) / 2;
@@ -612,19 +632,65 @@ int cvm_decode_planes(const uint8_t* jpeg, unsigned long len, int num, uint8_t* 
   if (wk == nullptr) return kNoStart;
   Decoded d;
   int rc = decode_planes(wk, jpeg, len, 1 << 20, 1 << 20, 0, 0, &d);
-  const size_t ysz = (size_t)d.w * d.h, csz = d.sh ? (size_t)d.cw * d.ch : 0;
-  if (rc == 0 && ysz + 2 * csz > cap) rc = kTooLarge;
-  if (rc == 0) rc = copy_rect(out, ysz + 2 * csz, wk->planes, ysz + 2 * csz, ysz + 2 * csz, 1,
-                              wk->stream);
+  size_t total = 0;
+  for (int c = 0; rc == 0 && c < d.ncomp; ++c) total += (size_t)d.planes[c].w * d.planes[c].h;
+  if (rc == 0 && total > cap) rc = kTooLarge;
+  if (rc == 0) rc = copy_rect(out, total, wk->planes, total, total, 1, wk->stream);
   rc = finish(wk, rc);
   release(wk);
   if (rc == 0) {
-    dims[0] = d.sh ? 3 : 1;
-    dims[1] = d.h;
-    dims[2] = d.w;
-    dims[3] = dims[5] = d.ch;
-    dims[4] = dims[6] = d.cw;
+    dims[0] = d.ncomp;
+    for (int c = 0; c < d.ncomp; ++c) {
+      dims[1 + 2 * c] = d.planes[c].h;
+      dims[2 + 2 * c] = d.planes[c].w;
+    }
   }
+  return rc;
+}
+
+// What nvJPEG itself makes of one JPEG, for a layout the decoder refuses:
+// info = {nvjpegGetImageInfo's status, its component count and chroma
+// subsampling (nvjpegChromaSubsampling_t), the width and height of
+// components 0-2, and nvjpegDecode's status with NVJPEG_OUTPUT_YUV (or
+// _Y for one component) into planes of those sizes (-1 when not tried)}.
+// Returns 0, or a fault of the decoder (4-6).
+int cvm_decode_info(const uint8_t* jpeg, unsigned long len, int* info) {
+  for (int k = 0; k < 10; ++k) info[k] = -1;
+  if (!ensure_handle()) return kNoStart;
+  const cudaError_t e = cudaSetDevice(g_device);
+  if (e != cudaSuccess) return cuda_fault(kNoStart, "cudaSetDevice", e);
+  int ncomp = 0;
+  nvjpegChromaSubsampling_t css;
+  int widths[NVJPEG_MAX_COMPONENT], heights[NVJPEG_MAX_COMPONENT];
+  info[0] = (int)nvjpegGetImageInfo(g_handle, jpeg, len, &ncomp, &css, widths, heights);
+  if (info[0] != NVJPEG_STATUS_SUCCESS) return 0;
+  info[1] = ncomp;
+  info[2] = (int)css;
+  for (int c = 0; c < 3 && c < ncomp; ++c) {
+    info[3 + 2 * c] = widths[c];
+    info[4 + 2 * c] = heights[c];
+  }
+  if (ncomp != 1 && ncomp != 3) return 0;
+  Worker* wk = acquire();
+  if (wk == nullptr) return kNoStart;
+  size_t total = 0;
+  for (int c = 0; c < ncomp; ++c) total += (size_t)widths[c] * heights[c];
+  int rc = grow(&wk->planes, &wk->planes_cap, total);
+  if (rc == 0) {
+    nvjpegImage_t img;
+    memset(&img, 0, sizeof(img));
+    size_t at = 0;
+    for (int c = 0; c < ncomp; ++c) {
+      img.channel[c] = wk->planes + at;
+      img.pitch[c] = widths[c];
+      at += (size_t)widths[c] * heights[c];
+    }
+    info[9] = (int)nvjpegDecode(g_handle, wk->state, jpeg, len,
+                                ncomp == 3 ? NVJPEG_OUTPUT_YUV : NVJPEG_OUTPUT_Y, &img,
+                                wk->stream);
+  }
+  rc = finish(wk, rc);
+  release(wk);
   return rc;
 }
 

@@ -52,6 +52,9 @@ def _declare_nvjpeg(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.cvm_decode_set_device.argtypes = [ctypes.c_int]
     lib.cvm_decode_last_error.restype = ctypes.c_char_p
     lib.cvm_decode_last_error.argtypes = []
+    lib.cvm_decode_info.restype = ctypes.c_int
+    lib.cvm_decode_info.argtypes = [ctypes.c_char_p, ctypes.c_ulong,
+                                    ctypes.POINTER(ctypes.c_int)]
     return lib
 
 
@@ -233,6 +236,24 @@ def decode_jpeg_planes(jpeg: bytes, num: int = 8, device: DeviceLike = "cpu"):
         planes.append(out[at:at + ph * pw].reshape(ph, pw).copy())
         at += ph * pw
     return planes
+
+
+def nvjpeg_verdict(jpeg: bytes, device: DeviceLike = "cuda") -> dict:
+    """What nvJPEG itself makes of one JPEG on the card (``cvm_decode_info``):
+    ``nvjpegGetImageInfo``'s status, component count, chroma subsampling
+    (``nvjpegChromaSubsampling_t``) and component sizes, and the status of
+    ``nvjpegDecode`` into planes of those sizes (-1 when not tried). For
+    the layouts the card's decoder refuses."""
+    if resolve_device(device).type == "cpu":
+        raise ValueError("nvjpeg_verdict needs a CUDA device")
+    lib = get_lib(device)
+    info = np.zeros(10, np.int32)
+    rc = lib.cvm_decode_info(jpeg, len(jpeg), info.ctypes.data_as(ctypes.POINTER(ctypes.c_int)))
+    if rc != 0:
+        _undecoded(lib, np.asarray([rc]), device)
+    i = info.tolist()
+    return {"info_status": i[0], "components": i[1], "subsampling": i[2],
+            "sizes_wh": [i[3:5], i[5:7], i[7:9]], "decode_status": i[9]}
 
 
 def _rgb_to_yuv420_np(rgb: np.ndarray):

@@ -499,7 +499,8 @@ def _to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, 
 
 
 def prefetch_to_device(iterator: Iterable[Dict[str, np.ndarray]], device: torch.device,
-                       depth: int = 2) -> Iterator[Dict[str, torch.Tensor]]:
+                       depth: int = 2, stage: Optional[list] = None
+                       ) -> Iterator[Dict[str, torch.Tensor]]:
     """Yield the host batches (dicts of numpy arrays) as tensors on
     ``device``, with ``depth`` copies issued ahead of consumption.
 
@@ -508,16 +509,32 @@ def prefetch_to_device(iterator: Iterable[Dict[str, np.ndarray]], device: torch.
     batches overlap the current step; the caching host allocator keeps a
     pinned buffer until its copy has finished. On the CPU the arrays are
     wrapped without a copy.
+
+    ``stage``: a one-element list shared with the stall watchdog
+    (``train/loop.py::Trainer.fit``), set to "await_batch" while the host
+    iterator is waited on and "transfer" while a batch is handed to the
+    device, as the reference's is: a stall in the first is the input
+    pipeline's, in the second the device's.
     """
+    st = stage if stage is not None else [None]
+
+    def pull_and_put():
+        st[0] = "await_batch"
+        batch = next(it)
+        st[0] = "transfer"
+        return _to_device(batch, device)
+
     buf: collections.deque = collections.deque()
     it = iter(iterator)
-    for batch in it:
-        buf.append(_to_device(batch, device))
-        if len(buf) >= depth:
-            break
+    try:
+        for _ in range(depth):
+            buf.append(pull_and_put())
+    except StopIteration:
+        pass
     while buf:
         out = buf.popleft()
-        nxt = next(it, None)
-        if nxt is not None:
-            buf.append(_to_device(nxt, device))
+        try:
+            buf.append(pull_and_put())
+        except StopIteration:
+            pass
         yield out

@@ -30,7 +30,8 @@ class CenterNet(nn.Module):
     def __init__(self, params: CenternetParams):
         super().__init__()
         p = self.params = params
-        self.backbone = make_backbone(p.backbone, p.space_to_depth_stem)
+        self.backbone = make_backbone(p.backbone, p.space_to_depth_stem,
+                                      remat=getattr(p, "remat", False))
         w = self.backbone.widths
         skip_ch = {16: w[3], 8: w[2], 4: w[1], 2: w[0]}
         ch, s, i = w[4], 32, 0

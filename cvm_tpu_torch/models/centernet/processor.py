@@ -14,7 +14,9 @@ With ``with_3d`` and 3D labels in the batch (``loc3d``, ``dims3d``,
 yaw as (sin, cos), the cosine negated on horizontally flipped samples (a
 mirrored camera sees ry -> pi - ry). Depth is not corrected for the
 augmentation's zoom (the CenterNet ddd convention); rotation augmentation
-is refused with the reference's message.
+is refused with the reference's message. Without them, ``aug_rotate_deg >
+0`` rolls each training image, and its boxes become the axis-aligned box
+of their rotated corners, clipped to the canvas.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ import torch
 from cvm_tpu_torch.models.centernet.params import CenternetParams
 from cvm_tpu_torch.ops.cuda.gaussian_splat import render_heatmap, render_heatmap_reference
 from cvm_tpu_torch.ops.heatmap import CenternetTargets, render_centernet_targets_batch
-from cvm_tpu_torch.ops.image import map_boxes_to_output
-from cvm_tpu_torch.pipeline.preprocess import AugDraws, preprocess_with_rois, refuse_rotation
+from cvm_tpu_torch.ops.image import clip_boxes, map_boxes_to_output, rotate_boxes
+from cvm_tpu_torch.pipeline.preprocess import AugDraws, preprocess_with_rois
 
 Processor = Callable[..., Tuple[torch.Tensor, CenternetTargets]]
 
@@ -47,13 +49,20 @@ def make_processor(params: CenternetParams, train: bool) -> Processor:
             "aug_rotate_deg is incompatible with with_3d: monocular yaw and "
             "back-projection assume an unrolled camera (keep rotation off "
             "for 3D configs, like the tight aug_scale_range guidance)")
-    refuse_rotation(params)
+    out_hw = params.input_hw
     splat = render_heatmap if params.use_pallas_splat else render_heatmap_reference
 
     def process(generator: Optional[torch.Generator], batch,
                 draws: Optional[AugDraws] = None) -> Tuple[torch.Tensor, CenternetTargets]:
-        images, rois = preprocess_with_rois(params, train, generator, batch, draws)
-        boxes = map_boxes_to_output(batch["boxes"], rois) / params.stride
+        images, rois, angles = preprocess_with_rois(params, train, generator, batch, draws)
+        out_boxes = map_boxes_to_output(batch["boxes"], rois)
+        if angles is not None:
+            # Rotated boxes spill past the canvas: clipped, so that the size
+            # targets cover visible pixels (a box rotated out of frame
+            # degenerates and the renderer drops it).
+            center = ((out_hw[1] - 1) / 2.0, (out_hw[0] - 1) / 2.0)
+            out_boxes = clip_boxes(rotate_boxes(out_boxes, angles, center), out_hw)
+        boxes = out_boxes / params.stride
         K = boxes.shape[1]
         valid = (torch.arange(K, device=boxes.device)[None, :]
                  < batch["num_objects"][:, None])

@@ -34,7 +34,8 @@ class DepthNet(nn.Module):
     def __init__(self, params: DepthParams):
         super().__init__()
         p = self.params = params
-        self.backbone = make_backbone(p.backbone, p.space_to_depth_stem)
+        self.backbone = make_backbone(p.backbone, p.space_to_depth_stem,
+                                      remat=getattr(p, "remat", False))
         w, f = self.backbone.widths, p.decoder_features
         ch = w[4]
         for i, (skip, width) in enumerate(((w[3], f * 4), (w[2], f * 2), (w[1], f * 2),

@@ -19,7 +19,7 @@ import torch
 from cvm_tpu_torch.models.dmds.params import DmdsParams
 from cvm_tpu_torch.ops.image import RoiDraws, draw_roi, sample_bilinear
 from cvm_tpu_torch.ops.warp import scale_intrinsics
-from cvm_tpu_torch.pipeline.preprocess import make_rois, refuse_rotation, resample_yuv420_frame
+from cvm_tpu_torch.pipeline.preprocess import make_rois, resample_yuv420_frame
 
 
 def make_processor(params: DmdsParams, train: bool) -> Callable[..., Tuple]:
@@ -27,7 +27,6 @@ def make_processor(params: DmdsParams, train: bool) -> Callable[..., Tuple]:
     6), {"frames": (B, H, W, 6) in [0, 1], "intrinsics": (B, 4)})``. In
     training the ROI jitter is ``draws`` (a ``RoiDraws``) when given, else
     drawn from ``generator``; eval takes neither."""
-    refuse_rotation(params)
     out_hw = params.input_hw
 
     def process(generator: Optional[torch.Generator], batch,

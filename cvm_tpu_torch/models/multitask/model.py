@@ -33,7 +33,8 @@ class MultitaskNet(nn.Module):
     def __init__(self, params: MultitaskParams):
         super().__init__()
         p = self.params = params
-        self.backbone = make_backbone(p.backbone, p.space_to_depth_stem)
+        self.backbone = make_backbone(p.backbone, p.space_to_depth_stem,
+                                      remat=getattr(p, "remat", False))
         w, f, hf = self.backbone.widths, p.neck_features, p.head_features
         self.up16 = UpBlock(w[4], w[3], f * 2)
         self.up8 = UpBlock(f * 2, w[2], f * 2)

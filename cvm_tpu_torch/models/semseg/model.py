@@ -31,7 +31,8 @@ class SemsegNet(nn.Module):
                 "spatial_shard: the H-sharded halo conv (parallel/spatial.py) is on "
                 "ROADMAP's \"Not to port\" list; the port runs the head unsharded")
         p = self.params = params
-        self.backbone = make_backbone(p.backbone, p.space_to_depth_stem)
+        self.backbone = make_backbone(p.backbone, p.space_to_depth_stem,
+                                      remat=getattr(p, "remat", False))
         w, f = self.backbone.widths, p.decoder_features
         self.up16 = UpBlock(w[4], w[3], f * 4)
         self.up8 = UpBlock(f * 4, w[2], f * 2)

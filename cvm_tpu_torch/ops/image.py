@@ -3,10 +3,11 @@ mapping, photometric augmentation.
 
 Mirrors ``cvm_tpu/ops/image.py`` (``Roi``, ``full_roi``, ``letterbox_roi``,
 ``jittered_roi``, ``_axis_coords``, ``sample_bilinear``, ``sample_nearest``,
-``yuv_to_rgb``,
-``chroma_roi``, ``normalize_pm1``, ``map_points_to_input``,
-``map_boxes_to_input``, ``map_points_to_output``, ``map_boxes_to_output``,
-``clip_boxes``, ``photometric_augment``) with the same geometry: cv2
+``letterbox``, ``yuv_to_rgb``, ``chroma_roi``, ``normalize_pm1``,
+``normalize_imagenet``, ``map_points_to_input``, ``map_boxes_to_input``,
+``map_points_to_output``, ``map_boxes_to_output``, ``clip_boxes``,
+``rotate_points``, ``rotate_boxes``, ``rotate_image``,
+``photometric_augment``) with the same geometry: cv2
 INTER_LINEAR half-pixel centres,
 
     src = (dst + 0.5) * (src_extent / dst_extent) - 0.5 + src_origin,
@@ -22,7 +23,7 @@ Each random augmentation is split into its *draws* (``draw_roi``,
 ``torch.Generator`` on the batch's device) and a deterministic core
 (``jittered_roi``, ``photometric_augment``) that takes them. JAX's random
 streams cannot be reproduced in torch; the split lets a test feed the core
-the numbers ``jax.random`` drew. Rotation (``rotate_*``) is not ported.
+the numbers ``jax.random`` drew.
 """
 
 from __future__ import annotations
@@ -209,6 +210,14 @@ def sample_nearest(image: torch.Tensor, roi: Roi, out_hw: Tuple[int, int],
                                                  device=image.device))
 
 
+def letterbox(image: torch.Tensor, h, w, out_hw: Tuple[int, int],
+              pad_value: float = 0.0) -> Tuple[torch.Tensor, Roi]:
+    """Letterbox-resize padded buffers (B, H, W, C) whose valid extents are
+    ``h``, ``w`` ((B,) each). Returns (image, roi)."""
+    roi = letterbox_roi(h, w, out_hw[0], out_hw[1])
+    return sample_bilinear(image, roi, out_hw, valid_hw=(h, w), pad_value=pad_value), roi
+
+
 def yuv_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Full-range JFIF YCbCr -> RGB (libjpeg's colour convert); y/u/v are
     (..., H, W) float planes on 0..255 with chroma at luma resolution."""
@@ -225,6 +234,17 @@ def chroma_roi(roi: Roi) -> Roi:
     siting: the half-pixel algebra reduces to halving the source window)."""
     return roi._replace(src_y0=roi.src_y0 * 0.5, src_x0=roi.src_x0 * 0.5,
                         src_h=roi.src_h * 0.5, src_w=roi.src_w * 0.5)
+
+
+IMAGENET_MEAN = (0.485 * 255.0, 0.456 * 255.0, 0.406 * 255.0)
+IMAGENET_STD = (0.229 * 255.0, 0.224 * 255.0, 0.225 * 255.0)
+
+
+def normalize_imagenet(image: torch.Tensor) -> torch.Tensor:
+    """(x - mean) / std with ImageNet statistics on the 0..255 scale."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=image.device)
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=image.device)
+    return (image.to(torch.float32) - mean) / std
 
 
 def normalize_pm1(image: torch.Tensor) -> torch.Tensor:
@@ -264,6 +284,73 @@ def clip_boxes(boxes: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     x = torch.clamp(boxes[..., 0::2], 0.0, float(w - 1))
     y = torch.clamp(boxes[..., 1::2], 0.0, float(h - 1))
     return torch.stack([x[..., 0], y[..., 0], x[..., 1], y[..., 1]], dim=-1)
+
+
+def rotate_points(points: torch.Tensor, angle, center_xy) -> torch.Tensor:
+    """Rotate (..., 2) [x, y] points by ``angle`` (radians, counter-clockwise
+    in image coordinates: p -> R(angle)(p - c) + c) about ``center_xy``.
+    A tensor ``angle`` of shape (B,) rotates the points of row b by
+    angle[b]."""
+    angle = torch.as_tensor(angle, dtype=torch.float32, device=points.device)
+    angle = angle.reshape(angle.shape + (1,) * (points.dim() - 1 - angle.dim()))
+    c, s = torch.cos(angle), torch.sin(angle)
+    x = points[..., 0] - center_xy[0]
+    y = points[..., 1] - center_xy[1]
+    return torch.stack([c * x - s * y + center_xy[0], s * x + c * y + center_xy[1]], -1)
+
+
+def rotate_boxes(boxes: torch.Tensor, angle, center_xy) -> torch.Tensor:
+    """The axis-aligned box of the rotated corners of (..., 4) [x0, y0, x1,
+    y1] boxes (the label transform of rotation augmentation)."""
+    x0, y0, x1, y1 = boxes.unbind(-1)
+    corners = torch.stack([torch.stack([x0, y0], -1), torch.stack([x1, y0], -1),
+                           torch.stack([x0, y1], -1), torch.stack([x1, y1], -1)], -2)
+    r = rotate_points(corners, angle, center_xy)
+    return torch.cat([r.amin(-2), r.amax(-2)], -1)
+
+
+def rotate_image(image: torch.Tensor, angle: torch.Tensor, pad_value=0.0,
+                 method: str = "bilinear") -> torch.Tensor:
+    """Rotate each image of (B, H, W[, C]) by its angle[b] ((B,) radians)
+    about the image centre, as ``rotate_points`` maps points; pixels from
+    outside the frame are ``pad_value``. ``method="nearest"`` keeps the
+    input dtype (masks, class ids, sparse depth); bilinear returns the input
+    dtype for floats, else float32."""
+    B, H, W = image.shape[:3]
+    dev = image.device
+    cy, cx = (H - 1) / 2.0, (W - 1) / 2.0
+    yy = torch.arange(H, dtype=torch.float32, device=dev)[None, :, None]
+    xx = torch.arange(W, dtype=torch.float32, device=dev)[None, None, :]
+    angle = angle.to(device=dev, dtype=torch.float32).reshape(B, 1, 1)
+    c, s = torch.cos(angle), torch.sin(angle)
+    dx, dy = xx - cx, yy - cy
+    # The inverse map: output pixel dst shows the input at R(-angle)(dst - c) + c.
+    sxf = c * dx + s * dy + cx
+    syf = -s * dx + c * dy + cy
+    inside = (sxf >= -0.5) & (sxf <= W - 0.5) & (syf >= -0.5) & (syf <= H - 0.5)
+    b = torch.arange(B, device=dev)[:, None, None]
+    if method == "nearest":
+        si = torch.round(syf).to(torch.int64).clamp(0, H - 1)
+        sj = torch.round(sxf).to(torch.int64).clamp(0, W - 1)
+        out = image[b, si, sj]
+        mask = inside if out.dim() == 3 else inside[..., None]
+        return torch.where(mask, out, torch.tensor(pad_value, dtype=image.dtype, device=dev))
+    img = image.to(torch.float32)
+    ylo, xlo = torch.floor(syf), torch.floor(sxf)
+    fy, fx = syf - ylo, sxf - xlo
+    y0 = ylo.to(torch.int64).clamp(0, H - 1)
+    y1 = (y0 + 1).clamp(0, H - 1)
+    x0 = xlo.to(torch.int64).clamp(0, W - 1)
+    x1 = (x0 + 1).clamp(0, W - 1)
+    a, bb = img[b, y0, x0], img[b, y0, x1]
+    cc, d = img[b, y1, x0], img[b, y1, x1]
+    if img.dim() == 4:
+        fy, fx, inside = fy[..., None], fx[..., None], inside[..., None]
+    top = a + (bb - a) * fx
+    bot = cc + (d - cc) * fx
+    out = torch.where(inside, top + (bot - top) * fy,
+                      torch.tensor(float(pad_value), dtype=torch.float32, device=dev))
+    return out.to(image.dtype) if image.is_floating_point() else out
 
 
 def map_points_to_input(points: torch.Tensor, roi: Roi) -> torch.Tensor:

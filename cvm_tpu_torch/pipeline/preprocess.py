@@ -4,17 +4,19 @@ normalized NHWC batch.
 
 Mirrors ``cvm_tpu/pipeline/preprocess.py`` (``AugConfig``,
 ``aug_from_params``, ``sample_rotation``, ``make_rois``,
-``preprocess_image_batch``, ``preprocess_batch``, ``resample_yuv420_frame``,
-``preprocess_yuv420_batch``). Where the reference takes a JAX key and a
+``rotate_image_batch``, ``preprocess_image_batch``, ``preprocess_batch``,
+``resample_yuv420_frame``, ``preprocess_yuv420_batch``). Where the
+reference takes a JAX key and a
 ``train`` flag, these functions take ``draws``: ``None`` for the eval path,
 or the ``AugDraws`` of a training batch (``draw_augmentation``), so the
 deterministic part can be tested with numbers drawn by ``jax.random``.
 The reference's ``_materialize`` (an XLA ``optimization_barrier`` that stops
 a fusion on the TPU) has no counterpart: PyTorch runs eagerly and
-materializes every result. Rotation (``rotate_image_batch``) is not ported.
-``preprocess_with_rois`` and ``resample_labels`` are what the models'
-processors share: the images through the ROIs, then each per-pixel label
-map (class mask, sparse depth) through the same ROIs, nearest-neighbour.
+materializes every result. ``preprocess_with_rois`` and ``resample_labels``
+are what the models' processors share: the images through the ROIs (and,
+with ``aug_rotate_deg > 0`` in training, rotated by the batch's roll
+angles), then each per-pixel label map (class mask, sparse depth) through
+the same ROIs, nearest-neighbour, and through the same roll.
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ import torch
 
 from cvm_tpu_torch.ops.image import (PhotoDraws, Roi, RoiDraws, chroma_roi, draw_photometric,
                                      draw_roi, jittered_roi, letterbox_roi, normalize_pm1,
-                                     photometric_augment, sample_bilinear, sample_nearest,
-                                     yuv_to_rgb)
+                                     photometric_augment, rotate_image, sample_bilinear,
+                                     sample_nearest, yuv_to_rgb)
 
 
 class AugConfig(NamedTuple):
@@ -65,22 +67,32 @@ def sample_rotation(generator: Optional[torch.Generator], batch_size: int,
     return torch.rand(batch_size, generator=generator, device=generator.device) * (2 * r) - r
 
 
+def rotate_image_batch(images: torch.Tensor, angles: torch.Tensor, pad_value=0.0,
+                       method: str = "bilinear") -> torch.Tensor:
+    """``ops.image.rotate_image`` over the batch: image b by angles[b]."""
+    return rotate_image(images, angles, pad_value, method)
+
+
 class AugDraws(NamedTuple):
-    """Every random number of one training batch's preprocess."""
+    """Every random number of one training batch's preprocess: the ROI
+    jitter, the photometric numbers and the roll angles (radians, (B,);
+    None when rotation is off)."""
 
     roi: RoiDraws
     photo: PhotoDraws
+    angle: Optional[torch.Tensor] = None
 
 
 def draw_augmentation(generator: torch.Generator, batch_size: int,
                       out_hw: Tuple[int, int], aug: AugConfig) -> AugDraws:
-    """Draw a training batch's ROI jitter and photometric numbers from
-    ``generator`` (on the device the batch is on)."""
+    """Draw a training batch's ROI jitter, photometric numbers and roll
+    angles from ``generator`` (on the device the batch is on)."""
     return AugDraws(
         draw_roi(generator, batch_size, aug.scale_range, aug.shift_frac, aug.flip_prob),
         draw_photometric(generator, (batch_size, out_hw[0], out_hw[1], 3), aug.brightness,
                          aug.contrast, aug.saturation, aug.hue, aug.noise_std,
-                         aug.blur_prob))
+                         aug.blur_prob),
+        sample_rotation(generator, batch_size, aug))
 
 
 def make_rois(image_hw: torch.Tensor, out_hw: Tuple[int, int],
@@ -147,23 +159,30 @@ def preprocess_yuv420_batch(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
     return _finish(out, draws, out_dtype), rois
 
 
-def refuse_rotation(params) -> None:
-    """Processors refuse rotation augmentation, which is not ported."""
-    if getattr(params, "aug_rotate_deg", 0.0) > 0.0:
-        raise NotImplementedError("aug_rotate_deg > 0: rotation augmentation is not "
-                                  "ported yet (ROADMAP Queue 1 item 16)")
-
-
 def preprocess_with_rois(params, train: bool, generator: Optional[torch.Generator], batch,
                          draws: Optional[AugDraws]):
-    """The image half of every model's processor: (inputs, rois) through
-    the eval letterbox or, with ``train``, the training jitter and
-    photometric augmentation, its numbers ``draws`` when given, else drawn
-    from ``generator``."""
+    """The image half of every model's processor: (inputs, rois, angles)
+    through the eval letterbox or, with ``train``, the training jitter,
+    photometric augmentation and (``aug_rotate_deg > 0``) the roll by
+    ``angles`` (None when there is none), its numbers ``draws`` when given,
+    else drawn from ``generator``. The caller rolls its labels with the
+    same angles."""
     if train and draws is None:
         draws = draw_augmentation(generator, batch["image_hw"].shape[0], params.input_hw,
                                   aug_from_params(params))
-    return preprocess_batch(batch, params.input_hw, draws=draws if train else None)
+    images, rois = preprocess_batch(batch, params.input_hw, draws=draws if train else None)
+    angles = draws.angle if train else None
+    if angles is not None:
+        images = rotate_image_batch(images, angles)
+    return images, rois, angles
+
+
+def rotate_labels(labels: torch.Tensor, angles: Optional[torch.Tensor], pad_value):
+    """A per-pixel label map rolled with the image (nearest, ``pad_value``
+    where it rotates in from outside); as it is when ``angles`` is None."""
+    if angles is None:
+        return labels
+    return rotate_image_batch(labels, angles, pad_value=pad_value, method="nearest")
 
 
 def resample_labels(batch, key: str, rois, out_hw, pad_value) -> torch.Tensor:

@@ -21,18 +21,42 @@ data and augmentation stream, evaluations in between or not.
 With ``qat=True`` the train and eval steps run their forward under
 ``train/qat.py::maybe_fake_quant``, as the reference's do.
 
-Not ported yet: the mesh and tensor-parallel sharding (ROADMAP Queue 1 item
-17), the stall watchdog and re-exec auto-restart (item 11), TensorBoard
-(item 16).
+The stall watchdog of ``fit`` is the reference's (``_watch``): a thread
+that reports which side stalled when no step has completed for
+``CVM_STALL_THRESHOLD_S`` seconds (120 by default; 1800 before the first
+step): the input pipeline (``await_batch``), or the device (``transfer``,
+``stepping``), and, given ``restart_argv`` and a checkpoint directory,
+re-execs that command (``_maybe_auto_restart``, at most ``max_restarts``
+times, counted in ``CVM_RESTART_COUNT``, which a checkpoint past the
+resume point clears), so that the new process resumes from the newest
+checkpoint. A process that was stopped (SIGSTOP) and resumed sees its
+watcher oversleep and does not count the pause. The time spent waiting
+for a batch is not counted against the device either: the quiet clock
+restarts when a batch arrives (the reference's keeps running, so a watcher
+that wakes between a starved batch's arrival and its step's end takes the
+input's stall for the device's and restarts). A step "completes" when
+the device has run it: on a card ``fit`` records a CUDA event after each
+step and waits for the event ``MAX_INFLIGHT`` steps back (the reference's
+``inflight`` deque), so the host runs at most that far ahead and the
+heartbeat is the device's, not the host's enqueueing.
+
+``debug_nans`` (``cli.train --debug_nans``, the reference's
+``jax_debug_nans``) checks every step on the host and raises
+``FloatingPointError`` at the first step whose model outputs, loss,
+gradients or updated parameters are not finite, naming the step and the
+tensors. The mesh and tensor-parallel sharding are not ported (ROADMAP
+Queue 1 item 17).
 """
 
 from __future__ import annotations
 
 import copy
+import os
 import sys
+import threading
 import time
 from collections import deque
-from typing import Callable, Dict, Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,7 +65,7 @@ import torch.nn as nn
 from cvm_tpu_torch.data.loader import prefetch_to_device
 from cvm_tpu_torch.models.registry import build_model, get_model
 from cvm_tpu_torch.train.checkpoints import CheckpointManager
-from cvm_tpu_torch.train.metrics import JsonlMetricsWriter
+from cvm_tpu_torch.train.metrics import JsonlMetricsWriter, MultiWriter
 from cvm_tpu_torch.train.optim import Optimizer, global_norm, make_optimizer
 from cvm_tpu_torch.train.qat import maybe_fake_quant
 from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -84,11 +108,27 @@ def _param_grads(loss: torch.Tensor, state: TrainState):
     return tuple(torch.zeros_like(p) if g is None else g for p, g in zip(state.params, grads))
 
 
-def make_train_step(loss_fn: Callable, params_cfg, processor: Callable) -> Callable:
+def _raise_non_finite(step: int, what: str, named: Dict[str, torch.Tensor]) -> None:
+    """FloatingPointError naming the tensors of ``named`` that hold a NaN or
+    an infinity (one host sync for all of them)."""
+    names = list(named)
+    if not names:
+        return
+    ok = torch.stack([torch.isfinite(t).all() for t in named.values()]).cpu()
+    bad = [n for n, good in zip(names, ok.tolist()) if not good]
+    if bad:
+        raise FloatingPointError(f"--debug_nans: step {step}: non-finite {what}: {bad}")
+
+
+def make_train_step(loss_fn: Callable, params_cfg, processor: Callable,
+                    debug_nans: bool = False) -> Callable:
     """Returns ``train_step(state, raw_batch, generator) -> (state,
     metrics)``; the state is updated in place. ``grad_norm`` is the global
     norm of the raw gradients; the EMA moves only on steps where the
-    optimizer applied an update (with gradient accumulation, every k-th)."""
+    optimizer applied an update (with gradient accumulation, every k-th).
+    With ``debug_nans`` the step raises ``FloatingPointError`` at the first
+    of its model outputs, loss, gradients and updated parameters that is
+    not finite (the reference's ``jax_debug_nans``)."""
     ema_decay = getattr(params_cfg, "ema_decay", 0.0)
 
     def train_step(state: TrainState, raw_batch, generator: torch.Generator):
@@ -98,10 +138,20 @@ def make_train_step(loss_fn: Callable, params_cfg, processor: Callable) -> Calla
             # qat=True: the loss surface includes the int8 rounding noise.
             out = state.model(inputs)
         loss, metrics = loss_fn(out, targets, params_cfg)
+        step = state.step + 1
+        if debug_nans:
+            _raise_non_finite(step, "model outputs", {k: v for k, v in out.items()
+                                                      if torch.is_tensor(v)})
+            _raise_non_finite(step, "loss", {"loss": loss})
         grads = _param_grads(loss, state)
+        if debug_nans:
+            names = [n for n, _ in state.model.named_parameters()]
+            _raise_non_finite(step, "gradients", dict(zip(names, grads)))
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["grad_norm"] = global_norm(grads)
         applied = state.optimizer.step(grads)
+        if debug_nans:
+            _raise_non_finite(step, "updated parameters", dict(zip(names, state.params)))
         if ema_decay > 0.0 and applied:
             with torch.no_grad():
                 torch._foreach_mul_(state.ema, ema_decay)
@@ -149,22 +199,47 @@ def step_generator(device: torch.device, seed: int, step: int) -> torch.Generato
 class Trainer:
     """Steps, checkpoints and metrics for one model on one device; the
     counterpart of the reference's ``Trainer`` (without the mesh). The
-    model is the registry's entry named ``params_cfg.name``."""
+    model is the registry's entry named ``params_cfg.name``.
+
+    ``tensorboard_dir`` adds a TensorBoard event writer beside the JSONL
+    one (``metrics_writer`` is then a ``MultiWriter``). ``restart_argv``
+    (a command line, ``cli.train --auto_restart``) arms the watchdog's
+    re-exec, at most ``max_restarts`` times. ``tx`` builds the optimizer
+    from the parameter list in place of the config's (the LR finder's
+    sweep)."""
+
+    # Steps the host may enqueue ahead of the device before it waits: the
+    # bound on the run-ahead that makes the watchdog's heartbeat the device's.
+    MAX_INFLIGHT = 8
 
     def __init__(self, params_cfg, device: DeviceLike,
                  checkpoint_dir: Optional[str] = None, metrics_path: Optional[str] = None,
+                 tensorboard_dir: Optional[str] = None,
                  keep_checkpoints: int = 3, checkpoint_every: int = 1000, log_every: int = 50,
-                 seed: int = 0):
+                 seed: int = 0, restart_argv: Optional[Sequence[str]] = None,
+                 max_restarts: int = 3, debug_nans: bool = False,
+                 tx: Optional[Callable[[List[torch.Tensor]], Optimizer]] = None):
         self.cfg = params_cfg
         self.device = resolve_device(device)
         self.spec = get_model(params_cfg.name)
         self.processor = self.spec.make_processor(params_cfg, train=True)
-        self.train_step = make_train_step(self.spec.loss_fn, params_cfg, self.processor)
+        self.train_step = make_train_step(self.spec.loss_fn, params_cfg, self.processor,
+                                          debug_nans=debug_nans)
         self.log_every, self.checkpoint_every, self.seed = log_every, checkpoint_every, seed
+        self.restart_argv = None if restart_argv is None else list(restart_argv)
+        self.max_restarts = max_restarts
+        self.tx = tx
         self.data_state = None      # data stream state restored from a checkpoint
         self._stop_requested = False
-        self.metrics_writer = (None if metrics_path is None
-                               else JsonlMetricsWriter(metrics_path))
+        writers = []
+        if metrics_path is not None:
+            writers.append(JsonlMetricsWriter(metrics_path))
+        if tensorboard_dir is not None:
+            from cvm_tpu_torch.train.tensorboard import TensorBoardWriter
+
+            writers.append(TensorBoardWriter(tensorboard_dir))
+        self.metrics_writer = (None if not writers else writers[0] if len(writers) == 1
+                               else MultiWriter(*writers))
         self.ckpt = (None if checkpoint_dir is None
                      else CheckpointManager(checkpoint_dir, keep=keep_checkpoints,
                                             params_cfg=params_cfg))
@@ -204,11 +279,14 @@ class Trainer:
         restore the newest checkpoint when there is one."""
         cfg = self.cfg
         model = build_model(self.spec, cfg, self.device, torch.Generator().manual_seed(self.seed))
-        opt = make_optimizer(list(model.parameters()), cfg.learning_rate, cfg.total_steps,
-                             cfg.warmup_steps, cfg.weight_decay,
-                             grad_accum_steps=getattr(cfg, "grad_accum_steps", 1),
-                             lr_schedule=getattr(cfg, "lr_schedule", "warmup_cosine"),
-                             optimizer=getattr(cfg, "optimizer", "adamw"))
+        if self.tx is not None:
+            opt = self.tx(list(model.parameters()))
+        else:
+            opt = make_optimizer(list(model.parameters()), cfg.learning_rate, cfg.total_steps,
+                                 cfg.warmup_steps, cfg.weight_decay,
+                                 grad_accum_steps=getattr(cfg, "grad_accum_steps", 1),
+                                 lr_schedule=getattr(cfg, "lr_schedule", "warmup_cosine"),
+                                 optimizer=getattr(cfg, "optimizer", "adamw"))
         self.state = create_train_state(model, cfg, opt)
         if self.ckpt is not None:
             ck = self.ckpt.restore_latest(map_location=self.device)
@@ -255,6 +333,72 @@ class Trainer:
     def _save(self, data_state) -> None:
         self.ckpt.save(self.state.step, self.checkpoint_state(data_state))
 
+    def _maybe_auto_restart(self, quiet_s: float) -> None:
+        """Device-stall recovery: re-exec ``restart_argv`` (bounded retries).
+
+        A stalled device cannot be interrupted from Python; exec replaces
+        the whole process image, and the new one resumes from the newest
+        checkpoint in ``init_state``. Progress since that checkpoint is
+        lost. Does nothing without ``restart_argv`` or a checkpoint
+        directory. The count of restarts crosses the exec in
+        ``CVM_RESTART_COUNT``."""
+        if self.restart_argv is None or self.ckpt is None:
+            return
+        count = int(os.environ.get("CVM_RESTART_COUNT", "0"))
+        if count >= self.max_restarts:
+            print(f"[cvm_tpu_torch] device stalled again after {count} restarts — giving up "
+                  "on auto-recovery (persistent device failure)", file=sys.stderr, flush=True)
+            return
+        step = self.ckpt.latest_step()
+        os.environ["CVM_RESTART_COUNT"] = str(count + 1)
+        print(f"[cvm_tpu_torch] AUTO-RESTART {count + 1}/{self.max_restarts}: device stalled "
+              f"{quiet_s:.0f}s; re-exec'ing to resume from checkpoint step {step}: "
+              f"{' '.join(self.restart_argv)}", file=sys.stderr, flush=True)
+        try:
+            os.execv(self.restart_argv[0], self.restart_argv)
+        except OSError as e:  # the exec failed: warn only, as without restart_argv
+            print(f"[cvm_tpu_torch] auto-restart exec failed: {e}", file=sys.stderr, flush=True)
+
+    def _watch(self, heartbeat: list, loop_stage: list, done: threading.Event,
+               stall_s: float) -> None:
+        """The watchdog thread of ``fit`` (the reference's ``_watch``).
+        ``heartbeat`` is [monotonic time of the last completed step, whether
+        a step has completed]; ``loop_stage`` [the loop's stage]."""
+        interval = min(30.0, stall_s / 2)
+        last_wake = time.monotonic()
+        while not done.wait(interval):
+            now = time.monotonic()
+            # This thread overslept its own wait by far: the process was
+            # stopped (SIGSTOP) or the host froze. The quiet time that
+            # passed says nothing of the device.
+            if now - last_wake > interval + stall_s / 2:
+                heartbeat[0] = now
+                last_wake = now
+                continue
+            last_wake = now
+            quiet = now - heartbeat[0]
+            if quiet <= (stall_s if heartbeat[1] else 1800.0):
+                continue
+            if not heartbeat[1]:
+                print(f"[cvm_tpu_torch] WARNING: first step still not finished in "
+                      f"{quiet:.0f}s (kernel builds can take minutes; stalled if it "
+                      "persists)", file=sys.stderr, flush=True)
+            elif loop_stage[0] == "await_batch":
+                print(f"[cvm_tpu_torch] WARNING: no input batch received in {quiet:.0f}s — "
+                      "the HOST input pipeline is starved or blocked (the device is idle; "
+                      "check the loader and storage, restarting will not help)",
+                      file=sys.stderr, flush=True)
+            elif loop_stage[0] == "transfer":
+                print(f"[cvm_tpu_torch] WARNING: host->device batch transfer not completed "
+                      f"in {quiet:.0f}s — the device looks stalled mid-transfer",
+                      file=sys.stderr, flush=True)
+                self._maybe_auto_restart(quiet)
+            else:
+                print(f"[cvm_tpu_torch] WARNING: no training step completed on the device in "
+                      f"{quiet:.0f}s with input available — the device looks stalled",
+                      file=sys.stderr, flush=True)
+                self._maybe_auto_restart(quiet)
+
     def request_stop(self) -> None:
         """Ask ``fit`` to stop at the next step boundary (signal-handler
         safe: only sets a flag). ``fit`` checkpoints the current step and
@@ -269,12 +413,15 @@ class Trainer:
         """Run ``num_steps`` training steps on host batches from
         ``data_iter``; returns the last metrics (floats, with
         ``steps_per_sec``). Logs at step 1 and every ``log_every`` steps,
-        checkpoints every ``checkpoint_every`` steps and on a stop request."""
+        checkpoints every ``checkpoint_every`` steps and on a stop request,
+        under the stall watchdog."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
         step = self.state.step
         resumable = hasattr(data_iter, "state_dict")
         data_states: deque = deque()
+
+        heartbeat = [time.monotonic(), False]
 
         def pull():
             # Pairs each batch with the stream's state right after it, so a
@@ -285,33 +432,67 @@ class Trainer:
                     batch = next(data_iter)
                 except StopIteration:
                     return
+                # The time spent waiting for this batch was the input's, not
+                # the device's: the device's quiet time starts again here.
+                heartbeat[0] = max(heartbeat[0], time.monotonic())
                 data_states.append(data_iter.state_dict() if resumable else None)
                 yield batch
 
+        on_card = self.device.type == "cuda"
+        loop_stage = ["await_batch"]
+        done = threading.Event()
+        stall_s = float(os.environ.get("CVM_STALL_THRESHOLD_S", "120"))
+        watcher = threading.Thread(target=self._watch,
+                                   args=(heartbeat, loop_stage, done, stall_s), daemon=True)
+        watcher.start()
+        inflight: deque = deque()   # one CUDA event per step not yet waited for
+        resume_step = step          # restart-budget reset point
         last: Dict[str, float] = {}
         metrics = None
         steps_in_window = 0
         t0 = time.perf_counter()
-        for raw in prefetch_to_device(pull(), self.device):
-            data_state = data_states.popleft()
-            gen = step_generator(self.device, self.seed, step)
-            self.state, metrics = self.train_step(self.state, raw, gen)
-            step += 1
-            steps_in_window += 1
-            if step % self.log_every == 0 or step == 1:
-                last = {k: float(v) for k, v in metrics.items()}
-                dt = time.perf_counter() - t0
-                t0 = time.perf_counter()
-                last["steps_per_sec"] = steps_in_window / max(dt, 1e-9)
-                steps_in_window = 0
-                if self.metrics_writer is not None:
-                    self.metrics_writer.write(step, last)
-            if self.ckpt is not None and step % self.checkpoint_every == 0:
-                self._save(data_state)
-            if self._stop_requested:
-                if self.ckpt is not None and step % self.checkpoint_every:
+        try:
+            for raw in prefetch_to_device(pull(), self.device, stage=loop_stage):
+                loop_stage[0] = "stepping"
+                data_state = data_states.popleft()
+                gen = step_generator(self.device, self.seed, step)
+                self.state, metrics = self.train_step(self.state, raw, gen)
+                step += 1
+                steps_in_window += 1
+                if on_card:
+                    ev = torch.cuda.Event()
+                    ev.record()
+                    inflight.append(ev)
+                    if len(inflight) > self.MAX_INFLIGHT:
+                        inflight.popleft().synchronize()
+                        heartbeat[:] = [time.monotonic(), True]
+                else:
+                    heartbeat[:] = [time.monotonic(), True]
+                if step % self.log_every == 0 or step == 1:
+                    last = {k: float(v) for k, v in metrics.items()}
+                    heartbeat[:] = [time.monotonic(), True]
+                    dt = time.perf_counter() - t0
+                    t0 = time.perf_counter()
+                    last["steps_per_sec"] = steps_in_window / max(dt, 1e-9)
+                    steps_in_window = 0
+                    if self.metrics_writer is not None:
+                        self.metrics_writer.write(step, last)
+                if self.ckpt is not None and step % self.checkpoint_every == 0:
                     self._save(data_state)
-                break
+                    if step > resume_step:
+                        # Checkpointed progress past the resume point: the
+                        # restart budget is per stall, not per job.
+                        os.environ.pop("CVM_RESTART_COUNT", None)
+                if self._stop_requested:
+                    if self.ckpt is not None and step % self.checkpoint_every:
+                        self._save(data_state)
+                    break
+                loop_stage[0] = "await_batch"
+        finally:
+            # joined, so that no watcher outlives fit (a daemon thread still
+            # waiting when the interpreter exits can abort the process)
+            done.set()
+            watcher.join()
         if steps_in_window and metrics is not None:
             last = {k: float(v) for k, v in metrics.items()}
             last["steps_per_sec"] = steps_in_window / max(time.perf_counter() - t0, 1e-9)

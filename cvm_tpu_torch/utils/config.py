@@ -3,9 +3,9 @@
 The port's copy of ``cvm_tpu/utils/config.py`` (``parse_hw``,
 ``BaseParams``): the same field names, defaults, CLI parsing and JSON, so
 that a reference ``params.json`` and the port's checkpoints load through
-either. The fields of machinery the port has not ported yet (tensor
-parallelism, QAT, remat, ...) are carried so those files load; the trainer
-refuses them where it would have to act on them.
+either. The field of machinery the port has not ported (tensor
+parallelism) is carried so those files load; ``cli.train`` refuses it
+where it would have to act on it.
 """
 
 from __future__ import annotations

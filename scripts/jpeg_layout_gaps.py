@@ -8,11 +8,15 @@ card's machine, from the root of a checkout; DIR may be ``.``): builds
 decodes at full scale with it the frames of
 ``tests/test_torch_kernels_cuda.py`` (made from the committed fixture):
 4:4:0 and 4:1:1 (``relaid_frames``, odd-sized), RGB and YCbCr 4:4:4 told
-apart by their markers (``color_space_frames``), CMYK and 1x4
-(``refused_frames``). It prints, per checkout and frame, the mean and max
-|d| of its RGB against PIL's decode (libjpeg), or the decoder's return
-code and hw when it did not decode the frame, with the card's name and
-power limit. One JSON line per checkout.
+apart by their markers (``color_space_frames``), CMYK (``refused_frames``),
+and the whole-ratio layouts 1x4, 4:1:0, its vertical twin, 3x1 and a Cr of
+its own ratio (``whole_ratio_frames``). It prints, per checkout and frame,
+the mean and max |d| of its RGB against PIL's decode (libjpeg), or the
+decoder's return code and hw when it did not decode the frame, with the
+card's name and power limit. One JSON line per checkout, then one with
+nvJPEG's own verdict on each frame (``data/jpeg.py::nvjpeg_verdict``:
+status codes of ``nvjpegGetImageInfo`` and ``nvjpegDecode``, chroma
+subsampling enum, component sizes).
 """
 
 from __future__ import annotations
@@ -67,7 +71,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
     from PIL import Image
-    from test_torch_kernels_cuda import color_space_frames, refused_frames, relaid_frames
+    from test_torch_kernels_cuda import (color_space_frames, refused_frames, relaid_frames,
+                                         whole_ratio_frames)
 
     from cvm_tpu_torch.data.images import jpeg_size
 
@@ -77,7 +82,7 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True).stdout
     frames = dict(relaid_frames(), **{k: v for k, (v, _) in color_space_frames().items()},
-                  **refused_frames())
+                  **refused_frames(), **whole_ratio_frames())
     for root in args.roots:
         lib = load_decoder(Path(root))
         res = {}
@@ -92,6 +97,10 @@ def main(argv=None) -> int:
             res[name] = {"hw": [h, w], "mean_abs": float(d.mean()), "max_abs": int(d.max())}
         print(json.dumps({"root": os.path.abspath(root), "card": smi.strip().splitlines()[0],
                           "vs_pil_full_scale": res}), flush=True)
+    from cvm_tpu_torch.data.jpeg import nvjpeg_verdict
+
+    print(json.dumps({"nvjpeg_verdict": {name: nvjpeg_verdict(data)
+                                         for name, data in frames.items()}}), flush=True)
     return 0
 
 

@@ -28,6 +28,7 @@ holding ``convert.convert_variables`` of it).
 """
 
 import contextlib
+import glob
 import io
 import json
 import os
@@ -283,9 +284,18 @@ def test_artifact_refusals_and_tiled(setup, artifact, tmp_path):
     tr = Trainer(cfg, "cpu", checkpoint_dir=str(tmp_path / "sem"))
     tr.init_state()
     tr.ckpt.save(1, tr.checkpoint_state(None))
-    with pytest.raises(SystemExit, match="--tiled is not ported yet.*item 16"):
-        infer_main(base + ["--checkpoint_dir", str(tmp_path / "sem"), "--model", "semseg",
-                           "--tiled"])
+    # --tiled runs now: one line per image at its own size (the held
+    # stitching is tests/test_torch_tiled.py)
+    rc, lines, err = _run(infer_main, base + ["--checkpoint_dir", str(tmp_path / "sem"),
+                                              "--model", "semseg", "--tiled",
+                                              "--visualize", str(tmp_path / "vis")])
+    assert rc == 0, err
+    files = sorted(glob.glob(setup["images"]))
+    assert [r["input"] for r in lines] == [os.path.basename(f) for f in files]
+    for r, f in zip(lines, files):
+        w, h = Image.open(f).size
+        assert r["hw"] == [h, w] and sum(r["class_histogram"]) == h * w
+        assert os.path.exists(os.path.join(tmp_path / "vis", r["input"] + ".classes.png"))
 
 
 def test_per_model_entry_points_and_the_card_default(setup, monkeypatch):

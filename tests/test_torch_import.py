@@ -60,7 +60,10 @@ def test_every_module_imports_with_jax_blocked():
                 "cvm_tpu_torch.cli.doctor", "cvm_tpu_torch.infer.server"} | {
                 f"cvm_tpu_torch.models.dmds.{part}" for part in (
                     "params", "model", "loss", "processor", "train", "evaluate",
-                    "inference")} <= set(_module_names())
+                    "inference")} | {
+                "cvm_tpu_torch.cli.video", "cvm_tpu_torch.cli.lr_find",
+                "cvm_tpu_torch.infer.tiled", "cvm_tpu_torch.train.lr_find",
+                "cvm_tpu_torch.train.tensorboard", "cvm_tpu_torch.utils.prof"} <= set(_module_names())
 
 
 def test_no_source_file_imports_jax_flax_or_the_jax_package():

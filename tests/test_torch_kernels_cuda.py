@@ -528,37 +528,67 @@ def libjpeg_rgb_from_planes(Y, U, V, num):
                    box_mean(V, f // 2, oh, ow))
 
 
-def libjpeg_rgb_440_411(Y, U, V, layout, num, full_scale_planes):
-    """libjpeg's RGB at scale num/8 of a 4:4:0 or 4:1:1 JPEG from its
-    component planes, in numpy. libjpeg decodes their chroma at the luma's
-    DCT scale, then upsamples: 4:4:0 with h1v2_fancy_upsample (each output
-    row (3 * nearer + further chroma row + bias) >> 2, bias 1 for the upper
-    and 2 for the lower row of a pair, the first and last chroma rows
-    replicated beyond the edge) while the scale is above 1/8, rows
-    replicated at 1/8; 4:1:1 with int_upsample (each sample 4 times across,
-    at every scale); then its YCbCr -> RGB tables. ``full_scale_planes``:
-    the planes are at full scale (nvJPEG's) and are first box-averaged by
-    8/num, as the card does; else they are libjpeg's own at that scale."""
-    f = 8 // num
-    if full_scale_planes:
-        H, W = Y.shape
-        oh, ow = -(-H // f), -(-W // f)
-        Y = box_mean(Y, f, oh, ow)
-        U, V = (box_mean(C, f, -(-C.shape[0] // f), -(-C.shape[1] // f)) for C in (U, V))
-    oh, ow = Y.shape
+def libjpeg_plan(factors, c, num):
+    """libjpeg's plan for component ``c`` of a frame with sampling
+    ``factors`` ((h, v) per component) at scale num/8 (jdmaster.c
+    jpeg_calc_output_dimensions, jdsample.c jinit_upsampler): its DCT size
+    (num, doubled while it stays within 8 and both of the frame's sampling
+    ratios stay whole) and the upsampling ratio (rh, rv) onto the output."""
+    mh, mv = max(f[0] for f in factors), max(f[1] for f in factors)
+    h, v = factors[c]
+    ssize = num
+    while ssize < 8 and (mh * num) % (h * ssize * 2) == 0 and (mv * num) % (v * ssize * 2) == 0:
+        ssize *= 2
+    return ssize, mh // (h * ssize // num), mv // (v * ssize // num)
+
+
+def libjpeg_rgb_upsampled(planes, factors, num, out_hw, full_scale_planes):
+    """libjpeg's RGB (out_hw) at scale num/8 from a frame's component planes,
+    in numpy: each component at its DCT size (``libjpeg_plan``), then
+    upsampled as jdsample.c does: "fancy" while num > 1 for the ratios 2:1
+    (h2v1, when the plane is wider than 2 samples), 1:2 (h1v2) and 2:2
+    (h2v2, wider than 2), each output (3 * nearer + further sample + bias)
+    >> 2 (bias 1 for the left or upper, 2 for the right or lower one of a
+    pair; h2v2 blends the rows, then across, bias 8 left and 7 right, >> 4),
+    the first and last samples replicated beyond the edge; any other whole
+    ratio by replication (int_upsample); then its YCbCr -> RGB tables (R =
+    G = B = Y for one component). ``full_scale_planes``: the planes are at
+    full scale (nvJPEG's) and are first box-averaged by 8 / DCT size, as the
+    card does; else they are libjpeg's own at that scale."""
+    oh, ow = out_hw
     ys, xs = np.arange(oh), np.arange(ow)
+    comps = []
+    for c, P in enumerate(planes):
+        ssize, rh, rv = libjpeg_plan(factors, c, num)
+        if full_scale_planes:
+            g = 8 // ssize
+            P = box_mean(P, g, -(-P.shape[0] // g), -(-P.shape[1] // g))
+        P = P.astype(np.int64)
+        cy, cx = ys // rv, xs // rh
+        near = P[cy][:, cx]
+        wide = P.shape[1] > 2
+        if num == 1 or (rh, rv) not in ((2, 1), (1, 2), (2, 2)) or (rh == 2 and not wide):
+            comps.append(near)
+            continue
+        ny = np.clip(np.where(ys & 1, cy + 1, cy - 1), 0, P.shape[0] - 1)
+        nx = np.clip(np.where(xs & 1, cx + 1, cx - 1), 0, P.shape[1] - 1)
+        if rv == 1:
+            comps.append((3 * near + P[cy][:, nx] + np.where(xs & 1, 2, 1)) >> 2)
+        elif rh == 1:
+            comps.append((3 * near + P[ny][:, cx] + np.where(ys & 1, 2, 1)[:, None]) >> 2)
+        else:
+            rows = 3 * near + P[ny][:, cx]
+            further = 3 * P[cy][:, nx] + P[ny][:, nx]
+            comps.append((3 * rows + further + np.where(xs & 1, 7, 8)) >> 4)
+    if len(comps) == 1:
+        return np.repeat(np.clip(comps[0], 0, 255).astype(np.uint8)[..., None], 3, -1)
+    return ycc_rgb(*comps)
 
-    def up(C):
-        C = C.astype(np.int64)
-        if layout == "4:1:1":
-            return C[:, xs >> 2]
-        near = C[ys >> 1]
-        if num == 1:
-            return near
-        other = C[np.clip(np.where(ys & 1, (ys >> 1) + 1, (ys >> 1) - 1), 0, C.shape[0] - 1)]
-        return (3 * near + other + np.where(ys & 1, 2, 1)[:, None]) >> 2
 
-    return ycc_rgb(Y.astype(np.int64), up(U), up(V))
+LAYOUT_FACTORS = {"4:4:0": ((1, 2), (1, 1), (1, 1)), "4:1:1": ((4, 1), (1, 1), (1, 1)),
+                  "4:1:0": ((4, 2), (1, 1), (1, 1)), "4:1:0 v": ((2, 4), (1, 1), (1, 1)),
+                  "1x4": ((1, 4), (1, 1), (1, 1)), "3x1": ((3, 1), (1, 1), (1, 1)),
+                  "Cr 2x1": ((2, 2), (1, 1), (2, 1))}
 
 
 def relaid_frames():
@@ -577,6 +607,30 @@ def relaid_frames():
                                                  subsampling=2)
     return {"4:4:0": chip_smoke.relayout_jpeg(frames["422"][0], "4:4:0"),
             "4:1:1": chip_smoke.relayout_jpeg(buf.getvalue(), "4:1:1")}
+
+
+def whole_ratio_frames():
+    """Three-component JPEGs whose chroma libjpeg upsamples by replication
+    (int_upsample) or with mixed ratios, odd-sized, made from the fixture's
+    4:4:4 frame's recorded pixels: a 1x4 luma (a PIL 4:2:0 JPEG re-declared
+    by ``chip_smoke.relayout_jpeg``), and 4:1:0, its vertical twin, a 3x1
+    luma and a 4:2:0 frame whose Cr is 2x1 (``chip_smoke.encode_jpeg``;
+    no encoder at hand writes them). {name: jpeg}, sampling factors in
+    ``LAYOUT_FACTORS``."""
+    import io
+
+    import chip_smoke
+    from PIL import Image
+
+    frames = {name: (data, scales) for name, data, scales in other_subsamplings()}
+    rgb = frames["444"][1][8][2]
+    src = io.BytesIO()
+    Image.fromarray(rgb).save(src, format="JPEG", quality=90, subsampling=2)
+    out = {"1x4": chip_smoke.relayout_jpeg(src.getvalue(), "1x4")}
+    odd = rgb[:rgb.shape[0] - 1 + rgb.shape[0] % 2, :rgb.shape[1] - 1 + rgb.shape[1] % 2]
+    for name in ("4:1:0", "4:1:0 v", "3x1", "Cr 2x1"):
+        out[name] = chip_smoke.encode_jpeg(odd, LAYOUT_FACTORS[name])
+    return out
 
 
 def feeder_yuv_from_rgb(rgb):
@@ -721,15 +775,16 @@ def test_jpeg_decoder_other_subsamplings_follow_libjpeg(cuda_device):
     print(check_other_subsamplings(cuda_device))
 
 
-def check_440_411(device):
-    """The 4:4:0 and 4:1:1 frames of ``relaid_frames`` (odd height and
-    width) decoded by ``device``'s decoder, RGB: at full scale within what
-    IDCT rounding can do of libjpeg's (PIL's) decode (``chip_smoke.IDCT_GAP``);
-    at every scale identical to ``libjpeg_rgb_440_411`` applied to the
-    decoder's own planes (``decode_jpeg_planes``: the card's at full scale,
-    libjpeg's on the CPU at that scale), with 1 and 4 threads; then their
-    YUV420 output follows their RGB. Returns {layout: (mean |d|, max |d|)
-    against PIL at full scale}."""
+def check_layouts(frames, device):
+    """Each frame of ``frames`` ({layout: jpeg}, sampling factors in
+    ``LAYOUT_FACTORS``; odd height and width) decoded by ``device``'s
+    decoder, RGB: at full scale within what IDCT rounding can do of
+    libjpeg's (PIL's) decode (``chip_smoke.IDCT_GAP``); at every scale
+    identical to ``libjpeg_rgb_upsampled`` applied to the decoder's own
+    planes (``decode_jpeg_planes``: the card's at full scale, libjpeg's on
+    the CPU at that scale), with 1 and 4 threads; then their YUV420 output
+    follows their RGB. Returns {layout: (mean |d|, max |d|) against PIL at
+    full scale}."""
     import io
 
     import chip_smoke
@@ -740,14 +795,15 @@ def check_440_411(device):
 
     on_card = torch.device(device).type != "cpu"
     readings = {}
-    frames = relaid_frames()
     for layout, data in frames.items():
         H, W = jpeg_size(data)
+        assert H % 2 == 1 and W % 2 == 1, (layout, H, W)
         pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
         for num in (8, 4, 2, 1):
             oh, ow = -(-H * num // 8), -(-W * num // 8)
             planes = decode_jpeg_planes(data, 8 if on_card else num, device=device)
-            want = libjpeg_rgb_440_411(*planes, layout, num, full_scale_planes=on_card)
+            want = libjpeg_rgb_upsampled(planes, LAYOUT_FACTORS[layout], num, (oh, ow),
+                                         full_scale_planes=on_card)
             for threads in (1, 4):
                 out, hw = decode_jpeg_batch([data] * 2, oh, ow, threads, device=device)
                 assert hw.tolist() == [[oh, ow]] * 2, (layout, num, hw)
@@ -761,6 +817,11 @@ def check_440_411(device):
                     layout, readings[layout], bound)
     yuv_follows_rgb(list(frames.values()), device)
     return readings
+
+
+def check_440_411(device):
+    """``check_layouts`` on the 4:4:0 and 4:1:1 frames of ``relaid_frames``."""
+    return check_layouts(relaid_frames(), device)
 
 
 def test_jpeg_decoder_440_and_411_follow_libjpeg(cuda_device):
@@ -855,37 +916,25 @@ def test_jpeg_decoder_follows_libjpegs_color_space(cuda_device):
 
 
 def refused_frames():
-    """The fixture's 4:4:4 frame's recorded pixels as a CMYK JPEG (PIL) and
-    as a 1x4 one (a PIL 4:2:0 JPEG re-declared by
-    ``chip_smoke.relayout_jpeg``): {"cmyk": jpeg, "1x4": jpeg}."""
+    """The fixture's 4:4:4 frame's recorded pixels as a CMYK JPEG (PIL):
+    {"cmyk": jpeg}."""
     import io
 
-    import chip_smoke
     from PIL import Image
 
     frames = {name: (data, scales) for name, data, scales in other_subsamplings()}
-    rgb = frames["444"][1][8][2]
-    cmyk, src = io.BytesIO(), io.BytesIO()
-    Image.fromarray(rgb).convert("CMYK").save(cmyk, format="JPEG", quality=90)
-    Image.fromarray(rgb).save(src, format="JPEG", quality=90, subsampling=2)
-    return {"cmyk": cmyk.getvalue(), "1x4": chip_smoke.relayout_jpeg(src.getvalue(), "1x4")}
+    cmyk = io.BytesIO()
+    Image.fromarray(frames["444"][1][8][2]).convert("CMYK").save(cmyk, format="JPEG", quality=90)
+    return {"cmyk": cmyk.getvalue()}
 
 
 def check_refused_layouts(device):
     """The CMYK JPEG of ``refused_frames`` is unreadable to both decoders,
     as to libjpeg, which cannot convert it to RGB: the zero frame, hw
-    (1, 1), no fault. The 1x4 frame libjpeg decodes, and the CPU's decoder
-    with it, as PIL does; the card refuses it in the same way as the CMYK
-    one (nvJPEG's own upsampling is not libjpeg's, and its RGB output fails
-    on this layout). Returns {name: hw at full scale}."""
-    import io
-
-    from PIL import Image
-
+    (1, 1), no fault. Returns {name: hw at full scale}."""
     from cvm_tpu_torch.data.images import jpeg_size
     from cvm_tpu_torch.data.jpeg import decode_jpeg_batch, decode_jpeg_batch_yuv420
 
-    on_card = torch.device(device).type != "cpu"
     hws = {}
     for name, data in refused_frames().items():
         H, W = jpeg_size(data)
@@ -893,20 +942,24 @@ def check_refused_layouts(device):
         out, hw = decode_jpeg_batch([data], H, W, device=device)
         Y, U, V, yhw = decode_jpeg_batch_yuv420([data], H, W, device=device)
         hws[name] = hw[0].tolist()
-        if name == "cmyk" or on_card:
-            assert hw.tolist() == yhw.tolist() == [[1, 1]], (name, hw, yhw)
-            assert not out.any() and not Y.any() and (U == 128).all() and (V == 128).all()
-        else:
-            pil = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
-            assert hw.tolist() == [list(pil.shape[:2])]
-            np.testing.assert_array_equal(out[0, :pil.shape[0], :pil.shape[1]], pil)
+        assert hw.tolist() == yhw.tolist() == [[1, 1]], (name, hw, yhw)
+        assert not out.any() and not Y.any() and (U == 128).all() and (V == 128).all()
     return hws
 
 
+def check_whole_ratios(device):
+    """``check_layouts`` on ``whole_ratio_frames``: 1x4, 4:1:0 (and its
+    vertical twin), 3x1 and a Cr of its own ratio."""
+    return check_layouts(whole_ratio_frames(), device)
+
+
 def test_jpeg_decoder_refuses_the_layouts_it_does_not_model(cuda_device):
-    """CMYK and 1x4 JPEGs on the card: the zero frame and hw (1, 1), and no
-    fault of the decoder raised."""
-    assert check_refused_layouts(cuda_device) == {"cmyk": [1, 1], "1x4": [1, 1]}
+    """A CMYK JPEG on the card: the zero frame and hw (1, 1), and no fault
+    of the decoder raised. The layouts the card refused before it modelled
+    libjpeg's whole-ratio upsampling (1x4, 4:1:0) decode now, as libjpeg
+    decodes them (``check_whole_ratios``)."""
+    assert check_refused_layouts(cuda_device) == {"cmyk": [1, 1]}
+    print(check_whole_ratios(cuda_device))
 
 
 def test_jpeg_decoder_scales_follow_the_planes(cuda_device):
@@ -1010,3 +1063,60 @@ def test_record_loader_batch_on_the_card(cuda_device):
                                    rtol=1e-6)
     assert set(loader.stats()) == {"read_ms_per_batch", "decode_ms_per_batch",
                                    "assemble_ms_per_batch", "batches"}
+
+
+# -- the stall watchdog and remat on the card --------------------------------
+
+
+def test_watchdog_sees_a_device_stall_and_re_execs(cuda_device, tmp_path):
+    """``tests/torch_hang_child.py`` on the card (tiny CenterNet): step 4
+    sleeps on the device for 20 s while the host runs ahead to the
+    in-flight bound; the watchdog (threshold 3 s) must call it the device's
+    stall, re-exec once, and the new image resume from the step-2
+    checkpoint and finish all 10 steps with one K1 launch per step."""
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, CVM_STALL_THRESHOLD_S="3", CVM_HANG_S="20")
+    env.pop("CVM_RESTART_COUNT", None)
+    proc = subprocess.run([sys.executable, os.path.join(repo, "tests", "torch_hang_child.py"),
+                           str(tmp_path / "ck"), "10", "cuda", "tiny", "hang"],
+                          capture_output=True, text=True, env=env, cwd=repo, timeout=300)
+    out, err = proc.stdout, proc.stderr
+    print(out, err[-2000:])
+    assert proc.returncode == 0, err[-3000:]
+    assert "no training step completed on the device" in err and "AUTO-RESTART 1/1" in err
+    resumed = [line.split() for line in out.splitlines() if line.startswith("RESUMED")]
+    assert [r[1] for r in resumed] == ["0", "2"], out
+    assert [line.split()[1:3] for line in out.splitlines()
+            if line.startswith("DONE")] == [["10", "8"]], out
+
+
+def test_remat_equal_on_the_card(cuda_device):
+    """CenterNet config-B width at 128x128, batch 2, one training forward and
+    backward with and without ``remat``, deterministic cuDNN: outputs,
+    loss, gradients and BatchNorm statistics identical."""
+    from cvm_tpu_torch.models import get_model
+    from cvm_tpu_torch.models.registry import build_model
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        res = []
+        for remat in (False, True):
+            spec = get_model("centernet")
+            cfg = spec.params_cls(input_hw=(128, 128), batch_size=2, remat=remat)
+            m = build_model(spec, cfg, cuda_device, torch.Generator().manual_seed(0)).train()
+            x = torch.randn(2, 128, 128, 3, generator=torch.Generator().manual_seed(1))
+            out = m(x.to(cuda_device))
+            loss = sum((o.float() ** 2).mean() for o in out.values())
+            grads = torch.autograd.grad(loss, list(m.parameters()))
+            res.append((out, loss, grads, [b.clone() for b in m.buffers()]))
+        (o0, l0, g0, b0), (o1, l1, g1, b1) = res
+        assert all(torch.equal(o0[k], o1[k]) for k in o0) and torch.equal(l0, l1)
+        assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+        assert all(torch.equal(a, b) for a, b in zip(b0, b1))
+    finally:
+        torch.backends.cudnn.deterministic = det

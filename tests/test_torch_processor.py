@@ -192,5 +192,8 @@ def test_train_processor_draws_from_its_generator():
 
 @pytest.mark.parametrize("field,value", [("aug_rotate_deg", 5.0)])
 def test_processor_refuses_what_is_not_ported(field, value):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        make_processor(CenternetParams(**{field: value}), train=True)
+    """Rotation is ported: the processor takes it, and refuses it only where
+    the reference does (with the 3D heads)."""
+    make_processor(CenternetParams(**{field: value}), train=True)
+    with pytest.raises(ValueError, match="incompatible with with_3d"):
+        make_processor(CenternetParams(**{field: value}, with_3d=True), train=True)

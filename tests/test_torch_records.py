@@ -333,7 +333,7 @@ def test_440_and_411_planes_have_libjpegs_sizes(layout):
 
 def test_440_and_411_upsampling_model_is_libjpegs():
     """The card decoder's arithmetic for 4:4:0 and 4:1:1 (modelled in numpy,
-    ``test_torch_kernels_cuda.libjpeg_rgb_440_411``: h1v2 fancy upsampling
+    ``test_torch_kernels_cuda.libjpeg_rgb_upsampled``: h1v2 fancy upsampling
     above 1/8, replication at 1/8; 4:1:1 replicated 4 times across) applied
     to libjpeg's own planes at each scale gives libjpeg's RGB identically,
     at 1/1, 1/2, 1/4 and 1/8, with 1 and 4 threads (the card check
@@ -358,13 +358,26 @@ def test_color_space_model_is_libjpegs():
 
 
 def test_refused_layouts_on_the_cpu():
-    """A CMYK JPEG is unreadable to libjpeg (the zero frame, no fault); a
-    1x4 one it decodes as PIL does, which the card decoder refuses instead
-    (``check_refused_layouts``)."""
+    """A CMYK JPEG is unreadable to libjpeg (the zero frame, no fault;
+    ``check_refused_layouts``)."""
     from test_torch_kernels_cuda import check_refused_layouts
 
-    hws = check_refused_layouts("cpu")
-    assert hws["cmyk"] == [1, 1] and hws["1x4"][0] % 2 == 1
+    assert check_refused_layouts("cpu") == {"cmyk": [1, 1]}
+
+
+def test_whole_ratio_upsampling_model_is_libjpegs():
+    """The card decoder's arithmetic for whole-ratio layouts (1x4, 4:1:0,
+    its vertical twin, 3x1, a Cr of its own ratio; modelled in numpy,
+    ``test_torch_kernels_cuda.libjpeg_rgb_upsampled``: each component at
+    libjpeg's DCT size for it, then int_upsample or the fancy 2:1 / 1:2
+    upsamplers) applied to libjpeg's own planes at each scale gives
+    libjpeg's RGB identically, with 1 and 4 threads (the card check
+    ``check_whole_ratios``, run here on the CPU decoder); libjpeg's
+    full-scale frame is PIL's."""
+    from test_torch_kernels_cuda import check_whole_ratios
+
+    assert check_whole_ratios("cpu") == {
+        name: (0.0, 0) for name in ("1x4", "4:1:0", "4:1:0 v", "3x1", "Cr 2x1")}
 
 
 def _off_by(delta, every, only_frame=None):

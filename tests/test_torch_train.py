@@ -392,9 +392,8 @@ def test_cli_trains_resumes_and_refuses_unported_flags(tmp_path, capsys):
     assert all(np.isfinite(r["loss"]) for r in recs)
     assert cli_main(base + ["--steps", "20", "--max_seconds", "0.001"]) == 0
     assert CheckpointManager(str(tmp_path / "w" / "checkpoints")).latest_step() == 13
-    for extra in (["--eval_images", "2", "--eval_every", "5", "--tensorboard"],
-                  ["--auto_restart", "2"], ["--tensorboard"],
-                  ["--aug_rotate_deg", "5"], ["--model_parallel", "2"]):
+    for extra in (["--model_parallel", "2"], ["--dcn_slices", "2"],
+                  ["--coordinator", "localhost:1"], ["--tensor_parallel", "true"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             cli_main(base + extra)
     with pytest.raises(FileNotFoundError):

@@ -175,7 +175,7 @@ def test_cli_train_and_evaluate(tmp_path, name):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--profile_steps", "2"], "16"), (["--debug_nans"], "16"),
+    (["--model_parallel", "2"], "17"), (["--dcn_slices", "2"], "17"),
     (["--num_processes", "2"], "17"), (["--process_id", "1"], "17")])
 def test_cli_train_refuses_unported_reference_flags(flag, item):
     argv = ["--model", "semseg", "--device", "cpu"] + flag
