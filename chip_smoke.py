@@ -26,8 +26,9 @@ config B trained from the packed shard, and ``cli.infer`` over its images
 through an exported artifact and a checkpoint; then the rest of the single-
 card surface (video inference, the stall watchdog and re-exec, profiling,
 ``--debug_nans``, TensorBoard, the LR finder, rotation, remat and tiled
-inference, phases 28-33, run after 27). ``cli.doctor``'s report (the
-card, the toolchain and the JPEG decoders' prerequisites) is printed first:
+inference, phases 28-33, run after 27); then multi-process training on the
+one card (phase 34). ``cli.doctor``'s report (the card, the toolchain and
+the JPEG decoders' prerequisites) is printed first:
 
   1. card, versions, both kernel builds (one nvcc each, started together);
   2. the fused W8A8 ConvBN kernel K2 vs its plain PyTorch version at every
@@ -181,7 +182,23 @@ card, the toolchain and the JPEG decoders' prerequisites) is printed first:
      then config-B ``fit`` steps/s with the watchdog's in-flight bound (8
      steps) and without, four pairs after a warm-up run;
  33a. ``cli.infer --tiled`` of a config-A semseg checkpoint over three
-     720x1280 images: tiles and ms per image.
+     720x1280 images: tiles and ms per image;
+ 34. multi-process training (``cvm_tpu_torch/parallel``) on the one card,
+     the ranks children of ``tests/torch_dist_child.py``, cuDNN
+     deterministic throughout: (a) config B on
+     the flagship scenes, global batch 16, 10 steps, two gloo ranks of 8
+     rows sharing the card against one process of 16 on the same global
+     batches and draws: losses equal between the ranks and within 5e-3
+     of the one process, parameter checksums equal, 10 K1 launches per
+     rank, ms/step of both, all-reduces per step and their bytes; (b) ``cli.train`` with ``--coordinator
+     127.0.0.1:<port> --num_processes 1 --process_id 0`` (NCCL at world
+     size 1) against the same command without them, 10 steps: losses
+     within 5e-3, ``metrics.jsonl`` written, the checkpoint scored by
+     ``cli.evaluate``; (c) tensor parallelism, two gloo ranks with a model
+     axis of 2, 5 steps: losses within 5e-3 of (a)'s one process, each rank
+     holding half of every ``s5b*.c1`` (C_out) and ``s5b*.c2`` (C_in), the
+     gathered checkpoint loaded by one process, all-reduces per step; (d) two NCCL ranks asked to
+     share the card refuse, naming it.
 
 Device times come from CUDA events around 20 back-to-back calls while the
 card first sleeps through the host's enqueueing (``cuda_ms``). Any failure
@@ -2899,6 +2916,175 @@ def phase_video(dev, workdir, art, files, recs, smi, cv2_version):
     return launches + cli_launches
 
 
+DIST_CHILD = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                          "torch_dist_child.py")
+
+
+def _dist_child():
+    """``tests/torch_dist_child.py`` as a module (it imports no JAX)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_dist_child", DIST_CHILD)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _close(got, want, rtol, what):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.allclose(got, want, rtol=rtol, atol=0):
+        raise AssertionError(f"{what}: {got.tolist()} against {want.tolist()} (rtol {rtol})")
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def _reduces(rank):
+    """A rank's all-reduces per step (the steps after the first)."""
+    n, b = rank["all_reduces"][1:], rank["all_reduce_bytes"][1:]
+    return (f"{statistics.median(n):.0f} all-reduces per step "
+            f"({statistics.median(b) / 2**20:.3f} MiB)")
+
+
+def phase_dist(dev, workdir, smi):
+    """Phase 34: multi-process training on the one card (docstring, 34a-d),
+    with deterministic cuDNN algorithms (two runs of one command otherwise
+    drift apart: 0.8% in the loss by step 10 of 34b's twins).
+    Returns K1's launches by path."""
+    import torch
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process's cache
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        return _phase_dist(dev, workdir, smi)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _phase_dist(dev, workdir, smi):
+    import torch
+
+    from cvm_tpu_torch.cli.evaluate import main as eval_main
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+    from cvm_tpu_torch.parallel.mesh import free_port
+    from cvm_tpu_torch.train.loop import Trainer
+
+    child = _dist_child()
+    k1 = {}
+    # 34a: two gloo ranks x 8 against one process x 16
+    t0 = time.perf_counter()
+    ranks = [r for r, _ in child.launch(2, ["train", "--model", "centernet", "--config", "B",
+                                            "--steps", 10], os.path.join(workdir, "a"),
+                                        device="cuda", timeout=600)]
+    t_ranks = time.perf_counter() - t0
+    one = child.run_train(None, dev, "centernet", "B", 10)   # resets and reads K1's count
+    torch.cuda.synchronize()
+    if ranks[0]["losses"] != ranks[1]["losses"] or ranks[0]["checksum"] != ranks[1]["checksum"]:
+        raise AssertionError(f"the ranks disagree: {ranks[0]['losses']} {ranks[1]['losses']}")
+    err_a = _close(ranks[0]["losses"], one["losses"], 5e-3, "34a losses, 2 ranks vs 1")
+    if [r["k1"] for r in ranks] != [10, 10] or one["k1"] != 10:
+        raise AssertionError(f"K1 launches: ranks {[r['k1'] for r in ranks]}, one {one['k1']}")
+    ms_ranks = statistics.median(ranks[0]["ms"][2:])
+    if ranks[0]["all_reduces"] != ranks[1]["all_reduces"] or not min(ranks[0]["all_reduces"]):
+        raise AssertionError(f"all-reduces per step: {[r['all_reduces'] for r in ranks]}")
+    ms_one = statistics.median(one["ms"][2:])
+    k1["multi-process: 2 gloo ranks x 8 (34a)"] = dict(launches=ranks[0]["k1"] + ranks[1]["k1"])
+    k1["multi-process: its one process x 16 (34a)"] = dict(launches=one["k1"])
+    log(f"[dist] 34a config B, global batch 16, 10 steps on {smi}: two gloo ranks x 8 on one "
+        f"card {ms_ranks:.3f} ms/step, one process x 16 {ms_one:.3f} ms/step (median of steps "
+        f"3-10, scene making outside the clock); losses equal between the ranks, max rel. "
+        f"gap to the one process {err_a:.2e}; first/last loss {one['losses'][0]:.4f} / "
+        f"{one['losses'][-1]:.4f}; checksums equal; K1 10 launches per rank and 10 in the one "
+        f"process; {_reduces(ranks[0])} on each rank; the ranks' run {t_ranks:.1f} s with "
+        "their start")
+
+    # 34b: cli.train over NCCL at world size 1, against the same command plain
+    runs = {}
+    for tag, extra in (("plain", []), ("nccl", ["--coordinator",
+                                                f"127.0.0.1:{free_port()}",
+                                                "--num_processes", "1", "--process_id", "0"])):
+        w = os.path.join(workdir, f"b_{tag}")
+        gs.reset_counts()
+        t0 = time.perf_counter()
+        train_main(TRAIN_FLAGS + ["--workdir", w, "--steps", "10", "--checkpoint_every", "10"]
+                   + extra)
+        torch.cuda.synchronize()
+        rows = read_metrics(os.path.join(w, "metrics.jsonl"))
+        runs[tag] = dict(losses=[r["loss"] for r in rows], k1=gs.render_heatmap.launches,
+                         ms=statistics.median(1e3 / r["steps_per_sec"] for r in rows[2:]),
+                         s=time.perf_counter() - t0, w=w)
+        if [r["step"] for r in rows] != list(range(1, 11)) or runs[tag]["k1"] != 10:
+            raise AssertionError(f"34b {tag}: steps {[r['step'] for r in rows]}, "
+                                 f"K1 {runs[tag]['k1']}")
+    err_b = _close(runs["nccl"]["losses"], runs["plain"]["losses"], 5e-3, "34b losses")
+    rc, out, err = _cli(eval_main, ["--model", "centernet", "--workdir", runs["nccl"]["w"],
+                                    "--device", "cuda", "--pad_hw", "512,512", "--batches", "1"])
+    if rc != 0 or "no checkpoint restored" in err:
+        raise AssertionError(f"cli.evaluate on the NCCL run's checkpoint: rc {rc}\n{err[-2000:]}")
+    k1["cli.train over NCCL, world size 1 (34b)"] = dict(launches=runs["nccl"]["k1"])
+    k1["cli.train plain, its twin (34b)"] = dict(launches=runs["plain"]["k1"])
+    log(f"[dist] 34b cli.train 10 config-B steps on {smi}: over NCCL at world size 1 "
+        f"{runs['nccl']['ms']:.3f} ms/step ({runs['nccl']['s']:.1f} s with the group), plain "
+        f"{runs['plain']['ms']:.3f} ms/step ({runs['plain']['s']:.1f} s); max rel. loss gap "
+        f"{err_b:.2e}; 10 K1 launches each; cli.evaluate scored the checkpoint: "
+        f"{out[-1] if out else ''}")
+
+    # 34c: tensor parallelism over a model axis of 2 (both ranks hold the 16 rows)
+    ck = os.path.join(workdir, "c_ck")
+    t0 = time.perf_counter()
+    tp = [r for r, _ in child.launch(2, ["train", "--model", "centernet", "--config", "B",
+                                         "--steps", 5, "--model_parallel", 2,
+                                         "--tensor_parallel", "--ckdir", ck],
+                                     os.path.join(workdir, "c"), device="cuda", timeout=600)]
+    t_tp = time.perf_counter() - t0
+    if tp[0]["losses"] != tp[1]["losses"]:
+        raise AssertionError(f"the TP ranks disagree: {tp[0]['losses']} {tp[1]['losses']}")
+    err_c = _close(tp[0]["losses"], one["losses"][:5], 5e-3, "34c TP losses vs one process")
+    full = one["shapes"]
+    for r in tp:
+        for name, shape in r["shapes"].items():
+            want = list(full[name])
+            if name in r["split"]:
+                want[1 if ".c2." in name else 0] //= 2
+            if shape != want:
+                raise AssertionError(f"34c rank {r['rank']}: {name} {shape}, expected {want}")
+    halves = sorted(n for n in tp[0]["split"] if n.endswith("conv.weight"))
+    cfg = CenternetParams(**child.CONFIGS["B"]["centernet"][0], batch_size=16,
+                          tensor_parallel=True)
+    back = Trainer(cfg, dev, checkpoint_dir=ck)
+    back.init_state()
+    got = float(sum(v.to(torch.float64).sum() for v in back.eval_params.values()))
+    if back.state.step != 5 or got != tp[0]["checksum"]:
+        raise AssertionError(f"34c: the gathered checkpoint (step {back.state.step}) loads with "
+                             f"checksum {got!r}, the ranks hold {tp[0]['checksum']!r}")
+    ms_tp = statistics.median(tp[0]["ms"][2:])
+    k1["multi-process: 2 tensor-parallel gloo ranks (34c)"] = dict(
+        launches=tp[0]["k1"] + tp[1]["k1"])
+    if [r["k1"] for r in tp] != [5, 5]:
+        raise AssertionError(f"34c K1 launches {[r['k1'] for r in tp]}")
+    log(f"[dist] 34c tensor parallel (model axis 2), config B batch 16, 5 steps on {smi}: "
+        f"{ms_tp:.3f} ms/step (median of steps 3-5); max rel. loss gap to 34a's one process "
+        f"{err_c:.2e}; halves on each rank: {halves} (C_out of c1, C_in of c2, c1's BN); the "
+        f"gathered step-5 checkpoint loads in one process with the ranks' checksum; "
+        f"{_reduces(tp[0])} on each rank; {t_tp:.1f} s with the ranks' start")
+
+    # 34d: two NCCL ranks on one card are refused, by name
+    try:
+        child.launch(2, ["join"], os.path.join(workdir, "d"), device="cuda:0", timeout=300,
+                     backend="nccl")
+    except RuntimeError as e:
+        msg = str(e)
+        if not ("rank 0 exited" in msg and "rank 1 exited" in msg
+                and "NCCL ranks 0 and 1 would share the card" in msg):
+            raise AssertionError(f"34d: not the shared-card refusal:\n{msg}") from e
+    else:
+        raise AssertionError("34d: two NCCL ranks on one card formed a group")
+    log("[dist] 34d two NCCL ranks asked to share cuda:0: both refused before NCCL's init, "
+        "naming the card")
+    return k1
+
+
 def main() -> int:
     import torch
 
@@ -3177,6 +3363,12 @@ def main() -> int:
         log(f"[tiled] phase 33a took {time.perf_counter() - t0:.1f} s")
     log(f"[smoke] phases 28-33a took {time.perf_counter() - t_new:.1f} s")
 
+    # Phase 34: multi-process training on the one card.
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        dist_k1 = phase_dist(dev, workdir, smi)
+        log(f"[dist] phase 34 took {time.perf_counter() - t0:.1f} s")
+
     log(f"[zoo3d] on {smi}: 3D batch-8 predict fp {lat3d['fp']:.3f} ms, int8 "
         f"{lat3d['int8']:.3f} ms; 3D training {step3d_ms:.3f} ms/step; DMDS training "
         f"{dmds['step_ms']:.3f} ms/step ({dmds['scenes_ms']:.1f} ms of host scenes), "
@@ -3184,7 +3376,7 @@ def main() -> int:
         f"(artifact {dmds['artifact_ms']:.3f} ms); DMDS reaches no TPU kernel (the "
         "reference refuses W8A8 for it)")
 
-    log(f"[smoke] phases 1-33 took {time.perf_counter() - t_smoke:.1f} s")
+    log(f"[smoke] phases 1-34 took {time.perf_counter() - t_smoke:.1f} s")
     log(f"[card] {nvidia_smi()}")
     # K2's numbers are those of one config-B int8 forward; launches count
     # every main-path run (config B and each dense path), with each path's
@@ -3216,7 +3408,8 @@ def main() -> int:
         "name": "gaussian_splat", "route": "cuda", "source": SPLAT_SOURCE,
         "replaces": SPLAT_REPLACES,
         "launches": (splat_launches + dense_k1 + qat_launches + train3d_launches + rec_k1
-                     + coco_k1 + watchdog_k1 + prof_k1 + tb_k1 + lr_k1 + rot_k1),
+                     + coco_k1 + watchdog_k1 + prof_k1 + tb_k1 + lr_k1 + rot_k1
+                     + sum(p["launches"] for p in dist_k1.values())),
         "max_abs_err": splat_err,
         "ms": splat_times["flagship"][0], "plain_ms": splat_times["flagship"][1],
         "bound_ms": splat_times["bound_ms"], "bound_by": "bytes", "library_ms": None,
@@ -3233,7 +3426,8 @@ def main() -> int:
                   "multitask training": dict(launches=dense_k1,
                                              ms=splat_times["multitask"][0],
                                              plain_ms=splat_times["multitask"][1],
-                                             bound_ms=splat_times["multitask_bound_ms"])}}]}))
+                                             bound_ms=splat_times["multitask_bound_ms"]),
+                  **dist_k1}}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

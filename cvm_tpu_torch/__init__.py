@@ -13,6 +13,7 @@ Layout:
     models/     the zoo (centernet, semseg, depth, multitask, dmds), registry
     data/       records, dataset adapters, JPEG decoders, loader
     pipeline/   the batch preprocess shared by the processors
+    parallel/   multi-process training: process groups, global reductions, TP
     train/      train loop, checkpoints, metrics, evaluation, QAT, LR finder
     infer/      inference pipelines, int8, export runtime, server, tiling
     cli/        the entry points (``python -m cvm_tpu_torch.cli.<name>``)

@@ -46,8 +46,21 @@ records N steps with ``torch.profiler`` into ``<workdir>/trace``
 a non-finite output, loss, gradient or parameter, naming it.
 ``--aug_rotate_deg`` and ``--remat true`` are the reference's.
 
-Flags whose machinery is not ported raise instead of being ignored: the
-multi-process and multi-card ones (ROADMAP Queue 1 item 17).
+Multi-process training, one process per card: ``--coordinator HOST:PORT
+--num_processes N --process_id R`` on every process (the same arguments
+but R), rank 0 serving the rendezvous at HOST:PORT; NCCL between cards
+(``--device cuda``: rank R on ``cuda:{R % cards}``), gloo on the CPU
+(``parallel/mesh.py``). ``--model_parallel M`` lays the N ranks out as
+N/M data x M model, and ``--tensor_parallel true`` (which needs M >= 2)
+splits the stage-5 blocks over the model axis (``parallel/sharding.py``).
+``--batch_size`` stays the global batch, divided over the N/M data ranks;
+data rank d reads the synthetic stream seeded ``seed + d * 7919`` or the
+records' d-th stride of the train ids, as the reference's processes do.
+Rank 0 alone prints, writes ``metrics.jsonl``, TensorBoard, checkpoints
+(whole tensors: ``cli.evaluate`` loads them in one process) and the best
+checkpoint, and runs each eval while the others wait. ``--auto_restart``
+is refused there: it would re-exec one rank, which cannot rejoin the
+group. ``--dcn_slices`` is not ported (``_DCN_NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -58,16 +71,10 @@ import sys
 import threading
 import time
 
-# flag -> (value that means "off", ROADMAP Queue 1 item that ports it)
-_NOT_PORTED = {
-    "model_parallel": (1, "17"), "dcn_slices": (1, "17"), "coordinator": (None, "17"),
-    "num_processes": (None, "17"), "process_id": (None, "17"),
-}
-_NOT_PORTED_CFG = {"tensor_parallel": (False, "17")}
-
-
-def _not_ported(flag: str, item: str) -> SystemExit:
-    return SystemExit(f"--{flag} is not ported yet (ROADMAP Queue 1 item {item})")
+_DCN_NOT_PORTED = (
+    "--dcn_slices is not ported: it orders a multi-slice TPU mesh's devices slice-major, so "
+    "that XLA's all-reduces stay on ICI within a slice and cross DCN once; NCCL picks its own "
+    "ring or tree over the nodes (ROADMAP 'Not to port')")
 
 
 def _record_qat_flip(workdir: str, cfg, keep_best: bool, params_cls, load_params_cfg) -> None:
@@ -135,9 +142,15 @@ def main(argv=None) -> int:
                              "resume from the latest checkpoint")
     parser.add_argument("--tensorboard", action="store_true",
                         help="also write TensorBoard events to <workdir>/tb")
-    parser.add_argument("--model_parallel", type=int, default=1)
-    parser.add_argument("--dcn_slices", type=int, default=1)
-    parser.add_argument("--coordinator", default=None)
+    parser.add_argument("--model_parallel", type=int, default=1, metavar="N",
+                        help="size of the mesh 'model' axis (tensor-parallel degree); "
+                             "required >= 2 when the model config sets tensor_parallel")
+    parser.add_argument("--dcn_slices", type=int, default=1, metavar="N",
+                        help="not ported (the device order of a multi-slice TPU mesh)")
+    parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="multi-process training: rank 0's rendezvous address; launch "
+                             "one process per card with the same arguments plus "
+                             "--process_id; requires --num_processes")
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--profile_steps", type=int, default=0, metavar="N",
@@ -160,20 +173,21 @@ def main(argv=None) -> int:
     if args.early_stop > 0 and not args.keep_best:
         parser.error("--early_stop requires --keep_best (it defines the "
                      "watched metric and direction)")
-    for flag, (off, item) in _NOT_PORTED.items():
-        if getattr(args, flag) != off:
-            raise _not_ported(flag, item)
+    if args.coordinator is not None and (args.num_processes is None
+                                         or args.process_id is None):
+        parser.error("--coordinator requires --num_processes and --process_id")
+    if args.dcn_slices != 1:
+        raise SystemExit(_DCN_NOT_PORTED)
+    world = args.num_processes if args.coordinator is not None else 1
+    if args.model_parallel < 1 or world % args.model_parallel:
+        parser.error(f"{world} processes not divisible by --model_parallel "
+                     f"{args.model_parallel}")
+    if args.auto_restart > 0 and world > 1:
+        parser.error("--auto_restart re-execs one process, which cannot rejoin the process "
+                     "group of the others: restart the whole job instead (every rank "
+                     "resumes from the newest checkpoint)")
 
-    import numpy as np
-    import torch
-
-    from cvm_tpu_torch.data.loader import RecordLoader
-    from cvm_tpu_torch.data.synthetic import SyntheticIterator, synthetic_batch
     from cvm_tpu_torch.models.registry import get_model
-    from cvm_tpu_torch.train.checkpoints import BestCheckpoint, load_params_cfg
-    from cvm_tpu_torch.train.early_stop import EarlyStopper
-    from cvm_tpu_torch.train.evaluate import evaluate_model
-    from cvm_tpu_torch.train.loop import Trainer
     from cvm_tpu_torch.utils.config import parse_hw
 
     try:
@@ -181,14 +195,19 @@ def main(argv=None) -> int:
     except KeyError as e:
         parser.error(str(e))
     cfg = spec.params_cls.from_cli(overrides)
-    for field, (off, item) in _NOT_PORTED_CFG.items():
-        if getattr(cfg, field, off) != off:
-            raise _not_ported(field, item)
+    if getattr(cfg, "tensor_parallel", False) and args.model_parallel < 2:
+        # Without a model axis the rules would shard nothing: fail here.
+        parser.error("--tensor_parallel true requires --model_parallel >= 2 (the mesh "
+                     "'model' axis the TP rules shard over)")
+    data_ranks = world // args.model_parallel
+    if cfg.batch_size % data_ranks:
+        parser.error(f"batch_size {cfg.batch_size} not divisible by {data_ranks} "
+                     "data-parallel processes")
     pad_hw = (parse_hw(args.pad_hw, "--pad_hw") if args.pad_hw
               else (int(cfg.input_hw[0] * 1.5), int(cfg.input_hw[1] * 1.5)))
     nc = min(getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 3)), 10)
     scenes = dict(two_frame=args.model == "dmds", with_3d=bool(getattr(cfg, "with_3d", False)))
-    records = None
+    records = target_hw = None
     if args.data != "synthetic":
         from cvm_tpu_torch.data.records import RecordDataset
 
@@ -199,60 +218,110 @@ def main(argv=None) -> int:
             target_hw = (0, 0)
         else:
             target_hw = parse_hw(args.decode_target, "--decode_target")
-    _record_qat_flip(args.workdir, cfg, bool(args.keep_best), spec.params_cls, load_params_cfg)
+    mesh = None
+    device = args.device
+    if args.coordinator is not None:
+        from cvm_tpu_torch.parallel.mesh import init_distributed, make_mesh
+
+        device = init_distributed(args.coordinator, args.num_processes, args.process_id,
+                                  args.device)
+    try:
+        if args.coordinator is not None:
+            mesh = make_mesh(args.model_parallel, device)
+        return _train(args, argv, spec, cfg, pad_hw, nc, scenes, records, target_hw, device,
+                      mesh)
+    finally:
+        if args.coordinator is not None:
+            from cvm_tpu_torch.parallel.mesh import shutdown_distributed
+
+            shutdown_distributed()
+
+
+def _train(args, argv, spec, cfg, pad_hw, nc, scenes, records, target_hw, device, mesh) -> int:
+    """The run of ``main`` once the arguments are checked (and, with
+    ``--coordinator``, the process group formed)."""
+    import contextlib
+
+    import numpy as np
+    import torch
+
+    from cvm_tpu_torch.data.loader import RecordLoader
+    from cvm_tpu_torch.data.synthetic import SyntheticIterator, synthetic_batch
+    from cvm_tpu_torch.train.checkpoints import BestCheckpoint, load_params_cfg
+    from cvm_tpu_torch.train.early_stop import EarlyStopper
+    from cvm_tpu_torch.train.evaluate import evaluate_model
+    from cvm_tpu_torch.train.loop import Trainer
+
+    rank0 = mesh is None or mesh.is_rank0
+    data_index, data_ranks = (0, 1) if mesh is None else (mesh.data_index, mesh.data)
+    local_bs = cfg.batch_size // data_ranks
+
+    def log(msg: str, err: bool = False) -> None:
+        if rank0:
+            print(msg, file=sys.stderr if err else sys.stdout, flush=True)
+
+    if rank0:
+        _record_qat_flip(args.workdir, cfg, bool(args.keep_best), spec.params_cls,
+                         load_params_cfg)
 
     # A programmatic caller's argv, not the host process's command line: the
     # restart must re-exec the training command.
     restart_argv = ([sys.executable, "-m", "cvm_tpu_torch.cli.train"]
                     + list(argv if argv is not None else sys.argv[1:])
                     if args.auto_restart > 0 else None)
-    trainer = Trainer(cfg, args.device, checkpoint_dir=f"{args.workdir}/checkpoints",
+    trainer = Trainer(cfg, device, checkpoint_dir=f"{args.workdir}/checkpoints",
                       metrics_path=f"{args.workdir}/metrics.jsonl",
                       tensorboard_dir=f"{args.workdir}/tb" if args.tensorboard else None,
                       checkpoint_every=args.checkpoint_every, log_every=args.log_every,
                       seed=args.seed, restart_argv=restart_argv,
-                      max_restarts=args.auto_restart, debug_nans=args.debug_nans)
+                      max_restarts=args.auto_restart, debug_nans=args.debug_nans, mesh=mesh)
     best = (BestCheckpoint(f"{args.workdir}/best", args.keep_best, args.keep_best_mode,
-                           params_cfg=cfg) if args.keep_best else None)
+                           params_cfg=cfg) if args.keep_best and rank0 else None)
     stopper = (EarlyStopper(args.keep_best, args.early_stop, args.keep_best_mode)
                if args.early_stop > 0 else None)
 
     def run_eval(it):
         # Held-out data: scenes from their own generator, or the records'
         # val split; the training streams (data, augmentation) and the
-        # training model are not touched.
-        if records is None:
-            rng = np.random.default_rng(999)
-            val = [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=nc, **scenes)
-                   for _ in range(args.eval_batches)]
-        else:
-            val = RecordLoader(records, cfg.batch_size, pad_hw, ids=records.split_ids()[1],
-                               shuffle=False, loop=False,
-                               max_objects=getattr(cfg, "max_objects", 128),
-                               device=trainer.device)
-        t0 = time.perf_counter()
-        m = evaluate_model(args.model, cfg, trainer.eval_model(), val,
-                           max_batches=args.eval_batches, device=trainer.device)
-        seconds = time.perf_counter() - t0
-        step = trainer.state.step
-        print(f"[cvm_tpu_torch] eval@{step}: {m} ({seconds:.2f} s)", flush=True)
-        trainer.metrics_writer.write(step, {**{f"val_{k}": v for k, v in m.items()},
-                                            "eval_seconds": seconds})
-        if best is not None:
-            if args.keep_best not in m:
-                print(f"[cvm_tpu_torch] --keep_best {args.keep_best!r} not in eval "
-                      f"metrics {sorted(m)} — no best checkpoint recorded",
-                      file=sys.stderr, flush=True)
-            elif best.update(step, trainer.checkpoint_state(
-                    it.state_dict() if hasattr(it, "state_dict") else None),
-                    m[args.keep_best]):
-                print(f"[cvm_tpu_torch] new best {args.keep_best}={m[args.keep_best]:.4f} "
-                      f"@step {step} -> {args.workdir}/best", flush=True)
-        if args.eval_images > 0:
-            log_eval_images(val, step)
-        return m
+        # training model are not touched. Under a group every rank takes
+        # part in the copy of the model and of the checkpoint (collectives
+        # under tensor parallelism); rank 0 scores while the others wait.
+        model = trainer.eval_model()
+        ck_state = (trainer.checkpoint_state(it.state_dict() if hasattr(it, "state_dict")
+                                             else None) if args.keep_best else None)
 
-    def log_eval_images(val, step):
+        def score():
+            if records is None:
+                rng = np.random.default_rng(999)
+                val = [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=nc, **scenes)
+                       for _ in range(args.eval_batches)]
+            else:
+                val = RecordLoader(records, cfg.batch_size, pad_hw,
+                                   ids=records.split_ids()[1], shuffle=False, loop=False,
+                                   max_objects=getattr(cfg, "max_objects", 128),
+                                   device=trainer.device)
+            t0 = time.perf_counter()
+            m = evaluate_model(args.model, cfg, model, val, max_batches=args.eval_batches,
+                               device=trainer.device)
+            seconds = time.perf_counter() - t0
+            step = trainer.state.step
+            log(f"[cvm_tpu_torch] eval@{step}: {m} ({seconds:.2f} s)")
+            trainer.metrics_writer.write(step, {**{f"val_{k}": v for k, v in m.items()},
+                                                "eval_seconds": seconds})
+            if best is not None:
+                if args.keep_best not in m:
+                    log(f"[cvm_tpu_torch] --keep_best {args.keep_best!r} not in eval "
+                        f"metrics {sorted(m)} — no best checkpoint recorded", err=True)
+                elif best.update(step, ck_state, m[args.keep_best]):
+                    log(f"[cvm_tpu_torch] new best {args.keep_best}={m[args.keep_best]:.4f} "
+                        f"@step {step} -> {args.workdir}/best")
+            if args.eval_images > 0:
+                log_eval_images(model, val, step)
+            return m
+
+        return score() if mesh is None else mesh.from_rank0("eval", score)
+
+    def log_eval_images(model, val, step):
         """The first eval batch's predictions drawn on its images
         (``infer/visualize.py::render_sample``) into the TensorBoard Images
         tab: the reference's headless stand-in for its OpenCV windows."""
@@ -266,12 +335,12 @@ def main(argv=None) -> int:
             batch0 = next(stream, None)
             stream.close()  # stops the loader's worker thread
         if batch0 is None or "image" not in batch0:
-            print("[cvm_tpu_torch] --eval_images: no RGB eval batch — skipping image "
-                  "summaries", file=sys.stderr, flush=True)
+            log("[cvm_tpu_torch] --eval_images: no RGB eval batch — skipping image "
+                "summaries", err=True)
             return
         host = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
                 for k, v in batch0.items()}
-        pipe = InferencePipeline(cfg, trainer.eval_model(), trainer.device, input_format="rgb")
+        pipe = InferencePipeline(cfg, model, trainer.device, input_format="rgb")
         out = {k: v.cpu().numpy() for k, v in pipe(host).items()}
         n = min(args.eval_images, int(host["image"].shape[0]))
         for i in range(n):
@@ -280,7 +349,7 @@ def main(argv=None) -> int:
                 vis["intrinsics"] = host["intrinsics"][i]
             rgb = render_sample(None, host["image"][i], host["image_hw"][i], vis)
             trainer.metrics_writer.write_image(step, f"eval/sample_{i}", rgb)
-        print(f"[cvm_tpu_torch] wrote {n} eval image summaries @step {step}", flush=True)
+        log(f"[cvm_tpu_torch] wrote {n} eval image summaries @step {step}")
 
     def stop(reason: str) -> None:
         trainer.request_stop()
@@ -299,12 +368,12 @@ def main(argv=None) -> int:
         if records is None:
             # The reference's synthetic stream: batch_size scenes per batch,
             # at most 10 classes, padded to its default of 8 boxes (no
-            # max_objects).
-            it = SyntheticIterator(args.seed, cfg.batch_size, pad_hw, num_classes=nc,
-                                   **scenes)
+            # max_objects); data rank d seeded seed + d * 7919.
+            it = SyntheticIterator(args.seed + data_index * 7919, local_bs, pad_hw,
+                                   num_classes=nc, **scenes)
         else:
-            loader = RecordLoader(records, cfg.batch_size, pad_hw,
-                                  ids=records.split_ids()[0],
+            train_ids = records.split_ids(shard_index=data_index, num_shards=data_ranks)[0]
+            loader = RecordLoader(records, local_bs, pad_hw, ids=train_ids,
                                   max_objects=getattr(cfg, "max_objects", 128),
                                   seed=args.seed, target_hw=target_hw, device=trainer.device)
             it = iter(loader)
@@ -312,12 +381,13 @@ def main(argv=None) -> int:
         if trainer.data_state is not None and records is None:
             it.load_state_dict(trainer.data_state)
         start_step = trainer.state.step
-        print(f"[cvm_tpu_torch] model={args.model} device={trainer.device} "
-              f"start_step={start_step}", flush=True)
+        where = "" if mesh is None else f" mesh=(data={mesh.data}, model={mesh.model})"
+        log(f"[cvm_tpu_torch] model={args.model} device={trainer.device}{where} "
+            f"start_step={start_step}")
         steps = args.steps
         if start_step > 0 and steps > 0:
             steps = max(0, steps - start_step)
-            print(f"[cvm_tpu_torch] resume: {steps} of the --steps total remain", flush=True)
+            log(f"[cvm_tpu_torch] resume: {steps} of the --steps total remain")
         metrics = {}
         if args.profile_steps > 0 and steps > 0:
             from cvm_tpu_torch.utils.prof import trace
@@ -328,13 +398,13 @@ def main(argv=None) -> int:
             if warm:
                 trainer.fit(it, warm)
             n = min(args.profile_steps, steps - warm)
-            with trace(f"{args.workdir}/trace"):
+            with trace(f"{args.workdir}/trace") if rank0 else contextlib.nullcontext():
                 metrics = trainer.fit(it, n)
                 if trainer.device.type == "cuda":
                     torch.cuda.synchronize(trainer.device)
             steps -= warm + n
-            print(f"[cvm_tpu_torch] profiler trace of {n} steps written to "
-                  f"{args.workdir}/trace", flush=True)
+            log(f"[cvm_tpu_torch] profiler trace of {n} steps written to "
+                f"{args.workdir}/trace")
         if args.eval_every > 0:
             if steps == 0 and start_step > 0:
                 # Resumed past the target (stopped between the last chunk
@@ -349,17 +419,17 @@ def main(argv=None) -> int:
                 steps -= chunk
                 m = run_eval(it)
                 if stopper is not None and stopper.update(m):
-                    print(f"[cvm_tpu_torch] early stop @step {trainer.state.step}: "
-                          f"{args.keep_best} has not improved past {stopper.best:.4f} for "
-                          f"{args.early_stop} evals (best checkpoint is in "
-                          f"{args.workdir}/best)", flush=True)
+                    log(f"[cvm_tpu_torch] early stop @step {trainer.state.step}: "
+                        f"{args.keep_best} has not improved past {stopper.best:.4f} for "
+                        f"{args.early_stop} evals (best checkpoint is in "
+                        f"{args.workdir}/best)")
                     break
         elif steps > 0:
             metrics = trainer.fit(it, steps)
         if records is not None:
             # read / decode / assemble ms per batch on the host: decode
             # beside the step time shows a host-decode-bound run
-            print(f"[cvm_tpu_torch] input pipeline: {loader.stats()}", flush=True)
+            log(f"[cvm_tpu_torch] input pipeline: {loader.stats()}")
     finally:
         if records is not None and it is not None:
             it.close()  # releases the loader's worker thread
@@ -369,10 +439,10 @@ def main(argv=None) -> int:
         if trainer.metrics_writer is not None:
             trainer.metrics_writer.close()
     if trainer.stop_requested:
-        print(f"[cvm_tpu_torch] stopped at step {trainer.state.step}: checkpoint "
-              "committed, exiting cleanly", flush=True)
+        log(f"[cvm_tpu_torch] stopped at step {trainer.state.step}: checkpoint "
+            "committed, exiting cleanly")
         return 0
-    print(f"[cvm_tpu_torch] done at step {trainer.state.step}: {metrics}", flush=True)
+    log(f"[cvm_tpu_torch] done at step {trainer.state.step}: {metrics}")
     return 0
 
 

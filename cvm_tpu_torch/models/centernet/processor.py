@@ -29,20 +29,21 @@ from cvm_tpu_torch.models.centernet.params import CenternetParams
 from cvm_tpu_torch.ops.cuda.gaussian_splat import render_heatmap, render_heatmap_reference
 from cvm_tpu_torch.ops.heatmap import CenternetTargets, render_centernet_targets_batch
 from cvm_tpu_torch.ops.image import clip_boxes, map_boxes_to_output, rotate_boxes
-from cvm_tpu_torch.pipeline.preprocess import AugDraws, preprocess_with_rois
+from cvm_tpu_torch.pipeline.preprocess import AugDraws, BatchRows, preprocess_with_rois
 
 Processor = Callable[..., Tuple[torch.Tensor, CenternetTargets]]
 
 
 def make_processor(params: CenternetParams, train: bool) -> Processor:
-    """Returns ``process(generator, batch, draws=None) -> (inputs, targets)``.
+    """Returns ``process(generator, batch, draws=None, rows=None) -> (inputs, targets)``.
 
     batch: image (B, Hmax, Wmax, 3) uint8 or y/u/v planes; image_hw (B, 2);
     boxes (B, K, 4) [x0, y0, x1, y1] source px; classes (B, K);
     num_objects (B,); with ``with_3d`` also loc3d (B, K, 3), dims3d (B, K,
     3), rot_y (B, K) -- tensors on one device. In training the random
     numbers are ``draws`` when given, else drawn from ``generator`` (on the
-    batch's device); eval takes neither.
+    batch's device; for the global batch's ``rows`` when given, the
+    batch being those rows); eval takes neither.
     """
     if params.with_3d and getattr(params, "aug_rotate_deg", 0.0) > 0.0:
         raise ValueError(
@@ -53,8 +54,10 @@ def make_processor(params: CenternetParams, train: bool) -> Processor:
     splat = render_heatmap if params.use_pallas_splat else render_heatmap_reference
 
     def process(generator: Optional[torch.Generator], batch,
-                draws: Optional[AugDraws] = None) -> Tuple[torch.Tensor, CenternetTargets]:
-        images, rois, angles = preprocess_with_rois(params, train, generator, batch, draws)
+                draws: Optional[AugDraws] = None, rows: Optional[BatchRows] = None
+                ) -> Tuple[torch.Tensor, CenternetTargets]:
+        images, rois, angles = preprocess_with_rois(params, train, generator, batch, draws,
+                                                     rows)
         out_boxes = map_boxes_to_output(batch["boxes"], rois)
         if angles is not None:
             # Rotated boxes spill past the canvas: clipped, so that the size

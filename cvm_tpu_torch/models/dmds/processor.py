@@ -19,23 +19,27 @@ import torch
 from cvm_tpu_torch.models.dmds.params import DmdsParams
 from cvm_tpu_torch.ops.image import RoiDraws, draw_roi, sample_bilinear
 from cvm_tpu_torch.ops.warp import scale_intrinsics
-from cvm_tpu_torch.pipeline.preprocess import make_rois, resample_yuv420_frame
+from cvm_tpu_torch.pipeline.preprocess import (BatchRows, draw_rows, make_rois,
+                                               resample_yuv420_frame)
 
 
 def make_processor(params: DmdsParams, train: bool) -> Callable[..., Tuple]:
-    """Returns ``process(generator, batch, draws=None) -> (inputs (B, H, W,
-    6), {"frames": (B, H, W, 6) in [0, 1], "intrinsics": (B, 4)})``. In
+    """Returns ``process(generator, batch, draws=None, rows=None) -> (inputs
+    (B, H, W, 6), {"frames": (B, H, W, 6) in [0, 1], "intrinsics": (B,
+    4)})``. In
     training the ROI jitter is ``draws`` (a ``RoiDraws``) when given, else
-    drawn from ``generator``; eval takes neither."""
+    drawn from ``generator`` (for the global batch's ``rows`` when given);
+    eval takes neither."""
     out_hw = params.input_hw
 
     def process(generator: Optional[torch.Generator], batch,
-                draws: Optional[RoiDraws] = None
+                draws: Optional[RoiDraws] = None, rows: Optional[BatchRows] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         hw = batch["image_hw"]
         if train and draws is None:
-            draws = draw_roi(generator, hw.shape[0], params.aug_scale_range,
-                             params.aug_shift_frac, flip_prob=0.0)
+            draws = draw_rows(lambda n: draw_roi(generator, n, params.aug_scale_range,
+                                                 params.aug_shift_frac, flip_prob=0.0),
+                              hw.shape[0], rows)
         rois = make_rois(hw, out_hw, draws if train else None)
         if "y" in batch:
             a = resample_yuv420_frame(batch["y"], batch["u"], batch["v"], hw, rois, out_hw)

@@ -26,6 +26,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cvm_tpu_torch.parallel.reduce import LOCAL, BatchReducer
+
 ACTS = {None: lambda x: x, "silu": F.silu, "relu": F.relu}
 
 
@@ -83,7 +85,16 @@ class BatchNorm(nn.BatchNorm2d):
     the batch mean and the *biased* batch variance, and move the running
     statistics 10% of the way to them (torch's own train mode would store
     the unbiased variance, n/(n-1) times larger). Inference reads the
-    running statistics only."""
+    running statistics only.
+
+    ``reducer`` (``parallel/reduce.py``; ``LOCAL`` on one process) makes the
+    training statistics those of the global batch, as GSPMD makes the
+    reference's: the mean from an all-reduced sum, then the biased
+    variance from an all-reduced sum of squared deviations, in fp32 over
+    the global count. (``nn.SyncBatchNorm`` would swap this NHWC module for
+    an NCHW one with torch's unbiased running variance.)"""
+
+    reducer: BatchReducer = LOCAL
 
     def __init__(self, ch: int):
         super().__init__(ch, eps=1e-5, momentum=0.1)
@@ -93,7 +104,13 @@ class BatchNorm(nn.BatchNorm2d):
             y = super().forward(x.to(torch.float32).permute(0, 3, 1, 2))
             return y.permute(0, 2, 3, 1).to(x.dtype)
         x32 = x.to(torch.float32)
-        var, mean = torch.var_mean(x32, dim=(0, 1, 2), correction=0)
+        red = self.reducer
+        if red.size == 1:
+            var, mean = torch.var_mean(x32, dim=(0, 1, 2), correction=0)
+        else:
+            n = x32[..., 0].numel() * red.size
+            mean = red.all_sum(x32.sum(dim=(0, 1, 2))) / n
+            var = red.all_sum(((x32 - mean) ** 2).sum(dim=(0, 1, 2))) / n
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)

@@ -21,20 +21,22 @@ from cvm_tpu_torch.models.multitask.params import MultitaskParams
 from cvm_tpu_torch.ops.cuda.gaussian_splat import render_heatmap
 from cvm_tpu_torch.ops.heatmap import render_centernet_targets_batch
 from cvm_tpu_torch.ops.image import clip_boxes, map_boxes_to_output, rotate_boxes
-from cvm_tpu_torch.pipeline.preprocess import (AugDraws, preprocess_with_rois, resample_labels,
-                                               rotate_labels)
+from cvm_tpu_torch.pipeline.preprocess import (AugDraws, BatchRows, preprocess_with_rois,
+                                               resample_labels, rotate_labels)
 
 
 def make_processor(params: MultitaskParams, train: bool) -> Callable[..., Tuple]:
-    """Returns ``process(generator, batch, draws=None) -> (inputs, {"det":
+    """Returns ``process(generator, batch, draws=None, rows=None) -> (inputs, {"det":
     CenternetTargets, "classes": (B, H, W) int32, "depth": (B, H, W, 1)})``;
     batch holds the image, image_hw, boxes, classes, num_objects, mask and
     depth."""
     out_hw = params.input_hw
 
-    def process(generator, batch, draws: Optional[AugDraws] = None
+    def process(generator, batch, draws: Optional[AugDraws] = None,
+                rows: Optional[BatchRows] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-        images, rois, angles = preprocess_with_rois(params, train, generator, batch, draws)
+        images, rois, angles = preprocess_with_rois(params, train, generator, batch, draws,
+                                                     rows)
         out_boxes = map_boxes_to_output(batch["boxes"], rois)
         if angles is not None:
             # one roll drives every modality, as the shared ROI does

@@ -5,7 +5,8 @@ Mirrors ``cvm_tpu/models/registry.py`` (``ModelSpec``, ``get_model``,
 ``get_model_zoo``, ``build_model``) for the whole zoo: centernet (with its
 optional 3D heads), semseg, depth, multitask and dmds.
 ``create_model(params, device, generator=None)`` takes the device the model
-lives on; there is no mesh.
+lives on; a multi-process run builds the whole model on every rank, then
+cuts its tensor-parallel slices (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -44,8 +45,8 @@ def get_model_zoo():
 def build_model(spec: ModelSpec, cfg, device, generator=None):
     """``spec.create_model`` on ``device``, weights drawn from
     ``generator`` (seed 0 when None). The reference's passes a mesh for
-    semseg's ``spatial_shard``; the port has no mesh (see ROADMAP's "Not
-    to port")."""
+    semseg's ``spatial_shard``, which is not ported (ROADMAP's "Not to
+    port")."""
     return spec.create_model(cfg, device, generator)
 
 

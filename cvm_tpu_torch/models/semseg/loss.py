@@ -7,6 +7,7 @@ smoothing taken against the unweighted class mean of -log p, is weighted
 by its label's class weight and divided by max(sum of the valid pixels'
 weights, 1). ``F.cross_entropy(weight=, label_smoothing=)`` weights the
 smoothing term per class and normalises otherwise, so it is not used.
+The batch-wide sums go through ``red`` (``parallel/reduce.py``).
 """
 
 from __future__ import annotations
@@ -16,10 +17,12 @@ from typing import Dict, Tuple
 import torch
 
 from cvm_tpu_torch.models.semseg.params import SemsegParams
+from cvm_tpu_torch.parallel.reduce import LOCAL, BatchReducer
 
 
 def semseg_loss(outputs: Dict[str, torch.Tensor], targets: Dict[str, torch.Tensor],
-                params: SemsegParams) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                params: SemsegParams, red: BatchReducer = LOCAL
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """outputs["logits"] (B, H, W, C); targets["classes"] (B, H, W) int with
     ``ignore_index`` for void pixels -> (loss, {"loss", "pixel_acc"})."""
     logits = outputs["logits"]
@@ -37,10 +40,10 @@ def semseg_loss(outputs: Dict[str, torch.Tensor], targets: Dict[str, torch.Tenso
         nll = (1.0 - eps) * nll + eps * (-logp.mean(dim=-1))
     w = torch.tensor(params.class_weights, dtype=torch.float32, device=logits.device)[safe]
     vf = valid.to(torch.float32)
-    denom = torch.clamp_min((w * vf).sum(), 1.0)
-    loss = (nll * w * vf).sum() / denom
+    denom = torch.clamp_min(red.sum(w * vf), 1.0)
+    loss = red.sum(nll * w * vf) / denom
     pred = torch.argmax(logits, dim=-1)
-    acc = ((pred == labels) & valid).sum() / torch.clamp_min(valid.sum(), 1)
+    acc = red.sum((pred == labels) & valid) / torch.clamp_min(red.sum(valid), 1)
     return loss, {"loss": loss, "pixel_acc": acc}
 
 

@@ -1,0 +1,336 @@
+"""Process groups for multi-process training: the counterpart of
+``cvm_tpu/parallel/mesh.py``.
+
+The reference builds a ("data", "model") ``jax.sharding.Mesh`` over every
+device of every host and lets GSPMD insert the collectives; one controller
+per host feeds its slice of the global batch (``global_put``). The port
+uses PyTorch's idiom: one process per card, joined by
+``torch.distributed``. ``init_distributed`` forms the group (NCCL between
+cards, gloo on the CPU), ``make_mesh`` lays the ranks out as a (data,
+model) grid, model index fastest, as the reference's device array is, and
+holds a process group along each axis.
+
+The batch is split over the data axis only: the ranks of one model group
+hold the same rows (the Megatron idiom; the reference splits its batch
+over both axes and lets GSPMD move activations). ``cfg.batch_size`` stays
+the global batch, and every batch-wide reduction is over it
+(``parallel/reduce.py``); the gradients are summed over the data group
+(``all_reduce_grads``). The reference's ``dcn_slices`` (the device order of
+a multi-slice TPU deployment) is not ported: NCCL picks its own ring or
+tree over the nodes.
+
+Nothing falls back: a group that cannot form within ``timeout_s``, or two
+NCCL ranks that would share a card, raise, naming the cause.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import socket
+import subprocess
+import time
+from typing import Any, Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from cvm_tpu_torch.parallel.reduce import LOCAL, BatchReducer, GroupReducer
+from cvm_tpu_torch.pipeline.preprocess import BatchRows
+from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
+
+DEFAULT_TIMEOUT_S = 60.0
+# How long the other ranks wait while rank 0 alone evaluates or writes.
+RANK0_TIMEOUT_S = 3600.0
+# The most gradient bytes one all-reduce carries.
+GRAD_BUCKET_BYTES = 32 << 20
+
+_STORE: List[Any] = [None]  # the store of the group init_distributed formed
+
+
+def _card(dev: torch.device) -> str:
+    props = torch.cuda.get_device_properties(dev)
+    return f"{socket.gethostname()}/{getattr(props, 'uuid', dev.index)}"
+
+
+def init_distributed(coordinator: str, num_processes: int, process_id: int,
+                     device: DeviceLike, backend: Optional[str] = None,
+                     timeout_s: float = DEFAULT_TIMEOUT_S) -> torch.device:
+    """Join the default process group of ``num_processes`` processes, whose
+    rank 0 serves the rendezvous at ``coordinator`` ("host:port"), as
+    ``process_id``; returns this rank's device.
+
+    ``device`` "cuda" gives rank r the card ``cuda:{r % device_count}``;
+    "cuda:N" or "cpu" are taken as they are. ``backend`` is NCCL for a
+    card and gloo for the CPU unless named: gloo on a card lets two ranks
+    share it. Collectives time out after ``timeout_s`` seconds (a dead
+    peer would otherwise hang the others for 30 minutes)."""
+    if num_processes < 1 or not 0 <= process_id < num_processes:
+        raise ValueError(f"process_id {process_id} is not a rank of {num_processes} processes")
+    host, _, port = coordinator.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"coordinator must be 'host:port', got {coordinator!r}")
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None and torch.cuda.is_available():
+        dev = torch.device("cuda", process_id % torch.cuda.device_count())
+    dev = resolve_device(dev)
+    backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
+    if backend == "nccl" and dev.type != "cuda":
+        raise ValueError("the NCCL backend needs a CUDA device; use gloo on the CPU")
+    if dist.is_initialized():
+        raise RuntimeError("a default process group exists already in this process")
+    timeout = datetime.timedelta(seconds=timeout_s)
+    where = f"rank {process_id} of {num_processes} at {coordinator}"
+    try:
+        store = dist.TCPStore(host, int(port), num_processes, is_master=process_id == 0,
+                              timeout=timeout, wait_for_workers=True)
+        if backend == "nccl":
+            # NCCL refuses two ranks on one card only inside its own init,
+            # as "Duplicate GPU detected"; this names the card and ranks.
+            store.set(f"card/{process_id}", _card(dev))
+            cards = [store.get(f"card/{r}").decode() for r in range(num_processes)]
+    except RuntimeError as e:  # DistStoreError (a timeout) is one
+        raise RuntimeError(f"the process group did not form ({where}) within "
+                           f"{timeout_s:g} s: {e}") from e
+    if backend == "nccl":
+        for r, card in enumerate(cards):
+            other = cards.index(card)
+            if other != r:
+                raise RuntimeError(
+                    f"NCCL ranks {other} and {r} would share the card {card}: NCCL needs "
+                    "a card per rank; start at most torch.cuda.device_count() processes "
+                    "per host, or pass backend='gloo' to share a card")
+        torch.cuda.set_device(dev)
+    try:
+        dist.init_process_group(backend, store=store, rank=process_id,
+                                world_size=num_processes, timeout=timeout)
+        # One all-reduce now: NCCL forms its communicator at the first
+        # collective, and a backend that cannot run one fails here, named.
+        t = torch.ones(1, device=dev)
+        dist.all_reduce(t)
+        if int(t.item()) != num_processes:
+            raise RuntimeError(f"a test all-reduce gave {t.item()}, not {num_processes}")
+    except RuntimeError as e:
+        raise RuntimeError(f"the {backend} process group failed ({where}): {e}") from e
+    _STORE[0] = store
+    return dev
+
+
+def shutdown_distributed() -> None:
+    """Leave the default process group (when there is one)."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    _STORE[0] = None
+
+
+class Mesh:
+    """This rank's place in the (data, model) grid of the default process
+    group: ``data`` x ``model`` ranks, rank = data_index * model +
+    model_index; ``data_group`` joins the ranks of this model index (the
+    batch is split over it), ``model_group`` those of this data index (the
+    tensor-parallel shards). A group of one rank is None."""
+
+    def __init__(self, data: int, model: int, rank: int, device: torch.device,
+                 data_group=None, model_group=None, store=None):
+        self.data, self.model, self.rank, self.device = data, model, rank, device
+        self.data_group, self.model_group, self._store = data_group, model_group, store
+        self._seq = 0
+
+    @property
+    def world(self) -> int:
+        return self.data * self.model
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+    @property
+    def is_rank0(self) -> bool:
+        return self.rank == 0
+
+    def batch_rows(self, global_batch: int) -> BatchRows:
+        """This rank's rows of a global batch (the same for every rank of a
+        model group)."""
+        if global_batch % self.data:
+            raise ValueError(f"batch_size {global_batch} not divisible by {self.data} "
+                             "data-parallel processes")
+        n = global_batch // self.data
+        return BatchRows(self.data_index * n, (self.data_index + 1) * n, global_batch)
+
+    @property
+    def reducer(self) -> BatchReducer:
+        """The batch-wide reductions of a loss or a BatchNorm on this rank."""
+        return LOCAL if self.data == 1 else GroupReducer(self.data_group, self.data)
+
+    def all_reduce_grads(self, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """The mean over the data group of each rank's gradients (the true
+        gradient; ``parallel/reduce.py``), flattened into buckets of at most
+        ``GRAD_BUCKET_BYTES`` so that each is one all-reduce."""
+        grads = list(grads)
+        if self.data == 1:
+            return grads
+        out: List[Optional[torch.Tensor]] = [None] * len(grads)
+        bucket: List[int] = []
+
+        def flush():
+            flat = torch.cat([grads[i].reshape(-1) for i in bucket])
+            dist.all_reduce(flat, group=self.data_group)
+            flat /= self.data
+            for i, part in zip(bucket, flat.split([grads[i].numel() for i in bucket])):
+                out[i] = part.view_as(grads[i])
+            bucket.clear()
+
+        size = 0
+        for i, g in enumerate(grads):
+            if bucket and (g.dtype != grads[bucket[0]].dtype
+                           or size + g.numel() * g.element_size() > GRAD_BUCKET_BYTES):
+                flush()
+                size = 0
+            bucket.append(i)
+            size += g.numel() * g.element_size()
+        flush()
+        return out
+
+    def any_rank(self, flag: bool) -> torch.Tensor:
+        """Whether ``flag`` is set on any rank, as a one-element CPU tensor
+        (pinned when the ranks are on cards) that holds the answer once the
+        device has run the work enqueued before this call: the host does not
+        wait for the all-reduce here, so read the tensor after an event
+        recorded after this call has completed."""
+        t = torch.full((1,), int(flag), dtype=torch.int32, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        if self.device.type != "cuda":
+            return t
+        host = torch.empty(1, dtype=torch.int32, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
+
+    def check_replicas(self, tensors: Sequence[torch.Tensor], what: str) -> None:
+        """Raise unless every rank holds the same ``tensors`` (a float64
+        checksum, its max and min over the ranks in one all-reduce)."""
+        if self.world == 1:
+            return
+        with torch.no_grad():
+            c = torch.stack([t.detach().to(torch.float64).sum() for t in tensors]).sum()
+            both = torch.stack([c, -c])
+            dist.all_reduce(both, op=dist.ReduceOp.MAX)
+        hi, lo = float(both[0]), -float(both[1])
+        if hi != lo:
+            raise RuntimeError(f"the ranks hold different {what} (checksums from {lo!r} to "
+                               f"{hi!r}): every rank must build the same seeded init")
+
+    def broadcast_object(self, obj: Any) -> Any:
+        """Rank 0's ``obj`` on every rank (tensors in it go through the CPU)."""
+        if self.world == 1:
+            return obj
+        box = [obj if self.is_rank0 else None]
+        dist.broadcast_object_list(box, src=0,
+                                   device=self.device if self.device.type == "cuda" else None)
+        return box[0]
+
+    def _key(self, name: str) -> str:
+        self._seq += 1
+        return f"mesh/{name}/{self._seq}"
+
+    def from_rank0(self, name: str, fn: Callable[[], Any]) -> Any:
+        """Run ``fn`` on rank 0 alone while the other ranks wait (through the
+        rendezvous store, so that a long evaluation does not trip the
+        collectives' timeout); its (picklable) result on every rank. Every
+        rank calls this at the same point."""
+        if self.world == 1:
+            return fn()
+        key = self._key(name)
+        if self.is_rank0:
+            value = fn()
+            self._store.set(key, pickle.dumps(value))
+            return value
+        self._store.wait([key], datetime.timedelta(seconds=RANK0_TIMEOUT_S))
+        return pickle.loads(self._store.get(key))
+
+    def gather_to_rank0(self, name: str, obj: Any) -> Optional[List[Any]]:
+        """Every rank's (picklable) ``obj`` as a list on rank 0, by rank; None
+        elsewhere."""
+        if self.world == 1:
+            return [obj]
+        key = self._key(name)
+        self._store.set(f"{key}/{self.rank}", pickle.dumps(obj))
+        if not self.is_rank0:
+            return None
+        return [pickle.loads(self._store.get(f"{key}/{r}")) for r in range(self.world)]
+
+
+def free_port() -> int:
+    """A port of 127.0.0.1 free at the time of asking (the OS picks it)."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_ranks(n: int, argv: Callable[[int, int], List[str]], timeout_s: float,
+                 cwd: Optional[str] = None) -> List[str]:
+    """Run ``n`` local processes, rank r's command line ``argv(r, port)``
+    with ``port`` free for their rendezvous at 127.0.0.1, each pinned to
+    one CPU thread (``OMP_NUM_THREADS``); their standard outputs, by rank.
+    Raises with every failed rank's errors when one fails or the run
+    outlasts ``timeout_s``; no process outlives the call."""
+    port = free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen(argv(r, port), cwd=cwd, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(n)]
+    outs, errs = [], []
+    try:
+        deadline = time.monotonic() + timeout_s
+        for r, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=max(deadline - time.monotonic(), 1.0))
+            outs.append(out)
+            if proc.returncode != 0:
+                errs.append(f"rank {r} exited {proc.returncode}:\n{err[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    if errs:
+        raise RuntimeError("\n".join(errs))
+    return outs
+
+
+def single_mesh(device: DeviceLike) -> Mesh:
+    """The mesh of one process without a group."""
+    return Mesh(1, 1, 0, resolve_device(device))
+
+
+def make_mesh(model_axis: int, device: DeviceLike) -> Mesh:
+    """The (data, model) mesh over the default process group, ``model_axis``
+    ranks on the model axis, on ``device`` (the one ``init_distributed``
+    returned); a one-rank mesh on ``device`` without a group. Every rank of
+    the group calls this (it creates the subgroups)."""
+    if not dist.is_initialized():
+        if model_axis != 1:
+            raise ValueError(f"1 process not divisible by model_axis={model_axis}")
+        return single_mesh(device)
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if model_axis < 1 or world % model_axis:
+        raise ValueError(f"{world} processes not divisible by model_axis={model_axis}")
+    data = world // model_axis
+    data_group = model_group = None
+    # new_group is collective: every rank creates every group, in one order.
+    for m in range(model_axis):
+        ranks = [d * model_axis + m for d in range(data)]
+        g = (None if data == 1 else dist.group.WORLD if data == world
+             else dist.new_group(ranks))
+        if rank in ranks:
+            data_group = g
+    for d in range(data):
+        ranks = [d * model_axis + m for m in range(model_axis)]
+        g = (None if model_axis == 1 else dist.group.WORLD if model_axis == world
+             else dist.new_group(ranks))
+        if rank in ranks:
+            model_group = g
+    return Mesh(data, model_axis, rank, resolve_device(device), data_group, model_group,
+                _STORE[0])

@@ -17,12 +17,17 @@ are what the models' processors share: the images through the ROIs (and,
 with ``aug_rotate_deg > 0`` in training, rotated by the batch's roll
 angles), then each per-pixel label map (class mask, sparse depth) through
 the same ROIs, nearest-neighbour, and through the same roll.
+
+Under data parallelism each process holds ``rows`` (a ``BatchRows``) of
+the global batch: it draws the numbers of the whole global batch from the
+step's generator, which every rank seeds alike, and keeps its rows
+(``take_rows``), so that N processes use exactly the draws of one.
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -73,6 +78,24 @@ def rotate_image_batch(images: torch.Tensor, angles: torch.Tensor, pad_value=0.0
     return rotate_image(images, angles, pad_value, method)
 
 
+class BatchRows(NamedTuple):
+    """Rows ``start:stop`` of a global batch of ``total`` rows."""
+
+    start: int
+    stop: int
+    total: int
+
+
+def take_rows(draws, rows: Optional[BatchRows]):
+    """The ``rows`` of a batch's draws (a NamedTuple of (B, ...) tensors,
+    None or NamedTuples of them); all of them when ``rows`` is None."""
+    if rows is None or draws is None:
+        return draws
+    if torch.is_tensor(draws):
+        return draws[rows.start:rows.stop]
+    return type(draws)(*(take_rows(d, rows) for d in draws))
+
+
 class AugDraws(NamedTuple):
     """Every random number of one training batch's preprocess: the ROI
     jitter, the photometric numbers and the roll angles (radians, (B,);
@@ -83,16 +106,30 @@ class AugDraws(NamedTuple):
     angle: Optional[torch.Tensor] = None
 
 
+def draw_rows(draw: Callable[[int], Any], batch_size: int, rows: Optional[BatchRows] = None):
+    """``draw(n)``'s numbers for a batch of ``batch_size`` rows: drawn for
+    n = ``batch_size``, or, given ``rows``, for the global batch and cut to
+    its ``rows``."""
+    if rows is None:
+        return draw(batch_size)
+    if rows.stop - rows.start != batch_size:
+        raise ValueError(f"a batch of {batch_size} rows is given as rows "
+                         f"{rows.start}:{rows.stop} of {rows.total}")
+    return take_rows(draw(rows.total), rows)
+
+
 def draw_augmentation(generator: torch.Generator, batch_size: int,
-                      out_hw: Tuple[int, int], aug: AugConfig) -> AugDraws:
+                      out_hw: Tuple[int, int], aug: AugConfig,
+                      rows: Optional[BatchRows] = None) -> AugDraws:
     """Draw a training batch's ROI jitter, photometric numbers and roll
-    angles from ``generator`` (on the device the batch is on)."""
-    return AugDraws(
-        draw_roi(generator, batch_size, aug.scale_range, aug.shift_frac, aug.flip_prob),
-        draw_photometric(generator, (batch_size, out_hw[0], out_hw[1], 3), aug.brightness,
+    angles from ``generator`` (on the device the batch is on); with
+    ``rows``, those of the global batch's ``rows``."""
+    return draw_rows(lambda n: AugDraws(
+        draw_roi(generator, n, aug.scale_range, aug.shift_frac, aug.flip_prob),
+        draw_photometric(generator, (n, out_hw[0], out_hw[1], 3), aug.brightness,
                          aug.contrast, aug.saturation, aug.hue, aug.noise_std,
                          aug.blur_prob),
-        sample_rotation(generator, batch_size, aug))
+        sample_rotation(generator, n, aug)), batch_size, rows)
 
 
 def make_rois(image_hw: torch.Tensor, out_hw: Tuple[int, int],
@@ -160,16 +197,16 @@ def preprocess_yuv420_batch(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 
 def preprocess_with_rois(params, train: bool, generator: Optional[torch.Generator], batch,
-                         draws: Optional[AugDraws]):
+                         draws: Optional[AugDraws], rows: Optional[BatchRows] = None):
     """The image half of every model's processor: (inputs, rois, angles)
     through the eval letterbox or, with ``train``, the training jitter,
     photometric augmentation and (``aug_rotate_deg > 0``) the roll by
     ``angles`` (None when there is none), its numbers ``draws`` when given,
-    else drawn from ``generator``. The caller rolls its labels with the
-    same angles."""
+    else drawn from ``generator`` (for the global batch's ``rows`` when
+    given). The caller rolls its labels with the same angles."""
     if train and draws is None:
         draws = draw_augmentation(generator, batch["image_hw"].shape[0], params.input_hw,
-                                  aug_from_params(params))
+                                  aug_from_params(params), rows)
     images, rois = preprocess_batch(batch, params.input_hw, draws=draws if train else None)
     angles = draws.angle if train else None
     if angles is not None:

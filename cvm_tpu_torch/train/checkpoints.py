@@ -7,6 +7,11 @@ written to a temporary name and moved into place with ``os.replace``, so a
 reader sees a whole checkpoint or none. The model's hyperparameters are
 stored beside them as ``params.json``. Saves are synchronous: ``wait`` has
 nothing to wait for and is kept for the reference's interface.
+
+Under multi-process training only rank 0 writes (Orbax coordinates one
+write for the reference): the other ranks hold a manager with ``writer``
+False, which creates nothing and whose ``save`` does nothing; the
+``Trainer`` gathers the state first and waits for rank 0 after.
 """
 
 from __future__ import annotations
@@ -22,11 +27,13 @@ _NAME = re.compile(r"^(\d+)\.pt$")
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3, params_cfg=None):
+    def __init__(self, directory: str, keep: int = 3, params_cfg=None, writer: bool = True):
         if keep < 1:
             raise ValueError(f"keep must be >= 1, got {keep}")
         self.directory = os.path.abspath(directory)
-        self.keep = keep
+        self.keep, self.writer = keep, writer
+        if not writer:
+            return
         os.makedirs(self.directory, exist_ok=True)
         if params_cfg is not None:
             cfg_path = os.path.join(self.directory, "params.json")
@@ -39,7 +46,10 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any) -> None:
         """Write ``state`` (tensors, numbers, strings, lists, dicts) as
-        ``step``, then drop all but the newest ``keep`` steps."""
+        ``step``, then drop all but the newest ``keep`` steps (nothing when
+        this is not the writer)."""
+        if not self.writer:
+            return
         path = self._path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
         torch.save(state, tmp)
@@ -49,6 +59,8 @@ class CheckpointManager:
 
     def all_steps(self) -> list:
         """Steps on disk, ascending (bounded by keep-N)."""
+        if not os.path.isdir(self.directory):
+            return []
         return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.directory))
                       if m)
 

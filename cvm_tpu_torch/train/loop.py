@@ -1,7 +1,7 @@
 """Training loop: train state, train/eval steps, ``Trainer``.
 
 Mirrors ``cvm_tpu/train/loop.py`` (``TrainState``, ``create_train_state``,
-``make_train_step``, ``make_eval_step``, ``Trainer``) on one device, for
+``make_train_step``, ``make_eval_step``, ``Trainer``), for
 any model of the registry (``models/registry.py``; the params' ``name``
 picks its model, loss and processor). The reference compiles one program
 per step; here the same steps run eagerly: processor (with kernel K1 for
@@ -44,8 +44,37 @@ heartbeat is the device's, not the host's enqueueing.
 ``jax_debug_nans``) checks every step on the host and raises
 ``FloatingPointError`` at the first step whose model outputs, loss,
 gradients or updated parameters are not finite, naming the step and the
-tensors. The mesh and tensor-parallel sharding are not ported (ROADMAP
-Queue 1 item 17).
+tensors.
+
+Multi-process training (``mesh``, ``parallel/mesh.py``): one process per
+card, the global batch ``cfg.batch_size`` split over the data axis, each
+rank fed its rows (``Mesh.batch_rows``). The reference's Trainer gets the
+rest from GSPMD; here every rank:
+
+* draws the augmentation of the whole global batch from the same
+  ``step_generator`` and keeps its rows, so N ranks use one process's
+  draws;
+* computes BatchNorm's training statistics and every batch-wide sum, mean
+  and max of the loss over the global batch (``parallel/reduce.py``), so
+  all ranks hold the same loss and metrics;
+* sums its gradients over the data group, in flat buckets, before the
+  optimizer (DDP is not used: its reducer does not serve
+  ``torch.autograd.grad``), then divides by the group's size; gradient
+  accumulation and the EMA work on the result unchanged;
+* with ``tensor_parallel`` and a model axis of two or more ranks, holds
+  slices of the stage-5 convs (``parallel/sharding.py``), of their
+  optimizer state and of their EMA.
+
+Every rank builds the same seeded init (a checksum all-reduce checks it);
+rank 0 reads a checkpoint and broadcasts it, and rank 0 alone writes
+checkpoints (whole tensors, the layout of a one-process run, with every
+data rank's stream state) and metrics while the others wait. A stop
+request on any rank stops all of them after the same step: each step
+all-reduces a flag, which the host reads only once it has waited for that
+step's event anyway (up to ``MAX_INFLIGHT`` steps later on a card) or when
+``fit`` ends, so the in-flight window stays open. The watchdog's re-exec would restart one rank,
+which cannot rejoin the group, so ``restart_argv`` is refused under a
+group of two or more.
 """
 
 from __future__ import annotations
@@ -63,10 +92,15 @@ import torch
 import torch.nn as nn
 
 from cvm_tpu_torch.data.loader import prefetch_to_device
+from cvm_tpu_torch.models.layers import BatchNorm
 from cvm_tpu_torch.models.registry import build_model, get_model
+from cvm_tpu_torch.parallel.mesh import Mesh, single_mesh
+from cvm_tpu_torch.parallel.reduce import LOCAL
+from cvm_tpu_torch.parallel.sharding import (gather_state_dict, shard_module,
+                                             shard_state_dict, split_norm, tp_rules_for)
 from cvm_tpu_torch.train.checkpoints import CheckpointManager
 from cvm_tpu_torch.train.metrics import JsonlMetricsWriter, MultiWriter
-from cvm_tpu_torch.train.optim import Optimizer, global_norm, make_optimizer
+from cvm_tpu_torch.train.optim import Optimizer, make_optimizer
 from cvm_tpu_torch.train.qat import maybe_fake_quant
 from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -121,34 +155,45 @@ def _raise_non_finite(step: int, what: str, named: Dict[str, torch.Tensor]) -> N
 
 
 def make_train_step(loss_fn: Callable, params_cfg, processor: Callable,
-                    debug_nans: bool = False) -> Callable:
+                    debug_nans: bool = False, mesh: Optional[Mesh] = None) -> Callable:
     """Returns ``train_step(state, raw_batch, generator) -> (state,
     metrics)``; the state is updated in place. ``grad_norm`` is the global
     norm of the raw gradients; the EMA moves only on steps where the
     optimizer applied an update (with gradient accumulation, every k-th).
     With ``debug_nans`` the step raises ``FloatingPointError`` at the first
     of its model outputs, loss, gradients and updated parameters that is
-    not finite (the reference's ``jax_debug_nans``)."""
+    not finite (the reference's ``jax_debug_nans``). The step calls
+    ``processor(generator, raw_batch, rows=rows)`` and ``loss_fn(out,
+    targets, params_cfg, reducer)``. Under a ``mesh`` with a data axis of
+    two or more, ``raw_batch`` is this rank's ``rows`` of the global batch;
+    the processor draws for the global batch, the loss reduces over it and
+    the gradients are averaged over the data group. Otherwise ``rows`` is
+    None (the whole batch) and the reducer ``LOCAL``."""
     ema_decay = getattr(params_cfg, "ema_decay", 0.0)
+    data_parallel = mesh is not None and mesh.data > 1
+    rows = mesh.batch_rows(params_cfg.batch_size) if data_parallel else None
+    red = mesh.reducer if data_parallel else LOCAL
 
     def train_step(state: TrainState, raw_batch, generator: torch.Generator):
-        inputs, targets = processor(generator, raw_batch)
+        inputs, targets = processor(generator, raw_batch, rows=rows)
         state.model.train()
         with maybe_fake_quant(params_cfg):
             # qat=True: the loss surface includes the int8 rounding noise.
             out = state.model(inputs)
-        loss, metrics = loss_fn(out, targets, params_cfg)
+        loss, metrics = loss_fn(out, targets, params_cfg, red)
         step = state.step + 1
         if debug_nans:
             _raise_non_finite(step, "model outputs", {k: v for k, v in out.items()
                                                       if torch.is_tensor(v)})
             _raise_non_finite(step, "loss", {"loss": loss})
         grads = _param_grads(loss, state)
+        if data_parallel:
+            grads = mesh.all_reduce_grads(grads)
         if debug_nans:
             names = [n for n, _ in state.model.named_parameters()]
             _raise_non_finite(step, "gradients", dict(zip(names, grads)))
         metrics = {k: v.detach() for k, v in metrics.items()}
-        metrics["grad_norm"] = global_norm(grads)
+        metrics["grad_norm"] = state.optimizer.norm(grads)
         applied = state.optimizer.step(grads)
         if debug_nans:
             _raise_non_finite(step, "updated parameters", dict(zip(names, state.params)))
@@ -197,9 +242,11 @@ def step_generator(device: torch.device, seed: int, step: int) -> torch.Generato
 
 
 class Trainer:
-    """Steps, checkpoints and metrics for one model on one device; the
-    counterpart of the reference's ``Trainer`` (without the mesh). The
-    model is the registry's entry named ``params_cfg.name``.
+    """Steps, checkpoints and metrics for one model; the counterpart of
+    the reference's ``Trainer``. The model is the registry's entry named
+    ``params_cfg.name``. ``mesh`` (``parallel/mesh.py::make_mesh``) makes
+    this process one rank of a multi-process run on ``mesh.device``, which
+    ``device`` must name; metrics and checkpoints are written by rank 0.
 
     ``tensorboard_dir`` adds a TensorBoard event writer beside the JSONL
     one (``metrics_writer`` is then a ``MultiWriter``). ``restart_argv``
@@ -218,23 +265,34 @@ class Trainer:
                  keep_checkpoints: int = 3, checkpoint_every: int = 1000, log_every: int = 50,
                  seed: int = 0, restart_argv: Optional[Sequence[str]] = None,
                  max_restarts: int = 3, debug_nans: bool = False,
-                 tx: Optional[Callable[[List[torch.Tensor]], Optimizer]] = None):
+                 tx: Optional[Callable[[List[torch.Tensor]], Optimizer]] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = params_cfg
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else single_mesh(self.device)
+        if self.mesh.device != self.device:
+            raise ValueError(f"device {self.device} is not the mesh's {self.mesh.device}")
+        if restart_argv is not None and self.mesh.world > 1:
+            raise ValueError("auto-restart re-execs one process, which cannot rejoin a "
+                             f"process group of {self.mesh.world}: restart the whole job "
+                             "(every rank resumes from the newest checkpoint)")
         self.spec = get_model(params_cfg.name)
         self.processor = self.spec.make_processor(params_cfg, train=True)
         self.train_step = make_train_step(self.spec.loss_fn, params_cfg, self.processor,
-                                          debug_nans=debug_nans)
+                                          debug_nans=debug_nans, mesh=self.mesh)
+        self.split: Dict[str, int] = {}   # tensor-parallel slices: {name: dim}
         self.log_every, self.checkpoint_every, self.seed = log_every, checkpoint_every, seed
         self.restart_argv = None if restart_argv is None else list(restart_argv)
         self.max_restarts = max_restarts
         self.tx = tx
         self.data_state = None      # data stream state restored from a checkpoint
-        self._stop_requested = False
+        self._stop_requested = False  # asked on this rank
+        self._stopped = False         # fit stopped on a request (of any rank)
         writers = []
-        if metrics_path is not None:
+        rank0 = self.mesh.is_rank0
+        if metrics_path is not None and rank0:
             writers.append(JsonlMetricsWriter(metrics_path))
-        if tensorboard_dir is not None:
+        if tensorboard_dir is not None and rank0:
             from cvm_tpu_torch.train.tensorboard import TensorBoardWriter
 
             writers.append(TensorBoardWriter(tensorboard_dir))
@@ -242,7 +300,7 @@ class Trainer:
                                else MultiWriter(*writers))
         self.ckpt = (None if checkpoint_dir is None
                      else CheckpointManager(checkpoint_dir, keep=keep_checkpoints,
-                                            params_cfg=params_cfg))
+                                            params_cfg=params_cfg, writer=rank0))
         self.state: Optional[TrainState] = None
 
     @property
@@ -252,21 +310,34 @@ class Trainer:
     @property
     def eval_params(self) -> Dict[str, torch.Tensor]:
         """``{name: tensor}`` to evaluate or export with: the EMA shadow when
-        ``ema_decay > 0``, else the live parameters."""
+        ``ema_decay > 0``, else the live parameters (whole tensors: under
+        tensor parallelism every rank of the model group calls this)."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
         names = [n for n, _ in self.state.model.named_parameters()]
         values = self.state.ema if self.state.ema is not None else self.state.params
-        return {n: v.detach() for n, v in zip(names, values)}
+        return self._whole({n: v.detach() for n, v in zip(names, values)})
+
+    def _whole(self, named: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        return gather_state_dict(named, self.split, self.mesh) if self.split else named
 
     def eval_model(self, use_ema: bool = True) -> nn.Module:
         """A copy of the model in eval mode to evaluate or export: the EMA
         parameters when ``use_ema`` and ``ema_decay > 0``, else the live
         ones, with the live BatchNorm statistics (the reference scores
         ``eval_params`` with the live ``batch_stats``). The training model's
-        mode, parameters and buffers are not touched."""
+        mode, parameters and buffers are not touched. Under tensor
+        parallelism the copy is the whole model, gathered (every rank of
+        the model group calls this)."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
+        if self.split:
+            sd = self._whole(self.state.model.state_dict())
+            if use_ema and self.state.ema is not None:
+                sd.update(self.eval_params)
+            model = build_model(self.spec, self.cfg, self.device)
+            model.load_state_dict(sd, strict=True)
+            return model.eval()
         model = copy.deepcopy(self.state.model)
         if use_ema and self.state.ema is not None:
             with torch.no_grad():
@@ -276,9 +347,19 @@ class Trainer:
 
     def init_state(self) -> TrainState:
         """Build the model (weights drawn from ``seed``) and optimizer, and
-        restore the newest checkpoint when there is one."""
-        cfg = self.cfg
+        restore the newest checkpoint when there is one. Under a mesh every
+        rank checks that it built the same weights, cuts its tensor-parallel
+        slices, and loads the checkpoint rank 0 read."""
+        cfg, mesh = self.cfg, self.mesh
         model = build_model(self.spec, cfg, self.device, torch.Generator().manual_seed(self.seed))
+        mesh.check_replicas(list(model.state_dict().values()), "initial weights")
+        if getattr(cfg, "tensor_parallel", False):
+            # on a model axis of one rank the rules shard nothing, as the
+            # reference's do over a size-1 axis
+            self.split = shard_module(model, mesh, tp_rules_for(self.spec.name))
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.reducer = mesh.reducer
         if self.tx is not None:
             opt = self.tx(list(model.parameters()))
         else:
@@ -287,51 +368,92 @@ class Trainer:
                                  grad_accum_steps=getattr(cfg, "grad_accum_steps", 1),
                                  lr_schedule=getattr(cfg, "lr_schedule", "warmup_cosine"),
                                  optimizer=getattr(cfg, "optimizer", "adamw"))
+        if self.split:
+            opt.norm = split_norm([n in self.split for n, _ in model.named_parameters()], mesh)
         self.state = create_train_state(model, cfg, opt)
         if self.ckpt is not None:
-            ck = self.ckpt.restore_latest(map_location=self.device)
+            ck = None
+            if mesh.is_rank0:
+                ck = self.ckpt.restore_latest(
+                    map_location=self.device if mesh.world == 1 else "cpu")
+            ck = mesh.broadcast_object(ck)
             if ck is not None:
                 self.load_checkpoint(ck)
         return self.state
+
+    def _by_name(self, tensors: List[torch.Tensor], gather: bool) -> List[torch.Tensor]:
+        """Per-parameter optimizer state gathered whole (``gather``) or cut
+        to this rank's slices."""
+        if not self.split or not tensors:
+            return tensors
+        names = [n for n, _ in self.state.model.named_parameters()]
+        named = dict(zip(names, tensors))
+        named = (gather_state_dict(named, self.split, self.mesh) if gather
+                 else shard_state_dict(named, self.split, self.mesh))
+        return [named[n] for n in names]
 
     def load_checkpoint(self, ck: dict) -> None:
         """Load a checkpoint (``checkpoint_state``'s dict) into the state;
         tolerant of an ``ema_decay`` / checkpoint mismatch (a missing shadow
         is seeded from the restored parameters, a stale one dropped). Any
-        other mismatch raises."""
-        state = self.state
-        state.model.load_state_dict(ck["model"], strict=True)
-        state.optimizer.load_state_dict(ck["optimizer"])
+        other mismatch raises. The checkpoint holds whole tensors; under
+        tensor parallelism each rank loads its slices."""
+        state, mesh = self.state, self.mesh
+        model_sd, opt_sd, ema = ck["model"], dict(ck["optimizer"]), ck["ema"]
+        if self.split:
+            model_sd = shard_state_dict(model_sd, self.split, mesh)
+            for k in ("mu", "nu", "acc"):
+                opt_sd[k] = self._by_name(opt_sd[k], gather=False)
+            if ema is not None:
+                ema = shard_state_dict(ema, self.split, mesh)
+        state.model.load_state_dict(model_sd, strict=True)
+        state.optimizer.load_state_dict(opt_sd)
         if state.ema is not None:
-            if ck["ema"] is None:
-                print("[cvm_tpu_torch] checkpoint predates ema_decay: seeding the EMA "
-                      "shadow from the restored params", file=sys.stderr, flush=True)
+            if ema is None:
+                if mesh.is_rank0:
+                    print("[cvm_tpu_torch] checkpoint predates ema_decay: seeding the EMA "
+                          "shadow from the restored params", file=sys.stderr, flush=True)
                 src = state.params
             else:
-                src = [ck["ema"][n] for n, _ in state.model.named_parameters()]
+                src = [ema[n] for n, _ in state.model.named_parameters()]
             with torch.no_grad():
                 for e, s in zip(state.ema, src):
                     e.copy_(s)
-        elif ck["ema"] is not None:
+        elif ema is not None and mesh.is_rank0:
             print("[cvm_tpu_torch] checkpoint carries an EMA shadow but ema_decay=0: "
                   "dropping it", file=sys.stderr, flush=True)
         state.step = int(ck["step"])
-        self.data_state = ck["host"]["data"]
+        host = ck["host"]
+        ranks = host.get("data_ranks")
+        if ranks is not None and len(ranks) == mesh.data:
+            self.data_state = ranks[mesh.data_index]
+        else:  # another layout of streams: rank 0 continues the first one
+            self.data_state = host["data"] if mesh.data_index == 0 else None
 
     def checkpoint_state(self, data_state) -> dict:
         """What a checkpoint holds: step, model ``state_dict``, optimizer
         state, EMA shadow (``{name: tensor}`` or None) and the data stream's
-        state ``data_state``."""
-        st = self.state
+        state ``data_state``. Under a mesh every rank calls this: the
+        tensors are gathered whole, and ``host["data_ranks"]`` holds each
+        data rank's stream state (complete on rank 0)."""
+        st, mesh = self.state, self.mesh
         ema = None
         if st.ema is not None:
-            ema = {n: e for (n, _), e in zip(st.model.named_parameters(), st.ema)}
-        return {"step": st.step, "model": st.model.state_dict(),
-                "optimizer": st.optimizer.state_dict(), "ema": ema,
-                "host": {"data": data_state}}
+            ema = self._whole({n: e for (n, _), e in zip(st.model.named_parameters(), st.ema)})
+        opt = st.optimizer.state_dict()
+        if self.split:
+            opt = {**opt, **{k: self._by_name(opt[k], gather=True) for k in ("mu", "nu", "acc")}}
+        host = {"data": data_state}
+        if mesh.world > 1:
+            states = mesh.gather_to_rank0("data_state", data_state)
+            if states is not None:
+                host["data_ranks"] = [states[d * mesh.model] for d in range(mesh.data)]
+        return {"step": st.step, "model": self._whole(st.model.state_dict()),
+                "optimizer": opt, "ema": ema, "host": host}
 
     def _save(self, data_state) -> None:
-        self.ckpt.save(self.state.step, self.checkpoint_state(data_state))
+        state = self.checkpoint_state(data_state)
+        self.mesh.from_rank0("save", lambda: self.ckpt.save(self.state.step, state))
 
     def _maybe_auto_restart(self, quiet_s: float) -> None:
         """Device-stall recovery: re-exec ``restart_argv`` (bounded retries).
@@ -407,7 +529,14 @@ class Trainer:
 
     @property
     def stop_requested(self) -> bool:
-        return self._stop_requested
+        """Whether a stop was asked; under a group, whether ``fit`` stopped
+        on one (so every rank answers alike)."""
+        return self._stop_requested if self.mesh.world == 1 else self._stopped
+
+    def _stop(self, step: int, data_state) -> None:
+        self._stopped = True
+        if self.ckpt is not None and step % self.checkpoint_every:
+            self._save(data_state)
 
     def fit(self, data_iter: Iterator, num_steps: int) -> Dict[str, float]:
         """Run ``num_steps`` training steps on host batches from
@@ -446,6 +575,10 @@ class Trainer:
                                    args=(heartbeat, loop_stage, done, stall_s), daemon=True)
         watcher.start()
         inflight: deque = deque()   # one CUDA event per step not yet waited for
+        # Under a group, each step's stop flag over every rank, read once the
+        # step has ended on the device: every rank stops at the same step,
+        # and the host does not wait for the card to read it.
+        stops: deque = deque()
         resume_step = step          # restart-budget reset point
         last: Dict[str, float] = {}
         metrics = None
@@ -459,6 +592,9 @@ class Trainer:
                 self.state, metrics = self.train_step(self.state, raw, gen)
                 step += 1
                 steps_in_window += 1
+                if self.mesh.world > 1:
+                    stops.append(self.mesh.any_rank(self._stop_requested))
+                stop = self.mesh.world == 1 and self._stop_requested
                 if on_card:
                     ev = torch.cuda.Event()
                     ev.record()
@@ -466,8 +602,10 @@ class Trainer:
                     if len(inflight) > self.MAX_INFLIGHT:
                         inflight.popleft().synchronize()
                         heartbeat[:] = [time.monotonic(), True]
+                        stop = stop or bool(stops and stops.popleft().item())
                 else:
                     heartbeat[:] = [time.monotonic(), True]
+                    stop = stop or bool(stops and stops.popleft().item())
                 if step % self.log_every == 0 or step == 1:
                     last = {k: float(v) for k, v in metrics.items()}
                     heartbeat[:] = [time.monotonic(), True]
@@ -483,11 +621,16 @@ class Trainer:
                         # Checkpointed progress past the resume point: the
                         # restart budget is per stall, not per job.
                         os.environ.pop("CVM_RESTART_COUNT", None)
-                if self._stop_requested:
-                    if self.ckpt is not None and step % self.checkpoint_every:
-                        self._save(data_state)
+                if stop:
+                    self._stop(step, data_state)
                     break
                 loop_stage[0] = "await_batch"
+            else:
+                if stops:  # the flags of the steps still in flight
+                    if inflight:
+                        inflight[-1].synchronize()
+                    if any(t.item() for t in stops):
+                        self._stop(step, data_state)
         finally:
             # joined, so that no watcher outlives fit (a daemon thread still
             # waiting when the interpreter exits can abort the process)

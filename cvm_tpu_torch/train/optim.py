@@ -93,7 +93,9 @@ class Optimizer:
     ``step(grads)`` updates the parameters in place (no autograd) and
     returns True when it applied an update (every call unless
     ``grad_accum_steps > 1``). ``count`` is the number of applied updates,
-    the count the schedule reads.
+    the count the schedule reads. ``norm`` is the global norm the clip
+    reads (``parallel/sharding.py::split_norm`` when some parameters are
+    tensor-parallel slices).
     """
 
     B1, B2, EPS, MOMENTUM = 0.9, 0.999, 1e-8, 0.9
@@ -114,6 +116,7 @@ class Optimizer:
         self.mu = zeros()                                   # Adam m, or SGD trace
         self.nu = zeros() if kind == "adamw" else []        # Adam v
         self.acc = zeros() if self.k > 1 else []            # MultiSteps running mean
+        self.norm: Callable[[List[torch.Tensor]], torch.Tensor] = global_norm
 
     @torch.no_grad()
     def step(self, grads: Sequence[torch.Tensor]) -> bool:
@@ -129,7 +132,7 @@ class Optimizer:
             src = self.acc
         # clip_by_global_norm: g * (max / ||g||) where ||g|| >= max; the
         # product is a new list, so the caller's gradients stay as they are.
-        norm = global_norm(src)
+        norm = self.norm(src)
         factor = torch.where(norm < self.clip_norm, torch.ones_like(norm),
                              self.clip_norm / norm)
         grads = torch._foreach_mul(src, factor)

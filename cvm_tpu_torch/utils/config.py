@@ -3,9 +3,9 @@
 The port's copy of ``cvm_tpu/utils/config.py`` (``parse_hw``,
 ``BaseParams``): the same field names, defaults, CLI parsing and JSON, so
 that a reference ``params.json`` and the port's checkpoints load through
-either. The field of machinery the port has not ported (tensor
-parallelism) is carried so those files load; ``cli.train`` refuses it
-where it would have to act on it.
+either. ``tensor_parallel`` acts under a model axis of two or more ranks
+(``parallel/sharding.py``); on one process it shards nothing, as the
+reference's rules shard nothing over a size-1 axis.
 """
 
 from __future__ import annotations

@@ -278,7 +278,7 @@ def test_two_3d_train_steps_match_reference():
                          tp.warmup_steps, tp.weight_decay, lr_schedule="constant",
                          optimizer="sgd")
     tstate = create_train_state(model, tp, opt)
-    tstep = make_train_step(tl.centernet_loss, tp, lambda gen, raw: (t_in, t_tg))
+    tstep = make_train_step(tl.centernet_loss, tp, lambda gen, raw, rows: (t_in, t_tg))
     for jm in jmetrics:
         tstate, m = tstep(tstate, None, None)
         tm = {k: float(v) for k, v in m.items()}

@@ -139,7 +139,7 @@ def two_steps():
                          tp.warmup_steps, tp.weight_decay, lr_schedule="constant",
                          optimizer="sgd")
     tstate = create_train_state(model, tp, opt)
-    tstep = make_train_step(centernet_loss, tp, lambda gen, raw: (t_in, t_tg))
+    tstep = make_train_step(centernet_loss, tp, lambda gen, raw, rows: (t_in, t_tg))
     tmetrics = []
     for _ in range(2):
         tstate, m = tstep(tstate, None, None)

@@ -136,7 +136,7 @@ def test_two_train_steps_from_a_shard_match_reference(tmp_path, name):
     tstate = create_train_state(model, tp, opt)
     t_targets = _to_torch_targets(targets)
     tstep = make_train_step(tspec.loss_fn, tp,
-                            lambda gen, r: (torch.from_numpy(np.array(inputs)), t_targets))
+                            lambda gen, r, rows: (torch.from_numpy(np.array(inputs)), t_targets))
     for jm in jmetrics:
         tstate, m = tstep(tstate, None, None)
         tm = {k: float(v) for k, v in m.items()}

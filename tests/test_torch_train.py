@@ -193,7 +193,7 @@ def two_steps():
     loss = centernet_loss(probe.train()(t_in), t_tg, tp)[0]
     tgrads = dict(zip([n for n, _ in probe.named_parameters()],
                       torch.autograd.grad(loss, list(probe.parameters()))))
-    tstep = make_train_step(centernet_loss, tp, lambda gen, raw: (t_in, t_tg))
+    tstep = make_train_step(centernet_loss, tp, lambda gen, raw, rows: (t_in, t_tg))
     tstates, tmetrics = [], []
     for _ in range(2):
         tstate, m = tstep(tstate, None, None)
@@ -283,8 +283,8 @@ def test_train_step_refuses_a_head_the_loss_does_not_reach(tmp_path, head, modul
     parameters, not a zero gradient under which weight decay shrinks it."""
     tr = tiny_trainer(tmp_path)
     tr.init_state()
-    step = make_train_step(lambda out, tg, cfg: centernet_loss(
-        {**out, head: out[head].detach()}, tg, cfg), tr.cfg, tr.processor)
+    step = make_train_step(lambda out, tg, cfg, red: centernet_loss(
+        {**out, head: out[head].detach()}, tg, cfg, red), tr.cfg, tr.processor)
     raw = next(prefetch_to_device([next(_stream(tr.cfg))], torch.device("cpu")))
     with pytest.raises(RuntimeError, match=rf"does not reach parameters \['{module}\."):
         step(tr.state, raw, torch.Generator().manual_seed(0))
@@ -392,9 +392,15 @@ def test_cli_trains_resumes_and_refuses_unported_flags(tmp_path, capsys):
     assert all(np.isfinite(r["loss"]) for r in recs)
     assert cli_main(base + ["--steps", "20", "--max_seconds", "0.001"]) == 0
     assert CheckpointManager(str(tmp_path / "w" / "checkpoints")).latest_step() == 13
-    for extra in (["--model_parallel", "2"], ["--dcn_slices", "2"],
-                  ["--coordinator", "localhost:1"], ["--tensor_parallel", "true"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
+    with pytest.raises(SystemExit, match="--dcn_slices is not ported"):
+        cli_main(base + ["--dcn_slices", "2"])
+    capsys.readouterr()
+    # the other multi-process flags get the reference's argument checks
+    for extra, message in ((["--model_parallel", "2"], "not divisible by --model_parallel 2"),
+                           (["--coordinator", "localhost:1"], "--coordinator requires"),
+                           (["--tensor_parallel", "true"], "requires --model_parallel >= 2")):
+        with pytest.raises(SystemExit):
             cli_main(base + extra)
+        assert message in capsys.readouterr().err
     with pytest.raises(FileNotFoundError):
         cli_main(base + ["--data", str(tmp_path / "train.cvrec")])

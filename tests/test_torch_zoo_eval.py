@@ -11,8 +11,8 @@ of 2).
   on the same scenes: mIoU, pixel_acc, abs_rel, rmse and delta1 (and
   multitask's mAP) within 0.01 of the reference.
 * ``cli.train`` and ``cli.evaluate`` for each model (a few steps, evals,
-  a best checkpoint, the postures); ``cli.train`` refuses the reference's
-  flags whose machinery is not ported; ``cli.benchmark`` on tiny configs
+  a best checkpoint, the postures); ``cli.train`` checks the multi-process
+  flags as the reference does and refuses ``--dcn_slices``, naming why; ``cli.benchmark`` on tiny configs
   prints one line per config with the reference's keys, the device and
   its power limit, in inference and training, and times config E's (dmds)
   training step.
@@ -174,13 +174,26 @@ def test_cli_train_and_evaluate(tmp_path, name):
                    str(tmp_path / "val.cvrec")])
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--model_parallel", "2"], "17"), (["--dcn_slices", "2"], "17"),
-    (["--num_processes", "2"], "17"), (["--process_id", "1"], "17")])
-def test_cli_train_refuses_unported_reference_flags(flag, item):
+# The multi-process flags, ported: each gets the reference's argument check (and
+# --dcn_slices its reason for not being ported) before anything trains.
+_REFUSALS = {
+    "--model_parallel": "1 processes not divisible by --model_parallel 2",
+    "--dcn_slices": "--dcn_slices is not ported: it orders a multi-slice TPU mesh",
+    "--coordinator": "--coordinator requires --num_processes and --process_id",
+}
+
+
+# ids: the names these cases have had since they were ROADMAP item 17's refusals
+@pytest.mark.parametrize("flag", [
+    ["--model_parallel", "2"], ["--dcn_slices", "2"],
+    ["--coordinator", "127.0.0.1:1", "--num_processes", "2"],
+    ["--coordinator", "127.0.0.1:1", "--process_id", "1"]],
+    ids=[f"flag{i}-17" for i in range(4)])
+def test_cli_train_refuses_unported_reference_flags(flag, capsys):
     argv = ["--model", "semseg", "--device", "cpu"] + flag
-    with pytest.raises(SystemExit, match=rf"not ported yet \(ROADMAP Queue 1 item {item}"):
+    with pytest.raises(SystemExit) as e:
         train_main(argv)
+    assert _REFUSALS[flag[0]] in str(e.value.code) + capsys.readouterr().err
 
 
 def test_cli_benchmark_prints_a_line_per_config_and_refuses_e(monkeypatch, capsys):

@@ -146,7 +146,7 @@ def _two_steps(case):
                          tp.warmup_steps, tp.weight_decay, lr_schedule="constant",
                          optimizer="sgd")
     tstate = create_train_state(model, tp, opt)
-    tstep = make_train_step(tspec.loss_fn, tp, lambda gen, raw: (t_in, t_tg))
+    tstep = make_train_step(tspec.loss_fn, tp, lambda gen, raw, rows: (t_in, t_tg))
     tmetrics = []
     for _ in range(2):
         tstate, m = tstep(tstate, None, None)

@@ -1,0 +1,309 @@
+"""A rank of a multi-process run of the port (``cvm_tpu_torch/parallel``),
+and its one-process twin. Imports no JAX: the card's machine runs it.
+
+``python tests/torch_dist_child.py --rank R --world N --port P --device
+cpu|cuda [--backend gloo|nccl] --out FILE MODE ...`` joins a group of N
+ranks (gloo unless named, rank 0 serving the rendezvous at 127.0.0.1:P;
+two gloo ranks may share a card) and
+writes a JSON result to FILE (and FILE.npz with tensors). The functions
+``run_train``, ``run_grads`` and ``run_bn`` take ``mesh=None`` for the
+one-process run, which the tests and ``chip_smoke.py`` call in-process.
+
+Modes:
+
+* ``train --model NAME --config tiny|B --steps S [--model_parallel M]
+  [--tensor_parallel] [--ckdir D]``: S steps of the registry's model on
+  global batches of synthetic scenes seeded per step (every rank makes the
+  whole batch and keeps its rows), through ``Trainer.fit``; the losses and
+  metrics of every step, K1's launches, a float64 checksum of the whole
+  parameters, each stage-5 parameter's shape on this rank, ms per step,
+  the all-reduces of each step and their bytes, and with ``--ckdir`` a
+  checkpoint of the last step.
+* ``grads --npz IN --steps S``: from IN's model weights (``sd/<name>``),
+  processed inputs (``inputs``), targets (``t/<field>``) and config
+  (``cfg``, JSON), the first step's averaged gradients, then S SGD steps'
+  metrics, each rank on its rows of the inputs; every conv in float32
+  when IN's ``float32`` is set.
+* ``stop --steps S``: one ``Trainer.fit`` over S steps of the tiny
+  CenterNet in which the last rank alone asks to stop as it takes its
+  third batch; the step each rank stopped at and its ``stop_requested``.
+* ``join``: forms the group (``--backend``, gloo by default) and leaves it.
+* ``bn --npz IN``: a float32 BatchNorm in training mode on this rank's rows
+  of IN's ``x`` under the loss sum(y * IN's ``w``): its output, the input's
+  gradient and the running statistics.
+"""
+
+import argparse
+import contextlib
+import json
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from cvm_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
+from cvm_tpu_torch.models.registry import get_model  # noqa: E402
+from cvm_tpu_torch.ops.cuda import gaussian_splat  # noqa: E402
+from cvm_tpu_torch.ops.heatmap import CenternetTargets  # noqa: E402
+from cvm_tpu_torch.parallel.mesh import (init_distributed, launch_ranks,  # noqa: E402
+                                         make_mesh, shutdown_distributed)
+from cvm_tpu_torch.train.loop import Trainer, create_train_state, make_train_step  # noqa: E402
+from cvm_tpu_torch.train.optim import make_optimizer  # noqa: E402
+
+HW, WIDE = (64, 64), (64, 128)
+# model -> (params, scene padding, scene options)
+CONFIGS = {
+    "tiny": {
+        "centernet": (dict(input_hw=HW, num_classes=3, backbone="tiny", neck_features=32,
+                           head_features=16, max_objects=8), (80, 96), {}),
+        "semseg": (dict(input_hw=WIDE, backbone="tiny", decoder_features=16), (80, 160), {}),
+        "depth": (dict(input_hw=WIDE, backbone="tiny", decoder_features=16), (80, 160), {}),
+        "multitask": (dict(input_hw=WIDE, backbone="tiny", neck_features=32, head_features=16,
+                           num_det_classes=3, max_objects=8), (80, 160), {}),
+        "dmds": (dict(input_hw=WIDE, backbone="tiny", decoder_features=16, motion_features=32),
+                 (80, 160), dict(two_frame=True)),
+    },
+    # config B (512x512, small, stride 4, 80 classes) on the flagship recipe's scenes
+    "B": {"centernet": (dict(max_objects=16), (512, 512), {})},
+}
+GLOBAL_BATCH = {"tiny": 4, "B": 16}
+
+
+def global_batch(step: int, model: str, config: str, batch: int):
+    """The global batch of ``step``: the same on every rank."""
+    _, pad, scene = CONFIGS[config][model]
+    return synthetic_batch(np.random.default_rng(10_000 + step), batch, pad,
+                           num_classes=3 if config == "tiny" else 10, **scene)
+
+
+def stage5(model: torch.nn.Module):
+    return {n: list(p.shape) for n, p in model.named_parameters() if ".s5b" in n}
+
+
+@contextlib.contextmanager
+def _counting_all_reduces():
+    """``[calls, bytes]`` of ``torch.distributed.all_reduce`` while open: the
+    port's only collective in a training step."""
+    count, real = [0, 0], dist.all_reduce
+
+    def counted(t, *args, **kwargs):
+        count[0] += 1
+        count[1] += t.numel() * t.element_size()
+        return real(t, *args, **kwargs)
+
+    dist.all_reduce = counted
+    try:
+        yield count
+    finally:
+        dist.all_reduce = real
+
+
+def run_train(mesh, device, model: str, config: str, steps: int, tensor_parallel=False,
+              ckdir=None, batch=None):
+    batch = batch or GLOBAL_BATCH[config]
+    fields, _, _ = CONFIGS[config][model]
+    cfg = get_model(model).params_cls(**fields, batch_size=batch, warmup_steps=2,
+                                      total_steps=100, tensor_parallel=tensor_parallel)
+    trainer = Trainer(cfg, device if mesh is None else mesh.device, mesh=mesh,
+                      checkpoint_dir=ckdir, checkpoint_every=steps, log_every=1)
+    trainer.init_state()
+    rows = slice(None) if mesh is None else slice(*mesh.batch_rows(batch)[:2])
+    losses, metrics, ms, reduces = [], [], [], []
+    gaussian_splat.reset_counts()
+    with _counting_all_reduces() as count:
+        for step in range(steps):
+            raw = {k: v[rows] for k, v in global_batch(step, model, config, batch).items()}
+            t0 = time.perf_counter()
+            m = trainer.fit(iter([raw]), 1)  # reads the metrics: the step has ended
+            ms.append(1e3 * (time.perf_counter() - t0))
+            losses.append(m["loss"])
+            metrics.append({k: v for k, v in m.items() if k != "steps_per_sec"})
+            reduces.append(list(count))
+            count[:] = [0, 0]
+    whole = trainer.eval_params
+    checksum = float(sum(v.to(torch.float64).sum() for v in whole.values()))
+    return {"losses": losses, "metrics": metrics, "ms": ms, "checksum": checksum,
+            "all_reduces": [n for n, _ in reduces], "all_reduce_bytes": [b for _, b in reduces],
+            "k1": gaussian_splat.render_heatmap.launches,
+            "shapes": stage5(trainer.state.model), "split": sorted(trainer.split)}
+
+
+def run_stop(mesh, steps: int):
+    fields, _, _ = CONFIGS["tiny"]["centernet"]
+    cfg = get_model("centernet").params_cls(**fields, batch_size=GLOBAL_BATCH["tiny"],
+                                            warmup_steps=2, total_steps=100)
+    trainer = Trainer(cfg, mesh.device, mesh=mesh, log_every=100)
+    trainer.init_state()
+    rows = slice(*mesh.batch_rows(cfg.batch_size)[:2])
+
+    def batches():
+        for step in range(steps):
+            if step == 2 and mesh.rank == mesh.world - 1:
+                trainer.request_stop()
+            yield {k: v[rows] for k, v in
+                   global_batch(step, "centernet", "tiny", cfg.batch_size).items()}
+
+    trainer.fit(batches(), steps)
+    return {"step": trainer.state.step, "stop_requested": trainer.stop_requested}
+
+
+def _targets(npz, device):
+    t = {k[2:]: torch.from_numpy(npz[k]).to(device) for k in npz.files if k.startswith("t/")}
+    return CenternetTargets(**t) if "heatmap" in t else t
+
+
+def _rows(tree, rows: slice):
+    if isinstance(tree, dict):
+        return {k: _rows(v, rows) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return type(tree)(*(_rows(v, rows) for v in tree))
+    return tree[rows] if torch.is_tensor(tree) and tree.dim() > 0 else tree
+
+
+def run_grads(mesh, device, path: str, steps: int):
+    """The first step's averaged gradients and ``steps`` SGD steps' metrics
+    on IN's processed inputs (identity processor), with SGD."""
+    npz = np.load(path)
+    spec = get_model(json.loads(str(npz["name"])))
+    cfg = spec.params_cls.from_dict(json.loads(str(npz["cfg"])))
+    model = spec.create_model(cfg, device)
+    model.load_state_dict({k[3:]: torch.from_numpy(npz[k]) for k in npz.files
+                           if k.startswith("sd/")}, strict=True)
+    if "float32" in npz.files and bool(npz["float32"]):
+        from cvm_tpu_torch.models.layers import Conv
+
+        for m in model.modules():
+            if isinstance(m, Conv):
+                m.dtype = torch.float32  # every conv computes in float32
+    rows = slice(None) if mesh is None else slice(*mesh.batch_rows(cfg.batch_size)[:2])
+    inputs = torch.from_numpy(npz["inputs"]).to(device)[rows]
+    targets = _rows(_targets(npz, device), rows)
+    if mesh is not None:
+        from cvm_tpu_torch.models.layers import BatchNorm
+
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.reducer = mesh.reducer
+    opt = make_optimizer(list(model.parameters()), cfg.learning_rate, cfg.total_steps,
+                         cfg.warmup_steps, cfg.weight_decay, lr_schedule=cfg.lr_schedule,
+                         optimizer=cfg.optimizer)
+    state = create_train_state(model, cfg, opt)
+    names = [n for n, _ in model.named_parameters()]
+    grads = {}
+
+    def capture(gen, raw, rows):
+        return inputs, targets
+
+    step = make_train_step(spec.loss_fn, cfg, capture, mesh=mesh)
+    # the first step's gradients: those the optimizer receives
+    real = opt.step
+
+    def record(g):
+        if not grads:
+            grads.update({n: t.detach().cpu().numpy() for n, t in zip(names, g)})
+        return real(g)
+
+    opt.step = record
+    metrics = []
+    for _ in range(steps):
+        state, m = step(state, None, None)
+        metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics}, grads
+
+
+def run_bn(mesh, device, path: str):
+    from cvm_tpu_torch.models.layers import BatchNorm
+
+    npz = np.load(path)
+    x, w = (torch.from_numpy(npz[k]).to(device) for k in ("x", "w"))
+    rows = slice(None) if mesh is None else slice(*mesh.batch_rows(x.shape[0])[:2])
+    x, w = x[rows].clone().requires_grad_(True), w[rows]
+    bn = BatchNorm(x.shape[-1]).to(device).train()
+    with torch.no_grad():
+        bn.weight.copy_(torch.from_numpy(npz["scale"]))
+        bn.bias.copy_(torch.from_numpy(npz["bias"]))
+    if mesh is not None:
+        bn.reducer = mesh.reducer
+    y = bn(x)
+    (y * w).sum().backward()
+    return {}, {"y": y.detach().cpu().numpy(), "dx": x.grad.cpu().numpy(),
+                "running_mean": bn.running_mean.cpu().numpy(),
+                "running_var": bn.running_var.cpu().numpy()}
+
+
+def launch(world: int, args, out_dir: str, device: str = "cpu", timeout: float = 300.0,
+           backend: str = "gloo"):
+    """Run ``world`` ranks of this script with ``args`` (a mode and its
+    flags) and return each rank's (JSON result, arrays or None), by rank.
+    Raises with a rank's errors when one fails or the run outlasts
+    ``timeout`` seconds; no rank outlives the call."""
+    os.makedirs(out_dir, exist_ok=True)
+    outs = [os.path.join(out_dir, f"rank{r}.json") for r in range(world)]
+    launch_ranks(world, lambda r, port: [
+        sys.executable, os.path.abspath(__file__), "--rank", str(r), "--world", str(world),
+        "--port", str(port), "--device", device, "--backend", backend, "--out", outs[r],
+        *map(str, args)], timeout)
+    results = []
+    for out in outs:
+        with open(out) as f:
+            res = json.load(f)
+        arrays = dict(np.load(out + ".npz")) if os.path.exists(out + ".npz") else None
+        results.append((res, arrays))
+    return results
+
+
+def main() -> int:
+    p = argparse.ArgumentParser()
+    p.add_argument("--rank", type=int, required=True)
+    p.add_argument("--world", type=int, required=True)
+    p.add_argument("--port", type=int, required=True)
+    p.add_argument("--device", default="cpu")
+    p.add_argument("--backend", default="gloo")
+    p.add_argument("--out", required=True)
+    p.add_argument("mode", choices=["train", "grads", "bn", "stop", "join"])
+    p.add_argument("--model", default="centernet")
+    p.add_argument("--config", default="tiny")
+    p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--batch", type=int, default=None)
+    p.add_argument("--model_parallel", type=int, default=1)
+    p.add_argument("--tensor_parallel", action="store_true")
+    p.add_argument("--ckdir", default=None)
+    p.add_argument("--npz", default=None)
+    a = p.parse_args()
+    if a.device == "cpu":
+        torch.set_num_threads(1)
+    # as chip_smoke.py sets them for the one-process run it compares against
+    # (deterministic cuDNN: two runs of one command otherwise drift apart)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    device = init_distributed(f"127.0.0.1:{a.port}", a.world, a.rank, a.device,
+                              backend=a.backend)
+    try:
+        mesh = make_mesh(a.model_parallel, device)
+        out, arrays = {}, {}
+        if a.mode == "train":
+            out = run_train(mesh, device, a.model, a.config, a.steps, a.tensor_parallel,
+                            a.ckdir, a.batch)
+        elif a.mode == "grads":
+            out, arrays = run_grads(mesh, device, a.npz, a.steps)
+        elif a.mode == "bn":
+            out, arrays = run_bn(mesh, device, a.npz)
+        elif a.mode == "stop":
+            out = run_stop(mesh, a.steps)
+    finally:
+        shutdown_distributed()
+    if arrays:
+        np.savez(a.out + ".npz", **arrays)
+    with open(a.out, "w") as f:
+        json.dump(dict(out, rank=a.rank), f)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
