@@ -69,7 +69,7 @@ the JPEG decoders' prerequisites) is printed first:
      K2 and through its plain version (heads and mAP), and the eval layer's
      host and device ms per batch;
  12. dense serving, each model at batch 8 (and semseg at batch 1): fp with
-     BN folded and ``w8a8_fused_chain`` after 3 calibration batches, K2's
+     BN folded and ``w8a8_fused_chain`` after 1 calibration batch, K2's
      launches per int8 forward (24 semseg, 27 depth, 28 multitask), the
      int8 posture through K2 vs its plain version (mean |d| of logits and
      depth, class-map agreement), and batch latencies;
@@ -180,7 +180,7 @@ the JPEG decoders' prerequisites) is printed first:
  32. ``remat``: one config-B step with and without, from the same weights
      and batch: loss and gradient-norm gap, peak device memory, ms/step;
      then config-B ``fit`` steps/s with the watchdog's in-flight bound (8
-     steps) and without, four pairs after a warm-up run;
+     steps) and without, two pairs after a warm-up run;
  33a. ``cli.infer --tiled`` of a config-A semseg checkpoint over three
      720x1280 images: tiles and ms per image;
  34. multi-process training (``cvm_tpu_torch/parallel``) on the one card,
@@ -198,7 +198,30 @@ the JPEG decoders' prerequisites) is printed first:
      axis of 2, 5 steps: losses within 5e-3 of (a)'s one process, each rank
      holding half of every ``s5b*.c1`` (C_out) and ``s5b*.c2`` (C_in), the
      gathered checkpoint loaded by one process, all-reduces per step; (d) two NCCL ranks asked to
-     share the card refuse, naming it.
+     share the card refuse, naming it;
+ 35. sharded serving and evaluation and semseg's spatial sharding on the
+     one card, two gloo ranks sharing it, cuDNN deterministic as in 34:
+     (a) config B, a batch of 8 planar YUV420 images padded to 768², over
+     a data axis of 2 (``InferencePipeline(mesh=)``), fp with BN folded and
+     ``w8a8_fused_chain``: each rank's results match one process's on the
+     same 8 inputs (the CPU tests' tie-robust matching), 24 K2 launches
+     per rank per call, ms per batch-8 call of both; (b) the same over a
+     model axis of 2, the stage-5 convs served split (fp, BN folded):
+     matched to one process's; (c) ``cli.train --coordinator`` over two
+     gloo ranks resumes phase 8's step-40 run for 4 flagship steps with an
+     eval every 2 on every rank: the step-44 ``val_*`` (mAP above 0) equal
+     ``cli.evaluate``'s in one process on the checkpoint, each image in a
+     batch of the same 8 rows as on its rank (cuDNN rounds batches of 16
+     otherwise: that score printed beside), ``eval_seconds`` beside the
+     same resume in one process, K1 launches per rank; (d) ``cli.evaluate``
+     and ``cli.infer`` of the step-44 checkpoint and ``cli.infer`` of its
+     ``w8a8_fused_chain`` RGB export over two ranks, batched as in (c):
+     rank 0's JSON and JSONL byte-equal to one process's, 48 K2 launches
+     per rank through the artifact; (e)
+     semseg config A (256x640) with ``spatial_shard`` over a model axis of
+     2: logits at batch 1 and 8 within bf16 rounding of the unsharded
+     model's, one training step's loss (5e-3) and gradient norm (2e-2) the
+     unsharded step's. One launch of the two ranks runs (a), (b) and (e).
 
 Device times come from CUDA events around 20 back-to-back calls while the
 card first sleeps through the host's enqueueing (``cuda_ms``). Any failure
@@ -212,6 +235,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1277,7 +1301,7 @@ def phase_dense_serve(dev, smi):
         cfg, model = build_dense(name, b, dev)
         rng = np.random.default_rng(0)
         cal = []
-        for _ in range(3):
+        for _ in range(1):  # one batch: its percentiles run on the host
             cb = synthetic_batch(rng, b, DENSE_PAD, num_classes=5)
             cal.append(preprocess_image_batch(torch.from_numpy(cb["image"]).to(dev),
                                               torch.from_numpy(cb["image_hw"]).to(dev),
@@ -1505,8 +1529,6 @@ def phase_int8(dev, cfg, model, scales, planes, pipe_fp, pipe_q, smi):
 def phase_export(dev, workdir, smi):
     """cli.export of the step-40 checkpoint in five postures, each served
     by ServingModel on the card against its eager pipeline."""
-    import shutil
-
     import torch
 
     from cvm_tpu_torch.cli.export import calibration_scales
@@ -2783,14 +2805,14 @@ def phase_inflight(dev, smi):
     """Phase 32b: what ``Trainer.MAX_INFLIGHT`` (the watchdog's bound on the
     host's run-ahead, 8 steps) does to config-B training (batch 8,
     synthetic scenes): steps/s of ``fit`` over steps 2-25 with the bound and
-    with none (as before it), after one untimed run, in four pairs that
+    with none (as before it), after one untimed run, in two pairs that
     alternate which side runs first."""
     from cvm_tpu_torch.data.synthetic import SyntheticIterator
     from cvm_tpu_torch.models.centernet.params import CenternetParams
     from cvm_tpu_torch.train.loop import Trainer
 
     rates = {8: [], None: []}
-    for i, bound in enumerate((8, 8, None, None, 8, 8, None, None, 8)):
+    for i, bound in enumerate((8, 8, None, None, 8)):
         tr = Trainer(CenternetParams(batch_size=B, warmup_steps=5), dev, log_every=1000)
         tr.MAX_INFLIGHT = bound if bound is not None else 1 << 30
         tr.init_state()
@@ -3085,6 +3107,301 @@ def _phase_dist(dev, workdir, smi):
     return k1
 
 
+def _match_detections(got, want, top=None):
+    """Tie-robust detection equality, as the CPU tests hold it
+    (``tests/test_torch_cli_infer.py::assert_jsonl_close``): per image the
+    top scores within 0.01, and every detection of ``want``'s that stands
+    more than 0.01 above its list's last score (no difference within the
+    tolerance can push it out of the top k) is one of ``got``'s with the
+    same class, a score within 0.01 and a box within 0.5 px. Returns
+    (detections matched, max |score gap| over the sorted lists)."""
+    matched, gap = 0, 0.0
+    if any(np.asarray(got[k]).shape != np.asarray(want[k]).shape for k in want):
+        raise AssertionError(f"shapes {[np.asarray(got[k]).shape for k in want]}")
+    for i in range(len(want["scores"])):
+        ws, gs = np.asarray(want["scores"][i]), np.asarray(got["scores"][i])
+        gap = max(gap, float(np.abs(np.sort(ws) - np.sort(gs)).max()))
+        if abs(float(gs.max()) - float(ws.max())) > 0.01:
+            raise AssertionError(f"image {i}: top score {gs.max()} against {ws.max()}")
+        gc, gb = np.asarray(got["classes"][i]), np.asarray(got["boxes"][i])
+        order = np.argsort(-ws)[:top]
+        for j in order:
+            if ws[j] <= ws.min() + 0.01:
+                continue
+            hit = ((gc == want["classes"][i][j]) & (np.abs(gs - ws[j]) <= 0.01)
+                   & (np.abs(gb - np.asarray(want["boxes"][i][j])).max(1) <= 0.5))
+            if not hit.any():
+                raise AssertionError(f"image {i}: detection {j} (score {ws[j]:.4f}, class "
+                                     f"{want['classes'][i][j]}) not among the ranks'")
+            matched += 1
+    return matched, gap
+
+
+def _bf16_close(got, ref, what):
+    """The zoo tests' bf16 tolerance (``tests/test_torch_model.py::
+    assert_bf16_close``): max |d| <= 3% and mean <= 0.5% of ref's scale."""
+    got, ref = np.asarray(got, np.float32), np.asarray(ref, np.float32)
+    scale = max(float(np.abs(ref).max()), 1e-3)
+    d = np.abs(got - ref)
+    if got.shape != ref.shape or d.max() > 0.03 * scale or d.mean() > 0.005 * scale:
+        raise AssertionError(f"{what}: max |d| {d.max()}, mean {d.mean()}, scale {scale}")
+    return float(d.max() / scale)
+
+
+def _save_npz(path, name, cfg, model, **arrays):
+    np.savez(path, name=json.dumps(name), cfg=cfg.to_json(),
+             **{f"sd/{k}": v.detach().cpu().numpy() for k, v in model.state_dict().items()},
+             **arrays)
+    return path
+
+
+def phase_dist_serve(dev, workdir, seed, smi):
+    """Phase 35: sharded serving and evaluation, and semseg's spatial
+    sharding, on the one card (docstring, 35a-e), cuDNN deterministic as in
+    phase 34. Returns (K2's launches by path, K1's launches by path)."""
+    import torch
+
+    torch.cuda.empty_cache()
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        return _phase_dist_serve(dev, workdir, seed, smi)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _phase_dist_serve(dev, workdir, seed, smi):
+    import torch
+
+    from cvm_tpu_torch.cli.evaluate import main as eval_main
+    from cvm_tpu_torch.cli.export import calibration_scales
+    from cvm_tpu_torch.cli.export import main as export_main
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.data.synthetic import synthetic_batch
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+
+    child = _dist_child()
+    k1, k2 = {}, {}
+
+    # 35a: config B, global batch 8 of planar YUV420 at 768², data axis 2;
+    # the heatmap head sharpened (as tests/test_torch_cli_infer.py does) so
+    # that the top-k scores spread beyond the matching's 0.01
+    cfg, model = build_model(dev)
+    with torch.no_grad():
+        model.hm.out.weight.mul_(6.0)
+    rng = np.random.default_rng(35)
+    ph, pw = PAD_HW
+    planes = {"y": rng.integers(0, 255, (B, ph, pw), dtype=np.uint8),
+              "u": rng.integers(0, 255, (B, ph // 2, pw // 2), dtype=np.uint8),
+              "v": rng.integers(0, 255, (B, ph // 2, pw // 2), dtype=np.uint8),
+              "image_hw": rng.integers(ph * 15 // 32, ph, (B, 2)).astype(np.int32)}
+    batch = {f"b/{k}": v for k, v in planes.items()}
+    scales = calibration_scales(cfg, model, (512, 512), 1, B, dev)
+    postures = {"fold_bn": dict(input_format="yuv420", fold_bn=True),
+                "w8a8_fused_chain": dict(input_format="yuv420", w8a8="scales",
+                                         w8a8_fused=True, w8a8_chain=True)}
+    ins = {f"a {q}": _save_npz(os.path.join(workdir, f"a_{q}.npz"), "centernet", cfg, model,
+                               opts=json.dumps(o), scales=json.dumps(scales), **batch)
+           for q, o in postures.items()}
+    # 35b: tensor-parallel serving (model axis 2), fp with BN folded
+    ins["b"] = _save_npz(os.path.join(workdir, "b.npz"), "centernet",
+                         cfg.replace(tensor_parallel=True), model,
+                         opts=json.dumps(postures["fold_bn"]), model_parallel=2, **batch)
+    # 35e: semseg config A with spatial_shard at model axis 2, its logits at
+    # batch 1 and 8 and one training step
+    dense_cfg, dense = build_dense("semseg", 8, dev)
+    scfg = dense_cfg.replace(spatial_shard=True)
+    x = np.random.default_rng(37).uniform(-1, 1, (8, *scfg.input_hw, 3)).astype(np.float32)
+    for b in (1, 8):
+        ins[f"e{b}"] = _save_npz(os.path.join(workdir, f"e{b}.npz"), "semseg",
+                                 scfg.replace(batch_size=b), dense, inputs=x[:b],
+                                 mode="forward", model_parallel=2)
+    classes = np.random.default_rng(38).integers(0, scfg.num_classes, (8, *scfg.input_hw))
+    ins["eg"] = _save_npz(os.path.join(workdir, "eg.npz"), "semseg", scfg, dense, inputs=x,
+                          mode="grads", model_parallel=2,
+                          **{"t/classes": classes.astype(np.int32)})
+    # one launch of the two ranks runs 35a, 35b and 35e, each IN on its mesh
+    t0 = time.perf_counter()
+    launched = child.launch(2, ["serve", "--npz", ",".join(ins.values()), "--reps", 5,
+                                "--steps", 1], os.path.join(workdir, "r"), device="cuda",
+                            timeout=600)
+    t_ranks = time.perf_counter() - t0
+    ranks = {case: [(res["results"][i], {k[len(f"{i}/"):]: v for k, v in arrays.items()
+                                         if k.startswith(f"{i}/")})
+                    for res, arrays in launched]
+             for i, case in enumerate(ins)}
+
+    lines = []
+    for q in postures:
+        one, want = child.run_serve(None, dev, ins[f"a {q}"], reps=5)
+        for res, got in ranks[f"a {q}"]:
+            n, gap = _match_detections(got, want)
+            if q == "w8a8_fused_chain" and not res["k2"] == one["k2"] == 24:
+                raise AssertionError(f"35a K2 launches per call: rank {res['rank']} "
+                                     f"{res['k2']}, one process {one['k2']} (24 expected)")
+        ms = [statistics.median(res["ms"]) for res, _ in ranks[f"a {q}"]]
+        k2_ranks = [res["k2"] for res, _ in ranks[f"a {q}"]]
+        if q == "w8a8_fused_chain":
+            k2["sharded serving w8a8_fused_chain, 2 gloo ranks (35a)"] = dict(
+                launches=sum(k2_ranks))
+        lines.append(f"{q}: 2 ranks x 4 rows {ms[0]:.3f} / {ms[1]:.3f} ms per batch-8 call, "
+                     f"one process x 8 {statistics.median(one['ms']):.3f} ms; {n} detections "
+                     f"matched (sorted scores' max gap {gap:.2e}); K2 {k2_ranks} per rank per "
+                     f"call, {one['k2']} in the one process")
+    log(f"[dist-serve] 35a config B, batch 8 of 768² YUV420, data axis 2 on {smi}: "
+        + "; ".join(lines) + " (median of 5 calls each)")
+
+    one, want = child.run_serve(None, dev, ins["b"], reps=5)
+    gaps = []
+    for res, got in ranks["b"]:
+        if not res["tensor_parallel"]:
+            raise AssertionError("35b: the stage-5 convs were not served split")
+        gaps.append(_match_detections(got, want))
+    log(f"[dist-serve] 35b tensor-parallel serving (model axis 2), config B fp with BN folded "
+        f"on {smi}: {statistics.median(ranks['b'][0][0]['ms']):.3f} ms per batch-8 call on "
+        f"each rank (both hold the 8 rows), one process {statistics.median(one['ms']):.3f} "
+        f"ms; {gaps[0][0]} detections matched, sorted scores' max gap "
+        f"{max(g for _, g in gaps):.2e}")
+
+    errs = []
+    for b in (1, 8):
+        _, want = child.run_forward(None, dev, ins[f"e{b}"])
+        for _, arrays in ranks[f"e{b}"]:
+            errs.append(_bf16_close(arrays["logits"], want["logits"], f"35e logits, batch {b}"))
+    one, _ = child.run_grads(None, dev, ins["eg"], 1)
+    m1 = one["metrics"][0]
+    ms_e = [res["metrics"][0] for res, _ in ranks["eg"]]
+    for m in ms_e:
+        _close([m["loss"]], [m1["loss"]], 5e-3, "35e loss, spatial vs unsharded")
+        _close([m["grad_norm"]], [m1["grad_norm"]], 2e-2, "35e grad_norm, spatial vs unsharded")
+    log(f"[dist-serve] 35e semseg config A (256x640) with spatial_shard over a model axis of 2 "
+        f"on {smi}: logits at batch 1 and 8 within bf16 rounding of the unsharded model (max "
+        f"|d| {max(errs):.2e} of the logits' scale); one training step of batch 8: loss "
+        f"{ms_e[0]['loss']:.6f} / {ms_e[1]['loss']:.6f} on the ranks against "
+        f"{m1['loss']:.6f}, grad_norm {ms_e[0]['grad_norm']:.6f} / {ms_e[1]['grad_norm']:.6f} "
+        f"against {m1['grad_norm']:.6f}; the ranks' launch for 35a, 35b and 35e "
+        f"{t_ranks:.1f} s with their start")
+
+    # 35c: cli.train over two gloo ranks, resuming phase 8's step-40 run for
+    # 4 steps with an eval every 2 on every rank, against cli.evaluate in
+    # one process on its step-44 checkpoint, and the same resume in one
+    # process whose evals score every row (rank 0 alone, as before the mesh
+    # served). cuDNN picks other algorithms for 16 rows than for 8, so the
+    # one process scores the same 32 scenes in batches of 8, each image in
+    # the batch it has on its rank (batches of 16 differ in bf16 rounding:
+    # printed beside).
+    flags = TRAIN_FLAGS + ["--steps", "44", "--checkpoint_every", "4", "--eval_every", "2",
+                           "--eval_batches", "2"]
+    w2, w1 = os.path.join(workdir, "c2"), os.path.join(workdir, "c1")
+    for w in (w2, w1):
+        shutil.copytree(os.path.join(seed, "checkpoints"), os.path.join(w, "checkpoints"))
+    t0 = time.perf_counter()
+    ranks = [r for r, _ in child.launch(2, ["cli", "--module", "cvm_tpu_torch.cli.train",
+                                            "--argv", json.dumps(flags + ["--workdir", w2])],
+                                        os.path.join(workdir, "c"), device="cuda",
+                                        timeout=600)]
+    t_c = time.perf_counter() - t0
+    if [r["rc"] for r in ranks] != [0, 0] or [r["k1"] for r in ranks] != [4, 4]:
+        raise AssertionError(f"35c: rc {[r['rc'] for r in ranks]}, K1 "
+                             f"{[r['k1'] for r in ranks]} (4 per rank expected)")
+    gs.reset_counts()
+    _cli(train_main, flags + ["--workdir", w1])
+    k1_one = gs.render_heatmap.launches
+    evals = {w: [r for r in read_metrics(os.path.join(w, "metrics.jsonl")) if "val_mAP" in r]
+             for w in (w2, w1)}
+    ev_flags = EVAL_FLAGS[:4] + ["--device", "cuda", "--workdir", w2]
+    one_json = os.path.join(workdir, "d1.json")
+    rc, out_8, err = _cli(eval_main, ev_flags + ["--batches", "4", "--batch_size", "8",
+                                                 "--json_out", one_json])
+    rc16, out_16, err16 = _cli(eval_main, ev_flags + ["--batches", "2"])
+    if rc != 0 or rc16 != 0 or not out_8 or not out_16:
+        raise AssertionError(f"35c cli.evaluate: rc {rc} / {rc16}\n{err[-2000:]}")
+    scored, scored16 = (json.loads(o[-1].split(": ", 1)[1]) for o in (out_8, out_16))
+    last = {k[4:]: v for k, v in evals[w2][-1].items() if k.startswith("val_")}
+    if [r["step"] for r in evals[w2]] != [42, 44] or last != scored:
+        raise AssertionError(f"35c: evals {evals[w2]} against cli.evaluate's {scored}")
+    if not scored["mAP"] > 0:  # else the equality holds for any predictions
+        raise AssertionError(f"35c: the step-44 model scores mAP {scored['mAP']}, not above 0")
+    k1["cli.train --coordinator, 2 gloo ranks (35c)"] = dict(launches=sum(r["k1"]
+                                                                          for r in ranks))
+    k1["cli.train, its one process (35c)"] = dict(launches=k1_one)
+    secs = [[r["eval_seconds"] for r in evals[w]] for w in (w2, w1)]
+    log(f"[dist-serve] 35c cli.train config B (flagship scenes), phase 8's run resumed from "
+        f"step 40 for 4 steps, an eval of 2 batches of 16 every 2, over two gloo ranks on "
+        f"{smi}: eval_seconds {secs[0]} with every rank scoring its 8 rows, against "
+        f"{secs[1]} for one process scoring all 16 (rank 0 alone's work before the mesh "
+        f"served); val_* at step 44 equal to cli.evaluate in one process on the checkpoint "
+        f"in batches of 8 ({scored}; in batches of 16, bf16 rounding apart: {scored16}); K1 "
+        f"{[r['k1'] for r in ranks]} launches per rank, {k1_one} in the one process; "
+        f"{t_c:.1f} s with the ranks' start")
+
+    # 35d: cli.evaluate and cli.infer of the step-44 checkpoint, and
+    # cli.infer of its w8a8_fused_chain RGB artifact (K2 on every rank),
+    # over two processes against one, each image in a batch of the same
+    # rows in both (the ranks' global batch twice the one process's; the
+    # artifact's b8 program takes a rank's 4 rows padded)
+    art_dir = os.path.join(workdir, "art")
+    export_main(["--model", "centernet", "--checkpoint_dir", os.path.join(w2, "checkpoints"),
+                 "--out", art_dir, "--quantize", "w8a8_fused_chain", "--batch_sizes", "8",
+                 "--device", "cuda"])
+    img_dir = os.path.join(workdir, "images")
+    os.makedirs(img_dir)
+    from PIL import Image
+
+    scenes = synthetic_batch(np.random.default_rng(36), 10, (480, 640), num_classes=10)
+    for i in range(10):  # 10 images: the second batch padded
+        Image.fromarray(scenes["image"][i]).save(os.path.join(img_dir, f"im{i}.jpg"),
+                                                 quality=90)
+    images = ["--device", "cuda", "--images", os.path.join(img_dir, "*.jpg"),
+              "--score_threshold", "0"]
+    ckpt = ["--model", "centernet", "--checkpoint_dir", os.path.join(w2, "checkpoints")]
+    art = ["--artifact", art_dir]
+    cases = {  # case: (module, the two ranks' argv, one process's output or argv)
+        "cli.evaluate": ("cvm_tpu_torch.cli.evaluate", ev_flags + [
+            "--batches", "2", "--json_out", os.path.join(workdir, "d2.json")], out_8),
+        "cli.infer": ("cvm_tpu_torch.cli.infer", ckpt + images + ["--batch_size", "16"],
+                      ckpt + images + ["--batch_size", "8"]),
+        "cli.infer --artifact": ("cvm_tpu_torch.cli.infer", art + images, art + images)}
+    outs = []
+    for case, (module, argv2, one) in cases.items():
+        two = [r for r, _ in child.launch(
+            2, ["cli", "--module", module, "--argv", json.dumps(argv2)],
+            os.path.join(workdir, "d_" + case.replace(" ", "").replace("-", "")),
+            device="cuda", timeout=600)]
+        k2_one = None
+        if one is not out_8:
+            fq.reset_counts()
+            rc, one, err = _cli(__import__(module, fromlist=["main"]).main, one)
+            k2_one = fq.fused_qconv.launches
+            if rc != 0:
+                raise AssertionError(f"35d {case}: one process rc {rc}\n{err[-2000:]}")
+        if any(r["rc"] != 0 for r in two):
+            raise AssertionError(f"35d {case}: rc {[r['rc'] for r in two]}")
+        one_text = "\n".join(one) + "\n"
+        same = two[0]["stdout"] == one_text and two[1]["stdout"] == ""
+        if case == "cli.evaluate":
+            with open(one_json, "rb") as f1, open(os.path.join(workdir, "d2.json"), "rb") as f2:
+                same = same and f1.read() == f2.read()
+        if not same:
+            raise AssertionError(f"35d {case}: two processes' output differs from one's:\n"
+                                 f"{two[0]['stdout'][-1500:]}\n---\n{one_text[-1500:]}")
+        what = f"{case}: {len(one)} lines byte-equal"
+        if case == "cli.evaluate":
+            what += f" and the JSON (mAP {scored['mAP']:.4f})"
+        if case == "cli.infer --artifact":
+            k2["cli.infer --artifact w8a8_fused_chain, 2 gloo ranks (35d)"] = dict(
+                launches=sum(r["k2"] for r in two))
+            if [r["k2"] for r in two] != [k2_one] * 2 or k2_one != 48:  # 24 per b8 call
+                raise AssertionError(f"35d K2: ranks {[r['k2'] for r in two]}, one {k2_one} "
+                                     "(48 expected: two batches of 8)")
+            what += f", K2 {[r['k2'] for r in two]} per rank / {k2_one} in one process"
+        outs.append(what)
+    log(f"[dist-serve] 35d over two gloo ranks on {smi}, rank 0's output against one "
+        f"process's: " + "; ".join(outs))
+    return k2, k1
+
+
 def main() -> int:
     import torch
 
@@ -3286,6 +3603,12 @@ def main() -> int:
     export_launches = phase_export(dev, workdir8, smi)
     log(f"[export] phase 16 took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    # Phase 35 resumes the step-40 run that phase 17 goes on from.
+    seed = tempfile.TemporaryDirectory()
+    os.makedirs(os.path.join(seed.name, "checkpoints"))
+    for name in ("params.json", "40.pt"):
+        shutil.copy(os.path.join(workdir8, "checkpoints", name),
+                    os.path.join(seed.name, "checkpoints"))
     qat_launches = phase_qat(workdir8, smi)
     log(f"[qat] phase 17 took {time.perf_counter() - t0:.1f} s")
     train_dir.cleanup()
@@ -3369,6 +3692,13 @@ def main() -> int:
         dist_k1 = phase_dist(dev, workdir, smi)
         log(f"[dist] phase 34 took {time.perf_counter() - t0:.1f} s")
 
+    # Phase 35: sharded serving and evaluation, spatial sharding.
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        dist_serve_k2, dist_serve_k1 = phase_dist_serve(dev, workdir, seed.name, smi)
+        log(f"[dist-serve] phase 35 took {time.perf_counter() - t0:.1f} s")
+    seed.cleanup()
+
     log(f"[zoo3d] on {smi}: 3D batch-8 predict fp {lat3d['fp']:.3f} ms, int8 "
         f"{lat3d['int8']:.3f} ms; 3D training {step3d_ms:.3f} ms/step; DMDS training "
         f"{dmds['step_ms']:.3f} ms/step ({dmds['scenes_ms']:.1f} ms of host scenes), "
@@ -3376,7 +3706,7 @@ def main() -> int:
         f"(artifact {dmds['artifact_ms']:.3f} ms); DMDS reaches no TPU kernel (the "
         "reference refuses W8A8 for it)")
 
-    log(f"[smoke] phases 1-34 took {time.perf_counter() - t_smoke:.1f} s")
+    log(f"[smoke] phases 1-35 took {time.perf_counter() - t_smoke:.1f} s")
     log(f"[card] {nvidia_smi()}")
     # K2's numbers are those of one config-B int8 forward; launches count
     # every main-path run (config B and each dense path), with each path's
@@ -3396,6 +3726,7 @@ def main() -> int:
     k2_paths["HTTP ModelServer"] = dict(launches=http_k2)
     k2_paths["cli.infer --artifact"] = dict(launches=infer_k2)
     k2_paths["run_video + cli.video --artifact"] = dict(launches=video_k2)
+    k2_paths.update(dist_serve_k2)
     k2_shapes = sorted({f"k{c['k']} B{c['B']} {c['H']}x{c['W']} {c['cin']}->{c['cout']}"
                         for calls in dense_calls.values() for c in calls})
     print(json.dumps({"kernels": [{
@@ -3409,7 +3740,8 @@ def main() -> int:
         "replaces": SPLAT_REPLACES,
         "launches": (splat_launches + dense_k1 + qat_launches + train3d_launches + rec_k1
                      + coco_k1 + watchdog_k1 + prof_k1 + tb_k1 + lr_k1 + rot_k1
-                     + sum(p["launches"] for p in dist_k1.values())),
+                     + sum(p["launches"] for p in dist_k1.values())
+                     + sum(p["launches"] for p in dist_serve_k1.values())),
         "max_abs_err": splat_err,
         "ms": splat_times["flagship"][0], "plain_ms": splat_times["flagship"][1],
         "bound_ms": splat_times["bound_ms"], "bound_by": "bytes", "library_ms": None,
@@ -3427,7 +3759,7 @@ def main() -> int:
                                              ms=splat_times["multitask"][0],
                                              plain_ms=splat_times["multitask"][1],
                                              bound_ms=splat_times["multitask_bound_ms"]),
-                  **dist_k1}}]}))
+                  **dist_k1, **dist_serve_k1}}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

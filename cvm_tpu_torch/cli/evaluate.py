@@ -25,6 +25,13 @@ default, ``train`` or ``all``) of ``RecordDataset.split_ids()``, read by a
 decoder (``data/jpeg.py``), as RGB or, for a yuv420 artifact, as planes.
 Calibration for the static postures stays on synthetic scenes, as
 ``cli.export``'s.
+
+Over several processes, one per card (``--coordinator HOST:PORT
+--num_processes N --process_id R``, as ``cli.train``'s): every rank loads
+the checkpoint (or the artifact, each rank its own ``ServingModel``) and
+reads the same eval batches, each predicts its rows of every batch
+(``evaluate_model(mesh=)``, the reference's sharded evaluation), and rank 0
+alone prints and writes what one process would.
 """
 
 from __future__ import annotations
@@ -66,7 +73,9 @@ def _num_classes(cfg) -> int:
     return min(getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 3)), 10)
 
 
-def _emit(args, m, step):
+def _emit(args, m, step, mesh):
+    if mesh is not None and not mesh.is_rank0:
+        return
     variant = ""
     if args.artifact:
         variant = f" artifact={args.artifact}"
@@ -83,7 +92,7 @@ def _emit(args, m, step):
             json.dump(payload, f)
 
 
-def _evaluate_artifact(parser, args, overrides):
+def _evaluate_artifact(parser, args, overrides, mesh):
     """Score a ``cli.export`` artifact through the metric pipeline: the
     program and the shipped weights run as a deployment runs them
     (``ServingModel``), so this is what the artifact scores. The model and
@@ -125,28 +134,35 @@ def _evaluate_artifact(parser, args, overrides):
     m = evaluate_model(name, cfg, None, val, max_batches=args.batches, device=sm.device,
                        per_class=args.per_class, size_buckets=args.size_ap,
                        confusion=args.confusion, pr_curves=args.pr_out is not None,
-                       predict_fn=sm.predict_batch)
-    if args.pr_out:
-        with open(args.pr_out, "w") as f:
-            json.dump(m.pop("pr_curves", {}), f)
-        print(f"[cvm_tpu_torch] PR curves -> {args.pr_out}", file=sys.stderr)
-    _emit(args, m, step=-1)
+                       predict_fn=sm.predict_batch, mesh=mesh)
+    _write_pr(args, m, mesh)
+    _emit(args, m, -1, mesh)
     return 0
 
 
-def _calibrate(args, cfg, model, pad_hw, device):
+def _write_pr(args, m, mesh):
+    curves = m.pop("pr_curves", {})
+    if args.pr_out and (mesh is None or mesh.is_rank0):
+        with open(args.pr_out, "w") as f:
+            json.dump(curves, f)
+        print(f"[cvm_tpu_torch] PR curves -> {args.pr_out}", file=sys.stderr)
+
+
+def _calibrate(args, cfg, model, pad_hw, device, say):
     """The reference's calibration recipe, that of ``cli.export``
     (``calibration_scales``): ``--calib_batches`` batches of
     ``max(batch_size, 2)`` synthetic scenes."""
     from cvm_tpu_torch.cli.export import calibration_scales
 
     scales = calibration_scales(cfg, model, pad_hw, args.calib_batches, cfg.batch_size, device)
-    print(f"[cvm_tpu_torch] {args.quantize}: calibrated {len(scales)} convs on "
-          f"{max(args.calib_batches, 1)} synthetic batches", file=sys.stderr)
+    say(f"[cvm_tpu_torch] {args.quantize}: calibrated {len(scales)} convs on "
+        f"{max(args.calib_batches, 1)} synthetic batches")
     return scales
 
 
 def main(argv=None):
+    from cvm_tpu_torch.parallel.mesh import add_process_args, process_count, process_mesh
+
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", default=None,
                         help="model-zoo name: centernet, semseg, depth, multitask or dmds")
@@ -197,10 +213,23 @@ def main(argv=None):
     parser.add_argument("--artifact", default=None, metavar="DIR",
                         help="score a cli.export artifact (program + shipped weights, "
                              "run as served) instead of a checkpoint")
+    add_process_args(parser)
     args, overrides = parser.parse_known_args(argv)
+    process_count(parser, args)
+    with process_mesh(args, args.device) as (args.device, mesh):
+        if args.artifact:
+            return _evaluate_artifact(parser, args, overrides, mesh)
+        return _evaluate_checkpoint(parser, args, overrides, mesh)
 
-    if args.artifact:
-        return _evaluate_artifact(parser, args, overrides)
+
+def _evaluate_checkpoint(parser, args, overrides, mesh):
+    """``main`` for a checkpoint, its arguments parsed (and, with
+    ``--coordinator``, the process group formed)."""
+
+    def say(msg):
+        if mesh is None or mesh.is_rank0:
+            print(msg, file=sys.stderr)
+
     if not args.model:
         parser.error("--model is required (unless evaluating an --artifact)")
     if args.pr_out and args.model not in ("centernet", "multitask"):
@@ -254,8 +283,8 @@ def main(argv=None):
     trainer.init_state()
     step = trainer.state.step
     if step == 0:
-        print(f"[cvm_tpu_torch] WARNING: no checkpoint restored from {ckpt_dir} — "
-              "evaluating fresh init", file=sys.stderr)
+        say(f"[cvm_tpu_torch] WARNING: no checkpoint restored from {ckpt_dir} — "
+            "evaluating fresh init")
     if args.average_last:
         from cvm_tpu_torch.train.average import average_checkpoints
 
@@ -263,7 +292,7 @@ def main(argv=None):
             steps = average_checkpoints(trainer, args.average_last)
         except ValueError as e:
             parser.error(f"--average_last: {e}")
-        print(f"[cvm_tpu_torch] averaged checkpoints at steps {list(steps)}", file=sys.stderr)
+        say(f"[cvm_tpu_torch] averaged checkpoints at steps {list(steps)}")
 
     val = _build_val(args, cfg, pad_hw, trainer.device)
     # EMA parameters when on, with the live BatchNorm statistics.
@@ -277,8 +306,7 @@ def main(argv=None):
         params = dict(model.named_parameters())
         qparams, _ = quantize_params(params)
         err = quantization_error(params, qparams)
-        print(f"[cvm_tpu_torch] weight-only int8: relative weight error {err:.3e}",
-              file=sys.stderr)
+        say(f"[cvm_tpu_torch] weight-only int8: relative weight error {err:.3e}")
         deq = dequantize_params(qparams)
         with torch.no_grad():
             for name, p in params.items():
@@ -286,19 +314,17 @@ def main(argv=None):
     elif args.quantize == "w8a8":
         w8a8 = True
     elif args.quantize != "none":  # w8a8_static, w8a8_fused[_chain]
-        w8a8 = _calibrate(args, cfg, model, pad_hw, trainer.device)
+        w8a8 = _calibrate(args, cfg, model, pad_hw, trainer.device, say)
 
     m = evaluate_model(args.model, cfg, model, val, max_batches=args.batches,
                        device=trainer.device, per_class=args.per_class,
                        size_buckets=args.size_ap, confusion=args.confusion,
                        pr_curves=args.pr_out is not None,
                        tta=args.tta, w8a8=w8a8, w8a8_fused=w8a8_fused,
-                       w8a8_chain=args.quantize == "w8a8_fused_chain", fold_bn=args.fold_bn)
-    if args.pr_out:
-        with open(args.pr_out, "w") as f:
-            json.dump(m.pop("pr_curves", {}), f)
-        print(f"[cvm_tpu_torch] PR curves -> {args.pr_out}", file=sys.stderr)
-    _emit(args, m, step)
+                       w8a8_chain=args.quantize == "w8a8_fused_chain", fold_bn=args.fold_bn,
+                       mesh=mesh)
+    _write_pr(args, m, mesh)
+    _emit(args, m, step, mesh)
     return 0
 
 

@@ -36,6 +36,14 @@ It keeps the reference's refusals: exactly one source; flags baked into an
 artifact at export; yuv420 and two-frame artifacts; ``--w8a8`` for dmds;
 ``--tiled`` for detection, records, ``--w8a8`` and ``--tta``. A summary
 (batches, images, ms per batch on the host clock) goes to stderr.
+
+Over several processes, one per card (``--coordinator HOST:PORT
+--num_processes N --process_id R``, as ``cli.train``'s): every rank reads
+and decodes the same batches and predicts its rows of each
+(``InferencePipeline(mesh=)``, or ``shard_predict`` of its own artifact's
+``ServingModel``), and rank 0 alone prints the JSONL, the summary and the
+``--visualize`` PNGs, equal to one process's. ``--tiled`` runs image by
+image on one card and is refused there.
 """
 
 from __future__ import annotations
@@ -97,6 +105,8 @@ def _run_tiled(args, cfg, trainer) -> int:
 
 
 def main(argv=None) -> int:
+    from cvm_tpu_torch.parallel.mesh import add_process_args, process_count, process_mesh
+
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", default=None,
                         help="model-zoo name (optional with --artifact)")
@@ -124,10 +134,23 @@ def main(argv=None) -> int:
                              "instead of letterboxing to the training size")
     parser.add_argument("--tile_overlap", type=float, default=0.25)
     parser.add_argument("--device", default="cuda", help="'cuda', 'cuda:N' or 'cpu'")
+    add_process_args(parser)
     args = parser.parse_args(argv)
 
     if bool(args.artifact) == bool(args.checkpoint_dir):
         parser.error("exactly one source: --checkpoint_dir or --artifact")
+    if process_count(parser, args) > 1 and args.tiled:
+        parser.error("--tiled predicts image by image on one card: run it in one process")
+    with process_mesh(args, args.device) as (args.device, mesh):
+        return _infer(parser, args, mesh)
+
+
+def _infer(parser, args, mesh) -> int:
+    """``main`` once the arguments are parsed (and, with ``--coordinator``,
+    the process group formed)."""
+    from cvm_tpu_torch.infer.pipeline import shard_predict
+
+    rank0 = mesh is None or mesh.is_rank0
 
     sm = None
     if args.artifact:
@@ -204,7 +227,7 @@ def main(argv=None) -> int:
     gen = batches()
     names, first = next(gen)
     if sm is not None:
-        return _drive(args, gen, names, first, sm.predict_batch)
+        return _drive(args, gen, names, first, shard_predict(mesh, sm.predict_batch), rank0)
 
     import torch
 
@@ -224,18 +247,20 @@ def main(argv=None) -> int:
                                          cfg.input_hw)
         with torch.no_grad():
             w8a8 = calibrate_activation_scales(model, [proc])
-        print(json.dumps({"w8a8_calibrated_convs": len(w8a8)}), flush=True)
+        if rank0:
+            print(json.dumps({"w8a8_calibrated_convs": len(w8a8)}), flush=True)
     # The pipeline pads a short batch to its config's batch size: the CLI's.
     pipe = InferencePipeline(cfg.replace(batch_size=args.batch_size), model, device,
-                             input_format="rgb", tta=args.tta, w8a8=w8a8)
+                             input_format="rgb", tta=args.tta, w8a8=w8a8, mesh=mesh)
     return _drive(args, gen, names, first,
-                  lambda b: {k: v.cpu().numpy() for k, v in pipe(b).items()})
+                  lambda b: {k: v.cpu().numpy() for k, v in pipe(b).items()}, rank0)
 
 
-def _drive(args, gen, names, first, predict) -> int:
+def _drive(args, gen, names, first, predict, rank0: bool = True) -> int:
     """The JSONL + ``--visualize`` loop shared by both sources: ``predict``
-    maps a batch dict to numpy outputs."""
-    if args.visualize:
+    maps a batch dict to numpy outputs. Only ``rank0`` prints and draws
+    (the other ranks of a group predict their rows alongside)."""
+    if args.visualize and rank0:
         os.makedirs(args.visualize, exist_ok=True)
 
     def handle(names, batch, out):
@@ -276,7 +301,8 @@ def _drive(args, gen, names, first, predict) -> int:
         t0 = time.perf_counter()
         out = predict(first)
         t_total += time.perf_counter() - t0
-        handle(names, first, out)
+        if rank0:
+            handle(names, first, out)
         n += 1
         n_images += min(len(names), first["image"].shape[0])
         if args.max_batches is not None and n >= args.max_batches:
@@ -285,9 +311,10 @@ def _drive(args, gen, names, first, predict) -> int:
             names, first = next(gen)
         except StopIteration:
             break
-    print(json.dumps({"model": args.model, "batches": n, "images": n_images,
-                      "ms_per_batch_avg": round(t_total / n * 1e3, 3)}),
-          file=sys.stderr, flush=True)
+    if rank0:
+        print(json.dumps({"model": args.model, "batches": n, "images": n_images,
+                          "ms_per_batch_avg": round(t_total / n * 1e3, 3)}),
+              file=sys.stderr, flush=True)
     return 0
 
 

@@ -1,6 +1,6 @@
 """Repack a JPEG `.cvrec` into a raw-YUV420 serving shard:
 ``python -m cvm_tpu_torch.cli.repack --src data.cvrec --out data_yuv.cvrec
-[--device cuda]``.
+[--threads 4] [--device cuda]``.
 
 Mirrors ``cvm_tpu/cli/repack.py`` (``repack_yuv``, ``main``) on
 ``data/jpeg.py::decode_jpeg_batch_yuv420`` with the decoder of
@@ -26,7 +26,7 @@ import sys
 
 
 def repack_yuv(src: str, out: str, target_hw=(0, 0), max_hw=(4096, 4096),
-               device="cuda") -> dict:
+               num_threads: int = 4, device="cuda") -> dict:
     import numpy as np
 
     from cvm_tpu_torch.data.jpeg import decode_jpeg_batch_yuv420
@@ -47,7 +47,7 @@ def repack_yuv(src: str, out: str, target_hw=(0, 0), max_hw=(4096, 4096),
             wd = int(meta.get("width", max_hw[1]))
             mh, mw = min(h + (h % 2), max_hw[0]), min(wd + (wd % 2), max_hw[1])
             Y, U, V, hw = decode_jpeg_batch_yuv420(
-                [jpeg], mh, mw, 1, target_hw=tuple(target_hw), device=device
+                [jpeg], mh, mw, num_threads, target_hw=tuple(target_hw), device=device
             )
             dh, dw = int(hw[0, 0]), int(hw[0, 1])
             if (dh, dw) == (1, 1):
@@ -65,7 +65,7 @@ def repack_yuv(src: str, out: str, target_hw=(0, 0), max_hw=(4096, 4096),
                 # Two-frame records: pre-decode frame t+1 as well so DMDS
                 # serving assembly stays a pure blit.
                 Y1, U1, V1, hw1 = decode_jpeg_batch_yuv420(
-                    [jpeg1], mh, mw, 1, target_hw=tuple(target_hw), device=device
+                    [jpeg1], mh, mw, num_threads, target_hw=tuple(target_hw), device=device
                 )
                 eh, ew = int(hw1[0, 0]), int(hw1[0, 1])
                 eh -= eh % 2
@@ -96,6 +96,7 @@ def main(argv=None):
     ap.add_argument("--out", required=True, help="output .cvrec (y/u/v planes)")
     ap.add_argument("--target", default=None,
                     help="model input 'H,W' for scale-aware repack")
+    ap.add_argument("--threads", type=int, default=4, help="decoder threads")
     ap.add_argument("--device", default="cuda", help="'cuda', 'cuda:N' or 'cpu': the decoder")
     args = ap.parse_args(argv)
     target = (0, 0)
@@ -103,7 +104,8 @@ def main(argv=None):
         from cvm_tpu_torch.utils.config import parse_hw
 
         target = parse_hw(args.target, "--target")
-    stats = repack_yuv(args.src, args.out, target_hw=target, device=args.device)
+    stats = repack_yuv(args.src, args.out, target_hw=target, num_threads=args.threads,
+                       device=args.device)
     print(json.dumps(stats))
     return 0
 

@@ -58,7 +58,8 @@ data rank d reads the synthetic stream seeded ``seed + d * 7919`` or the
 records' d-th stride of the train ids, as the reference's processes do.
 Rank 0 alone prints, writes ``metrics.jsonl``, TensorBoard, checkpoints
 (whole tensors: ``cli.evaluate`` loads them in one process) and the best
-checkpoint, and runs each eval while the others wait. ``--auto_restart``
+checkpoint. Every eval runs on every rank, each data rank predicting its
+rows (``evaluate_model(mesh=)``, as the reference's). ``--auto_restart``
 is refused there: it would re-exec one rank, which cannot rejoin the
 group. ``--dcn_slices`` is not ported (``_DCN_NOT_PORTED``).
 """
@@ -104,6 +105,8 @@ def _record_qat_flip(workdir: str, cfg, keep_best: bool, params_cls, load_params
 
 
 def main(argv=None) -> int:
+    from cvm_tpu_torch.parallel.mesh import add_process_args, process_count, process_mesh
+
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", required=True,
                         help="zoo name: centernet, semseg, depth, multitask or dmds")
@@ -147,12 +150,7 @@ def main(argv=None) -> int:
                              "required >= 2 when the model config sets tensor_parallel")
     parser.add_argument("--dcn_slices", type=int, default=1, metavar="N",
                         help="not ported (the device order of a multi-slice TPU mesh)")
-    parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                        help="multi-process training: rank 0's rendezvous address; launch "
-                             "one process per card with the same arguments plus "
-                             "--process_id; requires --num_processes")
-    parser.add_argument("--num_processes", type=int, default=None)
-    parser.add_argument("--process_id", type=int, default=None)
+    add_process_args(parser)
     parser.add_argument("--profile_steps", type=int, default=0, metavar="N",
                         help="record N steady-state steps with torch.profiler into "
                              "<workdir>/trace (after up to 20 warm-up steps)")
@@ -173,12 +171,9 @@ def main(argv=None) -> int:
     if args.early_stop > 0 and not args.keep_best:
         parser.error("--early_stop requires --keep_best (it defines the "
                      "watched metric and direction)")
-    if args.coordinator is not None and (args.num_processes is None
-                                         or args.process_id is None):
-        parser.error("--coordinator requires --num_processes and --process_id")
+    world = process_count(parser, args)
     if args.dcn_slices != 1:
         raise SystemExit(_DCN_NOT_PORTED)
-    world = args.num_processes if args.coordinator is not None else 1
     if args.model_parallel < 1 or world % args.model_parallel:
         parser.error(f"{world} processes not divisible by --model_parallel "
                      f"{args.model_parallel}")
@@ -218,23 +213,9 @@ def main(argv=None) -> int:
             target_hw = (0, 0)
         else:
             target_hw = parse_hw(args.decode_target, "--decode_target")
-    mesh = None
-    device = args.device
-    if args.coordinator is not None:
-        from cvm_tpu_torch.parallel.mesh import init_distributed, make_mesh
-
-        device = init_distributed(args.coordinator, args.num_processes, args.process_id,
-                                  args.device)
-    try:
-        if args.coordinator is not None:
-            mesh = make_mesh(args.model_parallel, device)
+    with process_mesh(args, args.device, args.model_parallel) as (device, mesh):
         return _train(args, argv, spec, cfg, pad_hw, nc, scenes, records, target_hw, device,
                       mesh)
-    finally:
-        if args.coordinator is not None:
-            from cvm_tpu_torch.parallel.mesh import shutdown_distributed
-
-            shutdown_distributed()
 
 
 def _train(args, argv, spec, cfg, pad_hw, nc, scenes, records, target_hw, device, mesh) -> int:
@@ -283,29 +264,32 @@ def _train(args, argv, spec, cfg, pad_hw, nc, scenes, records, target_hw, device
     def run_eval(it):
         # Held-out data: scenes from their own generator, or the records'
         # val split; the training streams (data, augmentation) and the
-        # training model are not touched. Under a group every rank takes
-        # part in the copy of the model and of the checkpoint (collectives
-        # under tensor parallelism); rank 0 scores while the others wait.
+        # training model are not touched. Under a group every rank scores
+        # its rows of each eval batch (evaluate_model(mesh=), a tensor-
+        # parallel model kept split) and gets the same metrics; rank 0
+        # alone then logs, writes and keeps the best checkpoint while the
+        # others wait on the store (a long write trips no collective).
         model = trainer.eval_model()
         ck_state = (trainer.checkpoint_state(it.state_dict() if hasattr(it, "state_dict")
                                              else None) if args.keep_best else None)
-
-        def score():
-            if records is None:
-                rng = np.random.default_rng(999)
-                val = [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=nc, **scenes)
-                       for _ in range(args.eval_batches)]
-            else:
-                val = RecordLoader(records, cfg.batch_size, pad_hw,
-                                   ids=records.split_ids()[1], shuffle=False, loop=False,
-                                   max_objects=getattr(cfg, "max_objects", 128),
-                                   device=trainer.device)
-            t0 = time.perf_counter()
-            m = evaluate_model(args.model, cfg, model, val, max_batches=args.eval_batches,
+        if records is None:
+            rng = np.random.default_rng(999)
+            val = [synthetic_batch(rng, cfg.batch_size, pad_hw, num_classes=nc, **scenes)
+                   for _ in range(args.eval_batches)]
+        else:
+            val = RecordLoader(records, cfg.batch_size, pad_hw,
+                               ids=records.split_ids()[1], shuffle=False, loop=False,
+                               max_objects=getattr(cfg, "max_objects", 128),
                                device=trainer.device)
-            seconds = time.perf_counter() - t0
-            step = trainer.state.step
-            log(f"[cvm_tpu_torch] eval@{step}: {m} ({seconds:.2f} s)")
+        t0 = time.perf_counter()
+        m = evaluate_model(args.model, cfg, model, val, max_batches=args.eval_batches,
+                           device=trainer.device, mesh=mesh)
+        seconds = time.perf_counter() - t0
+        step = trainer.state.step
+        log(f"[cvm_tpu_torch] eval@{step}: {m} ({seconds:.2f} s)")
+        shown = eval_image_predictions(model, val) if args.eval_images > 0 else None
+
+        def record():
             trainer.metrics_writer.write(step, {**{f"val_{k}": v for k, v in m.items()},
                                                 "eval_seconds": seconds})
             if best is not None:
@@ -315,18 +299,20 @@ def _train(args, argv, spec, cfg, pad_hw, nc, scenes, records, target_hw, device
                 elif best.update(step, ck_state, m[args.keep_best]):
                     log(f"[cvm_tpu_torch] new best {args.keep_best}={m[args.keep_best]:.4f} "
                         f"@step {step} -> {args.workdir}/best")
-            if args.eval_images > 0:
-                log_eval_images(model, val, step)
-            return m
+            if shown is not None:
+                write_eval_images(*shown, step)
 
-        return score() if mesh is None else mesh.from_rank0("eval", score)
+        if mesh is None:
+            record()
+        else:
+            mesh.from_rank0("best", record)
+        return m
 
-    def log_eval_images(model, val, step):
-        """The first eval batch's predictions drawn on its images
-        (``infer/visualize.py::render_sample``) into the TensorBoard Images
-        tab: the reference's headless stand-in for its OpenCV windows."""
+    def eval_image_predictions(model, val):
+        """The first eval batch (host arrays) and its predictions, for
+        ``--eval_images``; None without an RGB batch. Every rank predicts
+        its rows."""
         from cvm_tpu_torch.infer.pipeline import InferencePipeline
-        from cvm_tpu_torch.infer.visualize import render_sample
 
         if isinstance(val, list):
             batch0 = val[0]
@@ -337,11 +323,18 @@ def _train(args, argv, spec, cfg, pad_hw, nc, scenes, records, target_hw, device
         if batch0 is None or "image" not in batch0:
             log("[cvm_tpu_torch] --eval_images: no RGB eval batch — skipping image "
                 "summaries", err=True)
-            return
+            return None
         host = {k: v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
                 for k, v in batch0.items()}
-        pipe = InferencePipeline(cfg, model, trainer.device, input_format="rgb")
-        out = {k: v.cpu().numpy() for k, v in pipe(host).items()}
+        pipe = InferencePipeline(cfg, model, trainer.device, input_format="rgb", mesh=mesh)
+        return host, {k: v.cpu().numpy() for k, v in pipe(host).items()}
+
+    def write_eval_images(host, out, step):
+        """The predictions drawn on their images (``infer/visualize.py::
+        render_sample``) into the TensorBoard Images tab: the reference's
+        headless stand-in for its OpenCV windows."""
+        from cvm_tpu_torch.infer.visualize import render_sample
+
         n = min(args.eval_images, int(host["image"].shape[0]))
         for i in range(n):
             vis = {k: v[i] for k, v in out.items()}

@@ -14,6 +14,13 @@ the frame index, and DMDS's ego-motion) and, drawn on the frame
 consecutive frame pairs (t, t + stride). Video decode and encode need
 OpenCV (``cv2``), as the reference's do; ``cli.doctor`` says whether it
 imports.
+
+Over several processes, one per card (``--coordinator HOST:PORT
+--num_processes N --process_id R``, as ``cli.train``'s): every rank reads
+the clip and predicts its rows of each batch (``InferencePipeline(mesh=)``,
+or ``shard_predict`` of its own artifact's ``predict_batch``), as the
+reference shards its pipeline over the mesh; rank 0 alone writes the mp4
+and the JSONL.
 """
 
 from __future__ import annotations
@@ -185,6 +192,8 @@ def artifact_predict(model, art_hw: Tuple[int, int], two_frame: bool = False):
 
 
 def main(argv=None) -> int:
+    from cvm_tpu_torch.parallel.mesh import add_process_args, process_count, process_mesh
+
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", default=None, help="zoo model name (with --checkpoint_dir)")
     parser.add_argument("--checkpoint_dir", default=None)
@@ -203,7 +212,9 @@ def main(argv=None) -> int:
     parser.add_argument("--score_threshold", type=float, default=0.3)
     parser.add_argument("--tta", default="none", choices=("none", "hflip"))
     parser.add_argument("--device", default="cuda", help="'cuda', 'cuda:N' or 'cpu'")
+    add_process_args(parser)
     args = parser.parse_args(argv)
+    process_count(parser, args)
     if not (args.out or args.jsonl):
         parser.error("need --out and/or --jsonl")
     if args.stride < 1:
@@ -212,7 +223,16 @@ def main(argv=None) -> int:
         parser.error("need exactly one of --checkpoint_dir (with --model) or --artifact")
     if args.checkpoint_dir and not args.model:
         parser.error("--checkpoint_dir requires --model")
+    with process_mesh(args, args.device) as (args.device, mesh):
+        return _video(parser, args, mesh)
 
+
+def _video(parser, args, mesh) -> int:
+    """``main`` once the arguments are checked (and, with ``--coordinator``,
+    the process group formed)."""
+    from cvm_tpu_torch.infer.pipeline import shard_predict
+
+    rank0 = mesh is None or mesh.is_rank0
     batch_size = args.batch_size
     cfg = None
     if args.artifact:
@@ -229,7 +249,7 @@ def main(argv=None) -> int:
         batch_size = int(meta.get("batch_size", 1))
         art_hw = tuple(meta.get("pad_hw", (0, 0)))
 
-        predict = artifact_predict(model, art_hw, two_frame)
+        predict = shard_predict(mesh, artifact_predict(model, art_hw, two_frame))
     else:
         from cvm_tpu_torch.models.registry import get_model
         from cvm_tpu_torch.train.checkpoints import load_params_cfg
@@ -259,16 +279,18 @@ def main(argv=None) -> int:
         trainer.init_state()
         model = trainer.eval_model(use_ema=getattr(cfg, "ema_decay", 0.0) > 0.0)
         pipe = InferencePipeline(cfg.replace(batch_size=batch_size), model, trainer.device,
-                                 input_format="rgb", tta=args.tta)
+                                 input_format="rgb", tta=args.tta, mesh=mesh)
 
         def predict(batch):
             return {k: v.cpu().numpy() for k, v in pipe(batch).items()}
 
     n = run_video(predict, itertools.chain([first], frames), batch_size, pad_hw,
-                  fps / args.stride, args.out, args.jsonl, args.score_threshold,
+                  fps / args.stride, args.out if rank0 else None,
+                  args.jsonl if rank0 else None, args.score_threshold,
                   two_frame=two_frame, class_names=getattr(cfg, "class_names", None))
-    print(json.dumps({"frames": n, "fps_out": round(fps / args.stride, 3), "out": args.out,
-                      "jsonl": args.jsonl}), flush=True)
+    if rank0:
+        print(json.dumps({"frames": n, "fps_out": round(fps / args.stride, 3),
+                          "out": args.out, "jsonl": args.jsonl}), flush=True)
     return 0
 
 

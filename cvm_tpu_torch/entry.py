@@ -12,9 +12,9 @@ mapped back to the source images. Weights are random, drawn from a seeded
 flagship over n processes (gloo ranks, on the CPU or sharing the card),
 with the reference's choices (a model axis of 2 and tensor parallelism
 when n >= 4 is even, the EMA and two-step gradient accumulation), then the
-serving leg from rank 0 on the gathered weights. The reference serves its
-leg sharded over the mesh; the port serves one whole replica per card
-(ROADMAP "Not to port").
+serving leg sharded over the same mesh, as the reference's: each data rank
+decodes its rows, the stage-5 convs stay split over the model axis
+(``InferencePipeline(mesh=)``).
 """
 
 from __future__ import annotations
@@ -102,22 +102,25 @@ def _dryrun_rank(rank: int, n: int, port: int, device: str) -> None:
             if k.shape[0] * model_axis != 256:
                 raise AssertionError(f"TP rule did not shard s5b0.c1: {tuple(k.shape)}")
             tp = f", tp s5b0.c1 kernel {tuple(k.shape)} of (256, 256, 3, 3) on each rank"
-        model = trainer.eval_model()  # whole weights: every rank takes part
         if mesh.is_rank0:
             print(f"[dryrun_multichip] mesh=(data={mesh.data}, model={mesh.model}) over "
                   f"{n} gloo processes step ok, loss={loss:.4f}{tp}, ema+accum on",
                   flush=True)
-            pipe = InferencePipeline(cfg, model, dev, input_format="yuv420")
-            rng = np.random.default_rng(0)
-            B, (ph, pw) = cfg.batch_size, (96, 96)
-            res = pipe({"y": rng.integers(0, 255, (B, ph, pw), dtype=np.uint8),
-                        "u": rng.integers(0, 255, (B, ph // 2, pw // 2), dtype=np.uint8),
-                        "v": rng.integers(0, 255, (B, ph // 2, pw // 2), dtype=np.uint8),
-                        "image_hw": np.asarray([[ph, pw]] * B, np.int32)})
-            if res["boxes"].shape[0] != B or not torch.isfinite(res["scores"]).all():
-                raise AssertionError("serving leg: bad boxes or non-finite scores")
-            print(f"[dryrun_multichip] serving ok: decode batch B={B} from rank 0 on the "
-                  f"gathered weights, boxes={tuple(res['boxes'].shape)}, tp_serving=off "
-                  "(one whole replica per card)", flush=True)
+        # every rank serves its rows; the training model's slices stay split
+        pipe = InferencePipeline(cfg, trainer.eval_model(), dev, input_format="yuv420",
+                                 mesh=mesh)
+        rng = np.random.default_rng(0)
+        B, (ph, pw) = cfg.batch_size, (96, 96)
+        res = pipe({"y": rng.integers(0, 255, (B, ph, pw), dtype=np.uint8),
+                    "u": rng.integers(0, 255, (B, ph // 2, pw // 2), dtype=np.uint8),
+                    "v": rng.integers(0, 255, (B, ph // 2, pw // 2), dtype=np.uint8),
+                    "image_hw": np.asarray([[ph, pw]] * B, np.int32)})
+        if res["boxes"].shape[0] != B or not torch.isfinite(res["scores"]).all():
+            raise AssertionError("serving leg: bad boxes or non-finite scores")
+        if mesh.is_rank0:
+            print(f"[dryrun_multichip] sharded serving ok: decode batch B={B} on "
+                  f"mesh=(data={mesh.data}, model={mesh.model}), {B // mesh.data} rows per "
+                  f"data rank, boxes={tuple(res['boxes'].shape)}, "
+                  f"tp_serving={'on' if pipe.tensor_parallel else 'off'}", flush=True)
     finally:
         shutdown_distributed()

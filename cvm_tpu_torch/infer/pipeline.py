@@ -23,13 +23,29 @@ step (``train/qat.py``), so evals score the int8 numerics it trained for.
 It keeps the reference's refusals. The reference jits one program; here the
 same steps run eagerly on the pipeline's device, and ``cli/export.py``
 records them as one program (``torch.export``) of ``run``.
+
+Sharded serving (``mesh=``, the reference's ``InferencePipeline(mesh=)``,
+``cvm_tpu/infer/pipeline.py:295-350``): every rank of a
+``parallel/mesh.py`` mesh builds the same pipeline and is called with the
+same batch; each data rank predicts its rows and every result is
+all-gathered back to every rank in row order. Under a model axis and
+``tensor_parallel`` the fp postures (plain, ``fold_bn``, ``hflip``) keep the
+stage-5 convs split as training splits them (``parallel/sharding.py``:
+the forward all-reduces of ``RowConv``); the int8 postures and a QAT
+model's fake-quant convs run them on whole weights (``unshard_module``),
+as GSPMD gathers the reference's custom call's operands and keeps every
+other op's unsharded semantics: K2's epilogue cannot take a row split's
+partial int32 sums. A ``spatial_shard`` semseg head runs H-sharded over the
+model axis (``SpatialConv3x3``). ``__call__`` shards its batch through
+``shard_predict``, which shards any batch function alike (an artifact's
+``predict_batch``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
-from typing import Any, Dict, Mapping, Optional, Union
+from typing import Any, Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
@@ -38,6 +54,7 @@ import torch.nn as nn
 from cvm_tpu_torch.ops.decode import decode_centernet, decode_centernet_3d, semseg_argmax
 from cvm_tpu_torch.ops.image import map_boxes_to_input
 from cvm_tpu_torch.ops.warp import scale_intrinsics
+from cvm_tpu_torch.parallel.reduce import LOCAL
 from cvm_tpu_torch.pipeline.preprocess import preprocess_image_batch, preprocess_yuv420_batch
 from cvm_tpu_torch.utils.batch import pad_rows
 from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
@@ -108,13 +125,15 @@ class InferencePipeline:
     ``model`` is left untouched: the pipeline serves a transformed copy.
     ``__call__`` pads a short batch up to ``params.batch_size`` by repeating
     the last row (as the reference pads to its mesh) and slices the results
-    back.
+    back. With ``mesh`` (whose device is ``device``), every rank of the
+    mesh calls it with the same batch (module docstring); ``model`` may
+    then hold a tensor-parallel training model's slices.
     """
 
     def __init__(self, params, model: nn.Module, device: DeviceLike,
                  input_format: str = "yuv420", tta: str = "none",
                  w8a8: Union[None, bool, Dict[str, float]] = None, w8a8_fused: bool = False,
-                 w8a8_chain: bool = False, fold_bn: bool = False):
+                 w8a8_chain: bool = False, fold_bn: bool = False, mesh=None):
         if params.name not in _MODELS:
             raise ValueError(f"InferencePipeline: unknown model {params.name!r}")
         if input_format not in ("rgb", "yuv420"):
@@ -152,6 +171,12 @@ class InferencePipeline:
                              f"got {type(w8a8).__name__}")
         self.cfg = params
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"device {self.device} is not the mesh's {mesh.device}")
+        self.mesh = mesh
+        # dynamic activation scales (w8a8=True, a QAT model's fake quant)
+        # are maxima over the whole batch, on every data rank alike
+        self._reducer = LOCAL if mesh is None else mesh.reducer
         self.input_format, self.tta = input_format, tta
         self.with_3d = bool(getattr(params, "with_3d", False))
         self.keys = data_keys(params.name, input_format, self.with_3d)
@@ -160,13 +185,15 @@ class InferencePipeline:
         # convs its train step ran, unless an int8 path already runs.
         self.fake_quant = bool(getattr(params, "qat", False)) and w8a8 is None
         self.fused_counts = self.int8_counts = None
+        from cvm_tpu_torch.models.layers import bind_spatial_mesh
+
+        model = copy.deepcopy(model).to(self.device).eval()
+        self.tensor_parallel = self._place_stage5(model, w8a8 is None and not self.fake_quant)
+        bind_spatial_mesh(model, mesh)
         if fold_bn:
             from cvm_tpu_torch.infer.fold_bn import fold_batchnorm
 
             model = fold_batchnorm(model)
-        else:
-            model = copy.deepcopy(model)
-        model = model.to(self.device).eval()
         if w8a8_fused:
             from cvm_tpu_torch.infer.quantize import prequantize_fused_weights, swap_fused
 
@@ -175,10 +202,33 @@ class InferencePipeline:
             if not self.fused_counts["calls"]:
                 raise ValueError("w8a8_fused: no module matched the calibrated scales")
         elif w8a8 is not None:
-            from cvm_tpu_torch.infer.quantize import swap_int8
+            from cvm_tpu_torch.infer.quantize import Int8Conv, swap_int8
 
             self.int8_counts = swap_int8(model, None if w8a8 is True else w8a8)
+            for m in model.modules():
+                if isinstance(m, Int8Conv):
+                    m.reducer = self._reducer
         self.model = model
+
+    def _place_stage5(self, model: nn.Module, split_ok: bool) -> bool:
+        """Split ``model``'s stage-5 convs over the mesh's model axis, keep a
+        split model's slices, or gather them whole where the posture needs
+        whole weights (``split_ok`` False) or nothing splits; in place.
+        Whether the served model is split."""
+        from cvm_tpu_torch.parallel.sharding import (ColumnConv, RowConv, shard_module,
+                                                     tp_rules_for, unshard_module)
+
+        mesh = self.mesh
+        split = (split_ok and mesh is not None and mesh.model > 1
+                 and bool(getattr(self.cfg, "tensor_parallel", False)))
+        held = [m.mesh for m in model.modules() if isinstance(m, (ColumnConv, RowConv))]
+        if held and not split:
+            unshard_module(model)
+        elif split and not held:
+            shard_module(model, mesh, tp_rules_for(self.cfg.name))
+        elif held and any(m is not mesh for m in held):
+            raise ValueError("the model's tensor-parallel slices belong to another mesh")
+        return split
 
     def update_variables(self, state_dict: Mapping[str, torch.Tensor]) -> None:
         """Serve new weights (a ``state_dict`` of the model). Valid only for
@@ -198,7 +248,8 @@ class InferencePipeline:
         keeps the plain pass's."""
         from cvm_tpu_torch.train.qat import fake_quant_training
 
-        with fake_quant_training() if self.fake_quant else contextlib.nullcontext():
+        with (fake_quant_training(self._reducer) if self.fake_quant
+              else contextlib.nullcontext()):
             out = self.model(proc)
             if self.tta == "hflip":
                 flipped = self.model(torch.flip(proc, dims=(2,)))
@@ -212,7 +263,8 @@ class InferencePipeline:
     def predict(self, *data: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Device tensors in, device tensors out, in ``self.keys``' order:
         ``(y, u, v, image_hw)`` for yuv420, ``(image, image_hw)`` for rgb
-        (DMDS's second frame and 3D intrinsics as ``data_keys`` says)."""
+        (DMDS's second frame and 3D intrinsics as ``data_keys`` says). With
+        a mesh, this rank's rows alone: ``__call__`` shards a batch."""
         return self.run(*data)
 
     def run(self, *data: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -243,6 +295,31 @@ class InferencePipeline:
         args = [batch[k] for k in self.keys]
         args = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args]
         n = int(args[0].shape[0])
-        args = pad_rows(args, self.cfg.batch_size)
-        out = self.predict(*(torch.from_numpy(a).to(self.device) for a in args))
+        padded = dict(zip(self.keys, pad_rows(args, self.cfg.batch_size)))
+        out = shard_predict(self.mesh, self._predict_host)(padded)
         return {k: v[:n] for k, v in out.items()}
+
+    def _predict_host(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        return self.predict(*(torch.from_numpy(batch[k]).to(self.device) for k in self.keys))
+
+
+def shard_predict(mesh, predict: Callable[[Dict[str, Any]], Dict[str, Any]]
+                  ) -> Callable[[Dict[str, Any]], Dict[str, Any]]:
+    """``predict`` (a batch dict -> a dict of results, e.g. an artifact's
+    ``ServingModel.predict_batch``) sharded over ``mesh``'s data ranks:
+    every rank is called with the same batch, takes its rows of each array
+    with the batch's rows (``image_hw``'s), padded to a multiple of the data
+    ranks by repeating the last, and returns every rank's results in row
+    order. The identity without a mesh or a data axis."""
+    if mesh is None or mesh.data == 1:
+        return predict
+
+    def run(batch: Dict[str, Any]) -> Dict[str, Any]:
+        n = int(batch["image_hw"].shape[0])
+        keys = [k for k, v in batch.items() if getattr(v, "shape", ())[:1] == (n,)]
+        host = [v.cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                for v in (batch[k] for k in keys)]
+        out = mesh.replicated(predict(dict(zip(keys, mesh.shard_batch(host, n)))))
+        return {k: v[:n] for k, v in out.items()}
+
+    return run

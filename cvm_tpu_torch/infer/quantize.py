@@ -47,6 +47,7 @@ import torch.nn.functional as F
 
 from cvm_tpu_torch.models.layers import ACTS, BatchNorm, Conv, ConvBN, ResBlock, same_pads
 from cvm_tpu_torch.ops.cuda.fused_qconv import fused_qconv, pack_qconv_weights
+from cvm_tpu_torch.parallel.reduce import LOCAL, BatchReducer
 
 WeightTable = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -204,9 +205,12 @@ class Int8Conv(nn.Module):
     of 8 (exact: zero rows and columns add nothing). CPU tensors: the plain
     version, ``int8_conv_reference``. ``Int8Conv.mm_launches`` counts the
     ``_int_mm`` calls made on the card (not those a ``torch.export`` trace
-    records)."""
+    records). ``reducer`` (``parallel/reduce.py``) takes the dynamic scale's
+    max over the global batch of a data-parallel pipeline, as the
+    reference's GSPMD does."""
 
     mm_launches = 0
+    reducer: BatchReducer = LOCAL
 
     def __init__(self, conv: Conv, sx: Optional[float]):
         super().__init__()
@@ -238,7 +242,7 @@ class Int8Conv(nn.Module):
     def quantize(self, x: torch.Tensor):
         """(xq int8, sx float32 tensor) of the input."""
         xf = x.to(torch.float32)
-        sx = div127(xf.abs().amax()) + 1e-8 if self.sx is None else self.sx
+        sx = div127(self.reducer.max(xf.abs())) + 1e-8 if self.sx is None else self.sx
         return torch.round(torch.clamp(xf / sx, -127, 127)).to(torch.int8), sx
 
     def int8_conv(self, xq: torch.Tensor) -> torch.Tensor:
@@ -289,8 +293,10 @@ def swap_int8(model: nn.Module, scales: Optional[Dict[str, float]] = None) -> Di
     """Swap, in place, every Conv for an ``Int8Conv``: with dynamic scales
     when ``scales`` is None (``w8a8_inference``), else with its calibrated
     ``scales[name]`` (``w8a8_static_inference``; ``{conv module name:
-    sx}``), where a conv without a scale stays fp. Returns ``{"int8": n,
-    "fp": m, "fp_convs": [names]}``. Raises when nothing was swapped."""
+    sx}``), where a conv without a scale stays fp. A ``SpatialConv3x3`` is
+    no ``Conv`` and stays fp, as the reference's interceptors leave it.
+    Returns ``{"int8": n, "fp": m, "fp_convs": [names]}``. Raises when
+    nothing was swapped."""
     counts: Dict[str, Any] = {"int8": 0, "fp": 0, "fp_convs": []}
     for pname, parent in list(model.named_modules()):
         for cname, child in list(parent.named_children()):
@@ -403,7 +409,10 @@ def swap_fused(model: nn.Module, scales: Dict[str, float], weight_table: WeightT
                     counts["resblock"] += 1
                     counts["calls"] += len(parts)
                     continue
+            # A SpatialConv3x3 stays in fp, as the reference's interceptor
+            # leaves a ConvBN with a spatial mesh (quantize.py:483-488).
             if (isinstance(child, ConvBN) and f"{pre}conv" in scales
+                    and isinstance(child.conv, Conv)
                     and child.stride == 1 and child.kernel in (1, 3)):
                 if name not in weight_table:
                     raise ValueError(f"swap_fused: {name} selected but the weight "

@@ -14,6 +14,11 @@ Head projects in fp32.
 
 Convolutions use TensorFlow/flax ``SAME`` padding, which is asymmetric for a
 stride-2 conv on an even input (0 before, 1 after), unlike ``padding=1``.
+
+``SpatialConv3x3`` (``ConvBN(spatial_mesh=)``, ``Head(spatial_mesh=)``)
+runs a 3x3 stride-1 conv with H split over a mesh's model axis
+(``parallel/spatial.py``); its parameters are those of the ``Conv`` it
+replaces.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cvm_tpu_torch.parallel.reduce import LOCAL, BatchReducer
+from cvm_tpu_torch.parallel.spatial import gather_rows, spatial_conv3x3, split_rows
 
 ACTS = {None: lambda x: x, "silu": F.silu, "relu": F.relu}
 
@@ -75,6 +81,44 @@ class Conv(nn.Conv2d):
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
+
+
+class SpatialConv3x3(nn.Conv2d):
+    """A 3x3 stride-1 SAME ``Conv`` (same parameters, same numerics) whose
+    conv runs with H split over ``mesh``'s model axis: this rank's H-slab
+    of the whole input every rank of the model group holds, the halo
+    exchange and a conv VALID on H (``parallel/spatial.py``), then the
+    slabs gathered whole again. The bias is added to the whole output.
+    ``mesh`` None or a model axis of one rank runs the plain conv.
+
+    It is not a ``Conv``, as the reference's ``SpatialConv3x3`` is no
+    ``nn.Conv``: the int8 postures, calibration and QAT's fake quantization
+    leave it in floating point, as the reference's interceptors do. The
+    pipeline and the trainer set ``mesh`` to their own."""
+
+    def __init__(self, in_ch: int, out_ch: int, mesh=None, bias: bool = True,
+                 dtype: torch.dtype = torch.bfloat16):
+        super().__init__(in_ch, out_ch, 3, bias=bias)
+        self.mesh, self.dtype = mesh, dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt, mesh = self.dtype, self.mesh
+        x, w = x.to(dt), self.weight.to(dt)
+        if mesh is None or mesh.model == 1:
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, padding=1).permute(0, 2, 3, 1)
+        else:
+            y = gather_rows(spatial_conv3x3(split_rows(x, mesh), w, mesh), mesh)
+        if self.bias is not None:
+            y = y + self.bias.to(dt)
+        return y
+
+
+def bind_spatial_mesh(model: nn.Module, mesh) -> None:
+    """Run every ``SpatialConv3x3`` of ``model`` over ``mesh`` (None: the
+    plain conv)."""
+    for mod in model.modules():
+        if isinstance(mod, SpatialConv3x3):
+            mod.mesh = mesh
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -133,16 +177,25 @@ class BiasAdd(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Conv -> BatchNorm -> activation (``act`` in None/"silu"/"relu")."""
+    """Conv -> BatchNorm -> activation (``act`` in None/"silu"/"relu").
+    ``spatial_mesh`` (3x3 stride-1 only) makes the conv a
+    ``SpatialConv3x3`` over that mesh."""
 
     def __init__(self, in_ch: int, features: int, kernel: int = 3, stride: int = 1,
                  act: Optional[str] = "silu", use_bn: bool = True,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype = torch.bfloat16, spatial_mesh=None):
         super().__init__()
         if act not in ACTS:
             raise ValueError(f"act must be one of {list(ACTS)}, got {act!r}")
         self.kernel, self.stride, self.act, self.dtype = kernel, stride, act, dtype
-        self.conv = Conv(in_ch, features, kernel, stride, bias=not use_bn, dtype=dtype)
+        if spatial_mesh is not None:
+            if (kernel, stride) != (3, 1):
+                raise ValueError("spatial sharding supports 3x3 stride-1 convs only, got "
+                                 f"{kernel}x{kernel} stride {stride}")
+            self.conv = SpatialConv3x3(in_ch, features, spatial_mesh, bias=not use_bn,
+                                       dtype=dtype)
+        else:
+            self.conv = Conv(in_ch, features, kernel, stride, bias=not use_bn, dtype=dtype)
         self.bn = BatchNorm(features) if use_bn else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -199,13 +252,16 @@ class Head(nn.Module):
     """Task head: 3x3 conv with bias + silu (no BN), then a 1x1 projection
     whose logits are returned as fp32. The projection computes in bf16 at
     inference and in fp32 in training, as the reference does (a bf16
-    projection would round the logits the loss sees to an 8-bit mantissa)."""
+    projection would round the logits the loss sees to an 8-bit mantissa).
+    ``spatial_mesh`` runs ``c1``'s conv H-sharded (``SpatialConv3x3``)."""
 
     def __init__(self, in_ch: int, features: int, out_channels: int,
-                 bias_init_value: float = 0.0, dtype: torch.dtype = torch.bfloat16):
+                 bias_init_value: float = 0.0, dtype: torch.dtype = torch.bfloat16,
+                 spatial_mesh=None):
         super().__init__()
         self.bias_init_value = bias_init_value
-        self.c1 = ConvBN(in_ch, features, 3, use_bn=False, dtype=dtype)
+        self.c1 = ConvBN(in_ch, features, 3, use_bn=False, dtype=dtype,
+                         spatial_mesh=spatial_mesh)
         self.out = Conv(features, out_channels, 1, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -222,7 +278,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
     # flax truncates at +-2 std and rescales so the variance stays 1/fan_in.
     std_fix = 0.87962566103423978
     for mod in model.modules():
-        if isinstance(mod, (Conv, nn.Linear)):
+        if isinstance(mod, (Conv, SpatialConv3x3, nn.Linear)):
             fan_in = mod.weight[0].numel()
             w = torch.empty(mod.weight.shape)
             nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)

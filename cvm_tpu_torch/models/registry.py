@@ -42,11 +42,12 @@ def get_model_zoo():
     return sorted(_REGISTRY)
 
 
-def build_model(spec: ModelSpec, cfg, device, generator=None):
+def build_model(spec: ModelSpec, cfg, device, generator=None, mesh=None):
     """``spec.create_model`` on ``device``, weights drawn from
-    ``generator`` (seed 0 when None). The reference's passes a mesh for
-    semseg's ``spatial_shard``, which is not ported (ROADMAP's "Not to
-    port")."""
+    ``generator`` (seed 0 when None), passing ``mesh`` through for the
+    configs whose layout needs it (semseg's ``spatial_shard`` head)."""
+    if mesh is not None and getattr(cfg, "spatial_shard", False):
+        return spec.create_model(cfg, device, generator, mesh=mesh)
     return spec.create_model(cfg, device, generator)
 
 

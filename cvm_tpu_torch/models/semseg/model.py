@@ -6,8 +6,10 @@ Mirrors ``cvm_tpu/models/semseg/model.py`` (``SemsegNet``,
 ``up2``), the ``seg`` head, then a nearest 2x upsample to full resolution.
 Takes NHWC (B, H, W, 3) and returns ``{"logits": (B, H, W, C) fp32}``.
 Each block's input width, which flax infers, is derived from
-``BACKBONE_SPECS``. The reference's ``spatial_shard`` (an H-sharded head
-conv over a mesh) is on ROADMAP's "Not to port" list and raises.
+``BACKBONE_SPECS``. With ``spatial_shard`` and a ``mesh``, the head's 3x3
+conv (the decoder's widest in H and W) runs with H split over the mesh's
+model axis (``layers.SpatialConv3x3``): the same parameters and outputs, in
+another layout; without a mesh it is the plain conv, as the reference's.
 """
 
 from __future__ import annotations
@@ -24,12 +26,8 @@ from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 class SemsegNet(nn.Module):
-    def __init__(self, params: SemsegParams):
+    def __init__(self, params: SemsegParams, mesh=None):
         super().__init__()
-        if params.spatial_shard:
-            raise NotImplementedError(
-                "spatial_shard: the H-sharded halo conv (parallel/spatial.py) is on "
-                "ROADMAP's \"Not to port\" list; the port runs the head unsharded")
         p = self.params = params
         self.backbone = make_backbone(p.backbone, p.space_to_depth_stem,
                                       remat=getattr(p, "remat", False))
@@ -38,7 +36,8 @@ class SemsegNet(nn.Module):
         self.up8 = UpBlock(f * 4, w[2], f * 2)
         self.up4 = UpBlock(f * 2, w[1], f * 2)
         self.up2 = UpBlock(f * 2, w[0], f)
-        self.seg = Head(f, f, p.num_classes)
+        self.seg = Head(f, f, p.num_classes,
+                        spatial_mesh=mesh if getattr(p, "spatial_shard", False) else None)
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         feats = self.backbone(x)
@@ -50,10 +49,10 @@ class SemsegNet(nn.Module):
 
 
 def create_model(params: SemsegParams, device: DeviceLike,
-                 generator: Optional[torch.Generator] = None) -> SemsegNet:
+                 generator: Optional[torch.Generator] = None, mesh=None) -> SemsegNet:
     """Build SemsegNet on ``device`` in eval mode, its weights drawn from
-    ``generator`` (seed 0 when None)."""
+    ``generator`` (seed 0 when None); ``mesh`` for ``spatial_shard``."""
     validate_input_hw(params.input_hw)
-    model = SemsegNet(params)
+    model = SemsegNet(params, mesh)
     init_weights(model, generator or torch.Generator().manual_seed(0))
     return model.to(resolve_device(device)).eval()

@@ -34,7 +34,8 @@ class SemsegParams(BaseParams):
     ignore_index: int = 255
     # Uniform label smoothing for the CE loss (0 = off).
     label_smoothing: float = 0.0
-    # The reference's H-sharded head conv; not ported (the model refuses it).
+    # Run the head conv H-sharded over the mesh "model" axis (halo-exchange
+    # spatial sharding, parallel/spatial.py): execution layout only.
     spatial_shard: bool = False
     learning_rate: float = 1e-3
     weight_decay: float = 1e-5

@@ -19,29 +19,42 @@ the global batch, and every batch-wide reduction is over it
 a multi-slice TPU deployment) is not ported: NCCL picks its own ring or
 tree over the nodes.
 
+Serving (the reference's ``batch_sharding``, ``replicated``, ``global_put``
+and ``shard_batch``, ``cvm_tpu/parallel/mesh.py:88-127``): a serving batch
+is padded to a multiple of the data ranks by repeating its last row, each
+data rank takes its rows (``Mesh.shard_batch``: the reference's
+``global_put`` of a process's local rows, on the batch sharding), and every
+result is all-gathered back to every rank in row order
+(``Mesh.replicated``: the reference's ``out_shardings=replicated``). The
+reference splits a serving batch over both axes; here the ranks of one
+model group take the same rows, as in training.
+
 Nothing falls back: a group that cannot form within ``timeout_s``, or two
 NCCL ranks that would share a card, raise, naming the cause.
 """
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import os
 import pickle
 import socket
 import subprocess
 import time
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from cvm_tpu_torch.parallel.reduce import LOCAL, BatchReducer, GroupReducer
 from cvm_tpu_torch.pipeline.preprocess import BatchRows
+from cvm_tpu_torch.utils.batch import pad_rows
 from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
 
 DEFAULT_TIMEOUT_S = 60.0
-# How long the other ranks wait while rank 0 alone evaluates or writes.
+# How long the other ranks wait while rank 0 alone writes a checkpoint.
 RANK0_TIMEOUT_S = 3600.0
 # The most gradient bytes one all-reduce carries.
 GRAD_BUCKET_BYTES = 32 << 20
@@ -162,6 +175,30 @@ class Mesh:
         n = global_batch // self.data
         return BatchRows(self.data_index * n, (self.data_index + 1) * n, global_batch)
 
+    def shard_batch(self, arrays: Sequence, total: int) -> Tuple[np.ndarray, ...]:
+        """This data rank's rows of a serving batch: each batch-first array
+        padded to ``total`` rows rounded up to a multiple of the data ranks,
+        by repeating its last row, then cut to this rank's share."""
+        total = -(-total // self.data) * self.data
+        rows = self.batch_rows(total)
+        return tuple(a[rows.start:rows.stop] for a in pad_rows(arrays, total))
+
+    def replicated(self, out: Dict[str, Any]) -> Dict[str, Any]:
+        """Every data rank's rows of each result (tensors or numpy arrays,
+        as given) on every rank, in row order: one all-gather of its bytes
+        over the data group, so any dtype goes through gloo and NCCL
+        alike."""
+        if self.data == 1:
+            return dict(out)
+        return {k: (all_gather_rows(v, self.data_group, self.data) if torch.is_tensor(v)
+                    else all_gather_rows(torch.from_numpy(np.ascontiguousarray(v))
+                                         .to(self.device), self.data_group,
+                                         self.data).cpu().numpy())
+                for k, v in out.items()}
+
+    def __deepcopy__(self, memo):
+        return self  # process groups are not copied (a model copy shares its mesh)
+
     @property
     def reducer(self) -> BatchReducer:
         """The batch-wide reductions of a loss or a BatchNorm on this rank."""
@@ -239,7 +276,7 @@ class Mesh:
 
     def from_rank0(self, name: str, fn: Callable[[], Any]) -> Any:
         """Run ``fn`` on rank 0 alone while the other ranks wait (through the
-        rendezvous store, so that a long evaluation does not trip the
+        rendezvous store, so that a long write does not trip the
         collectives' timeout); its (picklable) result on every rank. Every
         rank calls this at the same point."""
         if self.world == 1:
@@ -262,6 +299,60 @@ class Mesh:
         if not self.is_rank0:
             return None
         return [pickle.loads(self._store.get(f"{key}/{r}")) for r in range(self.world)]
+
+
+def all_gather_rows(t: torch.Tensor, group, size: int, dim: int = 0) -> torch.Tensor:
+    """The ``size`` ranks' ``t`` (one shape on every rank) concatenated
+    along ``dim`` in rank order: an ``all_gather`` of its bytes over
+    ``group``, which gloo runs on CPU and CUDA tensors and NCCL on CUDA
+    ones."""
+    t = t.contiguous()
+    flat = t.reshape(-1).view(torch.uint8)
+    parts = [torch.empty_like(flat) for _ in range(size)]
+    dist.all_gather(parts, flat, group=group)
+    return torch.cat([p.view(t.dtype).view(t.shape) for p in parts], dim=dim)
+
+
+def add_process_args(parser) -> None:
+    """The multi-process flags of ``cli.train`` and the serving CLIs: one
+    process per card, started with the same arguments but its
+    ``--process_id``."""
+    parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                        help="multi-process run: rank 0's rendezvous address; launch "
+                             "one process per card with the same arguments plus "
+                             "--process_id; requires --num_processes")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
+
+
+def process_count(parser, args) -> int:
+    """The number of processes ``add_process_args``' flags ask for (1
+    without ``--coordinator``); a parser error when they are incomplete."""
+    if args.coordinator is None:
+        return 1
+    if args.num_processes is None or args.process_id is None:
+        parser.error("--coordinator requires --num_processes and --process_id")
+    return args.num_processes
+
+
+@contextlib.contextmanager
+def process_mesh(args, device: DeviceLike, model_axis: int = 1
+                 ) -> Iterator[Tuple[DeviceLike, Optional["Mesh"]]]:
+    """``(device, mesh)`` of this process under ``add_process_args``' flags:
+    the group formed at ``--coordinator`` with this rank's device and its
+    (data, model) mesh, left when the block ends (after a barrier, unless
+    it raised); ``(device, None)`` without ``--coordinator``."""
+    if args.coordinator is None:
+        yield device, None
+        return
+    dev = init_distributed(args.coordinator, args.num_processes, args.process_id, device)
+    try:
+        yield dev, make_mesh(model_axis, dev)
+        # Rank 0 serves the store: it leaves once every rank is done with
+        # it (another rank may not yet have read rank 0's last from_rank0).
+        dist.barrier()
+    finally:
+        shutdown_distributed()
 
 
 def free_port() -> int:

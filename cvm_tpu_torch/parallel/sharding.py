@@ -36,7 +36,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from cvm_tpu_torch.models.layers import BatchNorm, Conv
-from cvm_tpu_torch.parallel.mesh import Mesh
+from cvm_tpu_torch.parallel.mesh import Mesh, all_gather_rows
 from cvm_tpu_torch.parallel.reduce import sum_backward, sum_forward
 
 Rules = Sequence[Tuple[str, int]]
@@ -80,14 +80,14 @@ class ColumnConv(Conv):
     def __init__(self, conv: Conv, mesh: Mesh):
         super().__init__(conv.in_channels, conv.out_channels // mesh.model, conv.kernel_size[0],
                          conv.stride[0], bias=conv.bias is not None, dtype=conv.dtype)
-        self.group = mesh.model_group
+        self.mesh = mesh
         with torch.no_grad():
             self.weight = nn.Parameter(_part(conv.weight, 0, mesh).clone())
             if conv.bias is not None:
                 self.bias = nn.Parameter(_part(conv.bias, 0, mesh).clone())
 
     def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
-        return super().forward(sum_backward(x, self.group), dtype)
+        return super().forward(sum_backward(x, self.mesh.model_group), dtype)
 
 
 class RowConv(Conv):
@@ -99,12 +99,12 @@ class RowConv(Conv):
             raise ValueError("a row-split conv must have no bias (it would be added per rank)")
         super().__init__(conv.in_channels // mesh.model, conv.out_channels, conv.kernel_size[0],
                          conv.stride[0], bias=False, dtype=conv.dtype)
-        self.group = mesh.model_group
+        self.mesh = mesh
         with torch.no_grad():
             self.weight = nn.Parameter(_part(conv.weight, 1, mesh).clone())
 
     def forward(self, x: torch.Tensor, dtype=None) -> torch.Tensor:
-        return sum_forward(super().forward(x, dtype), self.group)
+        return sum_forward(super().forward(x, dtype), self.mesh.model_group)
 
 
 def _slice_bn(bn: BatchNorm, mesh: Mesh) -> BatchNorm:
@@ -150,6 +150,38 @@ def shard_module(model: nn.Module, mesh: Mesh, rules: Rules) -> Dict[str, int]:
             setattr(parent, attr, RowConv(conv, mesh))
             split[name] = 1
     return split
+
+
+def _whole(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    return all_gather_rows(t.detach(), mesh.model_group, mesh.model, dim=dim)
+
+
+@torch.no_grad()
+def unshard_module(model: nn.Module) -> None:
+    """Undo ``shard_module`` in place: each ``ColumnConv`` / ``RowConv``
+    becomes the whole ``Conv`` (and a column split's BatchNorm the whole
+    BatchNorm), its slices gathered over its mesh's model group. Every rank
+    of the group calls this."""
+    for parent in list(model.modules()):
+        for attr, conv in list(parent.named_children()):
+            if not isinstance(conv, (ColumnConv, RowConv)):
+                continue
+            mesh, dim = conv.mesh, 0 if isinstance(conv, ColumnConv) else 1
+            w = _whole(conv.weight, dim, mesh)
+            whole = Conv(w.shape[1], w.shape[0], conv.kernel_size[0], conv.stride[0],
+                         bias=conv.bias is not None, dtype=conv.dtype).to(w.device)
+            whole.weight.copy_(w)
+            if conv.bias is not None:
+                whole.bias.copy_(_whole(conv.bias, 0, mesh))
+            setattr(parent, attr, whole)
+            bn = getattr(parent, "bn", None)
+            if dim == 0 and isinstance(bn, BatchNorm):
+                full = BatchNorm(bn.num_features * mesh.model).to(w.device)
+                full.reducer = bn.reducer
+                for name, t in list(full.named_parameters()) + list(full.named_buffers()):
+                    src = getattr(bn, name)
+                    t.copy_(src if src.dim() == 0 else _whole(src, 0, mesh))
+                parent.bn = full
 
 
 def gather_state_dict(sd: Mapping[str, torch.Tensor], split: Mapping[str, int],

@@ -335,7 +335,8 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
                    w8a8_chain: bool = False,
                    fold_bn: bool = False,
                    predict_fn=None,
-                   stats: Optional[Dict[str, float]] = None) -> Dict[str, float]:
+                   stats: Optional[Dict[str, float]] = None,
+                   mesh=None) -> Dict[str, float]:
     """Run the end-to-end pipeline over a loader and compute the metrics.
 
     ``spec`` is the model's zoo name (centernet, semseg, depth, multitask
@@ -358,8 +359,15 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
     ``stats``, when given, receives ``batches``, ``predict_s`` (host seconds
     in the pipeline, copies to and from the device included) and
     ``evaluator_s`` (host seconds in the evaluators).
+
+    ``mesh`` (``parallel/mesh.py``; ``device`` is its device) shards the
+    predictions, as the reference's ``evaluate_model(mesh=)``: every rank
+    calls this with the same loader, each data rank predicts its rows of a
+    batch (``InferencePipeline(mesh=)``, or ``shard_predict`` of
+    ``predict_fn``), the predictions are gathered in batch order, and every
+    rank's numpy evaluators return the same metrics.
     """
-    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline, shard_predict
     from cvm_tpu_torch.pipeline.preprocess import make_rois, resample_labels
 
     pipe = None  # built on the first batch once the format is known
@@ -396,14 +404,14 @@ def evaluate_model(spec: str, cfg, model, loader, max_batches: Optional[int] = N
             break
         if pipe is None:
             if predict_fn is not None:
-                pipe = predict_fn
+                pipe = shard_predict(mesh, predict_fn)
             else:
                 fmt = input_format
                 if fmt == "auto":
                     fmt = "yuv420" if "y" in batch and "image" not in batch else "rgb"
                 pipe = InferencePipeline(cfg, model, device, input_format=fmt, tta=tta,
                                          w8a8=w8a8, w8a8_fused=w8a8_fused,
-                                         w8a8_chain=w8a8_chain, fold_bn=fold_bn)
+                                         w8a8_chain=w8a8_chain, fold_bn=fold_bn, mesh=mesh)
         t0 = time.perf_counter()
         out = {k: _to_numpy(v) for k, v in pipe(batch).items()}
         t1 = time.perf_counter()

@@ -177,7 +177,7 @@ def make_train_step(loss_fn: Callable, params_cfg, processor: Callable,
     def train_step(state: TrainState, raw_batch, generator: torch.Generator):
         inputs, targets = processor(generator, raw_batch, rows=rows)
         state.model.train()
-        with maybe_fake_quant(params_cfg):
+        with maybe_fake_quant(params_cfg, red):
             # qat=True: the loss surface includes the int8 rounding noise.
             out = state.model(inputs)
         loss, metrics = loss_fn(out, targets, params_cfg, red)
@@ -327,17 +327,11 @@ class Trainer:
         ones, with the live BatchNorm statistics (the reference scores
         ``eval_params`` with the live ``batch_stats``). The training model's
         mode, parameters and buffers are not touched. Under tensor
-        parallelism the copy is the whole model, gathered (every rank of
-        the model group calls this)."""
+        parallelism the copy holds this rank's slices, as the training
+        model does: ``InferencePipeline(mesh=)`` serves it split, or
+        gathers it whole for the int8 postures."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
-        if self.split:
-            sd = self._whole(self.state.model.state_dict())
-            if use_ema and self.state.ema is not None:
-                sd.update(self.eval_params)
-            model = build_model(self.spec, self.cfg, self.device)
-            model.load_state_dict(sd, strict=True)
-            return model.eval()
         model = copy.deepcopy(self.state.model)
         if use_ema and self.state.ema is not None:
             with torch.no_grad():
@@ -351,7 +345,8 @@ class Trainer:
         rank checks that it built the same weights, cuts its tensor-parallel
         slices, and loads the checkpoint rank 0 read."""
         cfg, mesh = self.cfg, self.mesh
-        model = build_model(self.spec, cfg, self.device, torch.Generator().manual_seed(self.seed))
+        model = build_model(self.spec, cfg, self.device, torch.Generator().manual_seed(self.seed),
+                            mesh=mesh)
         mesh.check_replicas(list(model.state_dict().values()), "initial weights")
         if getattr(cfg, "tensor_parallel", False):
             # on a model axis of one rank the rules shard nothing, as the

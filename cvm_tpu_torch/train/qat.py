@@ -16,24 +16,31 @@ trace time with a flax method interceptor; here ``fake_quant_training``
 sets ``Conv.fake_quant`` for the duration of the block, so the modules, and
 the checkpoint's keys, stay as they are. The conv itself runs in the
 module's compute dtype (bf16), with the bias added in float32.
+
+The activation scale is the max over the global batch, as the reference's
+GSPMD takes it: under data parallelism (``reducer``, ``parallel/reduce.py``)
+each rank's max is all-reduced over the data group.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 import torch
 
 from cvm_tpu_torch.infer.quantize import div127
 from cvm_tpu_torch.models.layers import Conv
+from cvm_tpu_torch.parallel.reduce import LOCAL, BatchReducer
 
 
-def fake_quant_act(x: torch.Tensor) -> torch.Tensor:
-    """Per-tensor dynamic int8 quantize-dequantize with identity gradient;
-    float32 out (the caller casts to the conv's compute dtype)."""
+def fake_quant_act(x: torch.Tensor, reducer: BatchReducer = LOCAL) -> torch.Tensor:
+    """Per-tensor dynamic int8 quantize-dequantize with identity gradient,
+    its scale from the max over ``reducer``'s global batch; float32 out
+    (the caller casts to the conv's compute dtype)."""
     xf = x.to(torch.float32)
-    s = div127(xf.detach().abs().amax()) + 1e-8
+    s = div127(reducer.max(xf.detach().abs())) + 1e-8
     q = torch.round(torch.clamp(xf.detach() / s, -127, 127)) * s
     return xf + (q - xf).detach()
 
@@ -48,29 +55,34 @@ def fake_quant_weight(w: torch.Tensor) -> torch.Tensor:
     return wf + (q - wf).detach()
 
 
-def fq_conv(conv: Conv, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+def fq_conv(conv: Conv, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+            reducer: BatchReducer = LOCAL) -> torch.Tensor:
     """A Conv's forward on fake-quantized input and weight: the conv in the
     compute dtype, the bias added in float32, the result cast back."""
     cdt = dtype or conv.dtype
-    y = conv.conv_nhwc(fake_quant_act(x).to(cdt), fake_quant_weight(conv.weight).to(cdt))
+    y = conv.conv_nhwc(fake_quant_act(x, reducer).to(cdt),
+                       fake_quant_weight(conv.weight).to(cdt))
     if conv.bias is not None:
         y = y.to(torch.float32) + conv.bias.to(torch.float32)
     return y.to(cdt)
 
 
 @contextlib.contextmanager
-def fake_quant_training():
-    """Every Conv inside the block runs ``fq_conv``."""
-    prev, Conv.fake_quant = Conv.fake_quant, fq_conv
+def fake_quant_training(reducer: BatchReducer = LOCAL):
+    """Every Conv inside the block runs ``fq_conv`` (activation scales over
+    ``reducer``'s global batch)."""
+    prev = Conv.fake_quant
+    Conv.fake_quant = fq_conv if reducer is LOCAL else functools.partial(fq_conv,
+                                                                         reducer=reducer)
     try:
         yield
     finally:
         Conv.fake_quant = prev
 
 
-def maybe_fake_quant(params_cfg):
-    """The Trainer's gate: ``fake_quant_training()`` when ``params_cfg.qat``,
-    else a context that does nothing."""
+def maybe_fake_quant(params_cfg, reducer: BatchReducer = LOCAL):
+    """The Trainer's gate: ``fake_quant_training(reducer)`` when
+    ``params_cfg.qat``, else a context that does nothing."""
     if bool(getattr(params_cfg, "qat", False)):
-        return fake_quant_training()
+        return fake_quant_training(reducer)
     return contextlib.nullcontext()

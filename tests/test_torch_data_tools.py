@@ -20,6 +20,7 @@
   and depth overlays (letterboxed), a record's boxes, wireframes, mask and
   sparse uint16 depth, and raw-YUV records; ``cli.inspect`` renders the
   same files with the same summaries (``--t1``, ``--indices`` out of range).
+* ``cli.repack --threads 1`` and ``--threads 4`` write byte-equal shards.
 * ``cli.validate`` and ``cli.repack`` default to the card.
 """
 
@@ -183,6 +184,21 @@ def test_repack_writes_the_reference_shard(shards, tmp_path):
                                  "--target", "12,20", "--device", "cpu"])
     assert rc == 0 and json.loads(out)["written"] == 4
     assert_same_shard(str(tmp_path / "coco(12, 20).r"), str(tmp_path / "c.cvrec"))
+
+
+def test_repack_threads_write_byte_equal_shards(shards, tmp_path):
+    """``cli.repack --threads N`` (the reference's flag, default 4): the
+    decoder's thread count changes no byte of the shard."""
+    from cvm_tpu_torch.cli.repack import main as repack_main
+
+    outs = []
+    for n in ("1", "4"):
+        out = tmp_path / f"t{n}.cvrec"
+        rc, _ = _run(repack_main, ["--src", shards["coco"], "--out", str(out), "--target",
+                                   "12,20", "--threads", n, "--device", "cpu"])
+        assert rc == 0
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1]
 
 
 def _png(path):

@@ -6,15 +6,16 @@ CPU (gloo), at a tiny size.
   (one row per step, not two) and the checkpoint with each rank's data
   stream; both resume from it to step 5; ``cli.evaluate`` scores the
   checkpoint in one process. Then on a model axis of 2 with
-  ``--tensor_parallel true`` and evals with ``--keep_best``: rank 0 scores
-  and keeps whole-tensor checkpoints.
+  ``--tensor_parallel true`` and evals with ``--keep_best``: both ranks
+  score, rank 0 keeps whole-tensor checkpoints.
 * The reference's argument checks: ``--coordinator`` without the other two
   flags, ``--tensor_parallel true`` without ``--model_parallel >= 2``, a
   model axis that does not divide the processes, a global batch that does
   not divide over the data ranks, and ``--auto_restart`` under a group;
   ``--dcn_slices`` raises with the reason it is not ported.
 * ``dryrun_multichip(4, "cpu")``: a (data 2, model 2) step with tensor
-  parallelism, the EMA and gradient accumulation, then the serving leg.
+  parallelism, the EMA and gradient accumulation, then the serving leg
+  sharded over the same mesh, the stage-5 convs served split.
 """
 
 import json
@@ -78,9 +79,9 @@ def test_two_cli_processes_train_and_rank0_writes(tmp_path, capsys):
 
 
 def test_two_cli_processes_with_tensor_parallel_evals(tmp_path):
-    """Two ranks on one model axis: every eval copies the whole model (a
-    gather on both ranks), rank 0 scores it and keeps the best checkpoint
-    while rank 1 waits, and both stop together."""
+    """Two ranks on one model axis: every eval runs on both ranks with the
+    stage-5 convs kept split (``evaluate_model(mesh=)``), rank 0 alone logs
+    and keeps the best checkpoint, and both stop together."""
     work = str(tmp_path / "w")
     outs = launch_ranks(2, lambda r, port: [
         sys.executable, "-m", "cvm_tpu_torch.cli.train", *TINY, "--workdir", work, "--steps",
@@ -126,4 +127,6 @@ def test_dryrun_multichip_four_ranks(capsys):
     assert out[0].startswith("[dryrun_multichip] mesh=(data=2, model=2) over 4 gloo processes "
                              "step ok, loss=")
     assert "tp s5b0.c1 kernel (128, 256, 3, 3)" in out[0] and "ema+accum on" in out[0]
-    assert out[1].startswith("[dryrun_multichip] serving ok: decode batch B=4")
+    assert out[1].startswith("[dryrun_multichip] sharded serving ok: decode batch B=4 on "
+                             "mesh=(data=2, model=2), 2 rows per data rank")
+    assert out[1].endswith("tp_serving=on")

@@ -31,10 +31,41 @@ Modes:
 * ``bn --npz IN``: a float32 BatchNorm in training mode on this rank's rows
   of IN's ``x`` under the loss sum(y * IN's ``w``): its output, the input's
   gradient and the running statistics.
+* ``spatial --npz IN``: ``parallel/spatial.py::spatial_conv3x3`` of this
+  rank's H-slab of IN's ``x`` (NHWC) with ``w`` (OIHW) over a model axis of
+  every rank, under the loss sum(y * ``g``'s slab): the output slab, its
+  input's gradient and the weight's.
+* ``forward --npz IN``: the model of IN (as ``grads``; a ``spatial_shard``
+  semseg's head over the mesh's model axis) in eval mode on this rank's
+  rows of ``inputs``, the outputs gathered in row order.
+* ``serve --npz IN [--reps R]``: ``InferencePipeline(mesh=)`` of IN's
+  model (``sd/<name>``, ``cfg``, ``name``) in the posture of ``opts``
+  (JSON of its keyword arguments; ``"w8a8": "scales"`` takes IN's
+  ``scales``, JSON) on the batch ``b/<key>``: the outputs, K2's launches
+  in the call, whether the stage-5 convs served split, and, with R, the ms
+  of R more calls.
+* ``evaluate --npz IN``: ``evaluate_model(mesh=)`` of IN's model on IN's
+  ``batches`` synthetic batches (``default_rng(999)``, ``pad``): the
+  metrics.
+* ``cli --module M --argv JSON``: ``M.main`` (a CLI of the port) on the
+  argument list JSON plus this rank's ``--coordinator / --num_processes /
+  --process_id``, which forms the group itself (on ``--backend``): its exit code,
+  its standard output and the K1 and K2 launches it made. ``--timeout T``
+  sets the group's collective timeout to T seconds once it has formed;
+  ``--slow_best S`` makes the first ``BestCheckpoint.update`` (rank 0's
+  ``--keep_best`` write) sleep S seconds first; ``--late_best L`` makes
+  every other rank reach each ``from_rank0("best")`` L seconds late.
+
+``grads``, ``spatial``, ``forward``, ``serve`` and ``evaluate`` take
+several IN, comma-separated: one result each, in order (the arrays of the
+i-th under ``i/``). An IN's own ``mode`` and ``model_parallel``, when it
+holds them, override the command line's, so that one launch runs several
+kinds of work.
 """
 
 import argparse
 import contextlib
+import datetime
 import json
 import os
 import sys
@@ -47,8 +78,8 @@ import torch.distributed as dist
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from cvm_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
-from cvm_tpu_torch.models.registry import get_model  # noqa: E402
-from cvm_tpu_torch.ops.cuda import gaussian_splat  # noqa: E402
+from cvm_tpu_torch.models.registry import build_model, get_model  # noqa: E402
+from cvm_tpu_torch.ops.cuda import fused_qconv, gaussian_splat  # noqa: E402
 from cvm_tpu_torch.ops.heatmap import CenternetTargets  # noqa: E402
 from cvm_tpu_torch.parallel.mesh import (init_distributed, launch_ranks,  # noqa: E402
                                          make_mesh, shutdown_distributed)
@@ -165,21 +196,29 @@ def _rows(tree, rows: slice):
     return tree[rows] if torch.is_tensor(tree) and tree.dim() > 0 else tree
 
 
+def load_model(mesh, device, npz):
+    """IN's model (``name``, ``cfg``, ``sd/<name>``) on ``device``, a
+    ``spatial_shard`` head over ``mesh``; every conv in float32 when IN's
+    ``float32`` is set."""
+    from cvm_tpu_torch.models.layers import Conv, SpatialConv3x3
+
+    spec = get_model(json.loads(str(npz["name"])))
+    cfg = spec.params_cls.from_dict(json.loads(str(npz["cfg"])))
+    model = build_model(spec, cfg, device, mesh=mesh)
+    model.load_state_dict({k[3:]: torch.from_numpy(npz[k]) for k in npz.files
+                           if k.startswith("sd/")}, strict=True)
+    if "float32" in npz.files and bool(npz["float32"]):
+        for m in model.modules():
+            if isinstance(m, (Conv, SpatialConv3x3)):
+                m.dtype = torch.float32  # every conv computes in float32
+    return spec, cfg, model
+
+
 def run_grads(mesh, device, path: str, steps: int):
     """The first step's averaged gradients and ``steps`` SGD steps' metrics
     on IN's processed inputs (identity processor), with SGD."""
     npz = np.load(path)
-    spec = get_model(json.loads(str(npz["name"])))
-    cfg = spec.params_cls.from_dict(json.loads(str(npz["cfg"])))
-    model = spec.create_model(cfg, device)
-    model.load_state_dict({k[3:]: torch.from_numpy(npz[k]) for k in npz.files
-                           if k.startswith("sd/")}, strict=True)
-    if "float32" in npz.files and bool(npz["float32"]):
-        from cvm_tpu_torch.models.layers import Conv
-
-        for m in model.modules():
-            if isinstance(m, Conv):
-                m.dtype = torch.float32  # every conv computes in float32
+    spec, cfg, model = load_model(mesh, device, npz)
     rows = slice(None) if mesh is None else slice(*mesh.batch_rows(cfg.batch_size)[:2])
     inputs = torch.from_numpy(npz["inputs"]).to(device)[rows]
     targets = _rows(_targets(npz, device), rows)
@@ -236,6 +275,143 @@ def run_bn(mesh, device, path: str):
                 "running_var": bn.running_var.cpu().numpy()}
 
 
+def run_spatial(mesh, device, path: str):
+    from cvm_tpu_torch.parallel.spatial import spatial_conv3x3
+
+    npz = np.load(path)
+    x, w, g = (torch.from_numpy(npz[k]).to(device) for k in ("x", "w", "g"))
+    h = x.shape[1] // mesh.model
+    rows = slice(mesh.model_index * h, (mesh.model_index + 1) * h)
+    x = x[:, rows].clone().requires_grad_(True)
+    w = w.clone().requires_grad_(True)
+    y = spatial_conv3x3(x, w, mesh)
+    (y * g[:, rows]).sum().backward()
+    return {}, {"y": y.detach().cpu().numpy(), "dx": x.grad.cpu().numpy(),
+                "dw": w.grad.cpu().numpy()}
+
+
+@torch.no_grad()
+def run_forward(mesh, device, path: str):
+    npz = np.load(path)
+    _, _, model = load_model(mesh, device, npz)
+    inputs = torch.from_numpy(npz["inputs"]).to(device)
+    if mesh is not None:
+        r = mesh.batch_rows(inputs.shape[0])
+        out = mesh.replicated(model.eval()(inputs[r.start:r.stop]))
+    else:
+        out = model.eval()(inputs)
+    return {}, {k: v.float().cpu().numpy() for k, v in out.items()}
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serving_model(mesh, device, npz):
+    """(config, model, pipeline options) of a ``serve`` or ``evaluate`` IN."""
+    _, cfg, model = load_model(mesh, device, npz)
+    opts = json.loads(str(npz["opts"]))
+    if opts.get("w8a8") == "scales":
+        opts["w8a8"] = json.loads(str(npz["scales"]))
+    return cfg, model, opts
+
+
+def run_serve(mesh, device, path: str, reps: int = 0):
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+
+    npz = np.load(path)
+    cfg, model, opts = serving_model(mesh, device, npz)
+    pipe = InferencePipeline(cfg, model, device, mesh=mesh, **opts)
+    batch = {k[2:]: npz[k] for k in npz.files if k.startswith("b/")}
+    fused_qconv.reset_counts()
+    out = pipe(batch)
+    _sync(device)
+    k2 = fused_qconv.fused_qconv.launches
+    ms = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        pipe(batch)
+        _sync(device)
+        ms.append(1e3 * (time.perf_counter() - t0))
+    return ({"k2": k2, "ms": ms, "tensor_parallel": pipe.tensor_parallel},
+            {k: v.cpu().numpy() for k, v in out.items()})
+
+
+def run_evaluate(mesh, device, path: str):
+    from cvm_tpu_torch.train.evaluate import evaluate_model
+
+    npz = np.load(path)
+    cfg, model, opts = serving_model(mesh, device, npz)
+    rng = np.random.default_rng(999)
+    pad = tuple(int(v) for v in npz["pad"])
+    nc = min(getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 3)), 10)
+    val = [synthetic_batch(rng, cfg.batch_size, pad, num_classes=nc)
+           for _ in range(int(npz["batches"]))]
+    return {"metrics": evaluate_model(cfg.name, cfg, model, val, device=device, mesh=mesh,
+                                      **opts)}, {}
+
+
+def run_cli(a):
+    import contextlib
+    import importlib
+    import io
+
+    from cvm_tpu_torch.parallel import mesh
+
+    argv = json.loads(a.argv) + ["--coordinator", f"127.0.0.1:{a.port}", "--num_processes",
+                                 str(a.world), "--process_id", str(a.rank)]
+    form = mesh.init_distributed
+
+    def init(*args, **kw):
+        # the CLI forms its group on this run's backend (gloo lets ranks
+        # share a card), its collectives timing out after --timeout
+        dev = form(*args, **dict(kw, backend=a.backend))
+        if a.timeout:
+            from torch.distributed.distributed_c10d import _set_pg_timeout
+
+            _set_pg_timeout(datetime.timedelta(seconds=a.timeout), dist.group.WORLD)
+        return dev
+
+    mesh.init_distributed = init
+    if a.slow_best:
+        from cvm_tpu_torch.train.checkpoints import BestCheckpoint
+
+        update, slept = BestCheckpoint.update, []
+
+        def slow_update(self, *args, **kw):
+            if not slept:
+                time.sleep(a.slow_best)
+                slept.append(a.slow_best)
+            return update(self, *args, **kw)
+
+        BestCheckpoint.update = slow_update
+    if a.late_best and a.rank:
+        real = mesh.Mesh.from_rank0
+
+        def late(self, name, fn):
+            if name == "best":
+                time.sleep(a.late_best)
+            return real(self, name, fn)
+
+        mesh.Mesh.from_rank0 = late
+    gaussian_splat.reset_counts()
+    fused_qconv.reset_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = importlib.import_module(a.module).main(argv)
+    return {"rc": rc, "stdout": out.getvalue(), "k1": gaussian_splat.render_heatmap.launches,
+            "k2": fused_qconv.fused_qconv.launches}
+
+
+# The modes that take several IN: mode -> run(mesh, device, IN, flags).
+RUNS = {"grads": lambda mesh, device, path, a: run_grads(mesh, device, path, a.steps),
+        "spatial": lambda mesh, device, path, a: run_spatial(mesh, device, path),
+        "forward": lambda mesh, device, path, a: run_forward(mesh, device, path),
+        "serve": lambda mesh, device, path, a: run_serve(mesh, device, path, a.reps),
+        "evaluate": lambda mesh, device, path, a: run_evaluate(mesh, device, path)}
+
+
 def launch(world: int, args, out_dir: str, device: str = "cpu", timeout: float = 300.0,
            backend: str = "gloo"):
     """Run ``world`` ranks of this script with ``args`` (a mode and its
@@ -265,7 +441,8 @@ def main() -> int:
     p.add_argument("--device", default="cpu")
     p.add_argument("--backend", default="gloo")
     p.add_argument("--out", required=True)
-    p.add_argument("mode", choices=["train", "grads", "bn", "stop", "join"])
+    p.add_argument("mode", choices=["train", "grads", "bn", "stop", "join", "spatial",
+                                    "forward", "serve", "evaluate", "cli"])
     p.add_argument("--model", default="centernet")
     p.add_argument("--config", default="tiny")
     p.add_argument("--steps", type=int, default=3)
@@ -274,6 +451,12 @@ def main() -> int:
     p.add_argument("--tensor_parallel", action="store_true")
     p.add_argument("--ckdir", default=None)
     p.add_argument("--npz", default=None)
+    p.add_argument("--reps", type=int, default=0)
+    p.add_argument("--module", default=None)
+    p.add_argument("--argv", default="[]")
+    p.add_argument("--timeout", type=float, default=0.0)
+    p.add_argument("--slow_best", type=float, default=0.0)
+    p.add_argument("--late_best", type=float, default=0.0)
     a = p.parse_args()
     if a.device == "cpu":
         torch.set_num_threads(1)
@@ -282,6 +465,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    if a.mode == "cli":  # the CLI forms the group
+        out = run_cli(a)
+        with open(a.out, "w") as f:
+            json.dump(dict(out, rank=a.rank), f)
+        return 0
     device = init_distributed(f"127.0.0.1:{a.port}", a.world, a.rank, a.device,
                               backend=a.backend)
     try:
@@ -290,12 +478,24 @@ def main() -> int:
         if a.mode == "train":
             out = run_train(mesh, device, a.model, a.config, a.steps, a.tensor_parallel,
                             a.ckdir, a.batch)
-        elif a.mode == "grads":
-            out, arrays = run_grads(mesh, device, a.npz, a.steps)
         elif a.mode == "bn":
             out, arrays = run_bn(mesh, device, a.npz)
         elif a.mode == "stop":
             out = run_stop(mesh, a.steps)
+        elif a.mode in RUNS:
+            outs, meshes = [], {a.model_parallel: mesh}
+            for i, path in enumerate(a.npz.split(",")):
+                with np.load(path) as npz:  # an IN may name its own mode and model axis
+                    mode = str(npz["mode"]) if "mode" in npz.files else a.mode
+                    axis = (int(npz["model_parallel"]) if "model_parallel" in npz.files
+                            else a.model_parallel)
+                if axis not in meshes:
+                    meshes[axis] = make_mesh(axis, device)
+                o, arr = RUNS[mode](meshes[axis], device, path, a)
+                outs.append(o)
+                arrays.update({f"{i}/{k}" if "," in a.npz else k: v for k, v in arr.items()})
+            out = {"results": outs} if "," in a.npz else outs[0]
+
     finally:
         shutdown_distributed()
     if arrays:
