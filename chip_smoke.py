@@ -27,8 +27,9 @@ through an exported artifact and a checkpoint; then the rest of the single-
 card surface (video inference, the stall watchdog and re-exec, profiling,
 ``--debug_nans``, TensorBoard, the LR finder, rotation, remat and tiled
 inference, phases 28-33, run after 27); then multi-process training on the
-one card (phase 34). ``cli.doctor``'s report (the card, the toolchain and
-the JPEG decoders' prerequisites) is printed first:
+one card (phase 34), sharded serving (35) and whole-host training (36).
+``cli.doctor``'s report (the card, the toolchain and the JPEG decoders'
+prerequisites) is printed first:
 
   1. card, versions, both kernel builds (one nvcc each, started together);
   2. the fused W8A8 ConvBN kernel K2 vs its plain PyTorch version at every
@@ -215,13 +216,38 @@ the JPEG decoders' prerequisites) is printed first:
      otherwise: that score printed beside), ``eval_seconds`` beside the
      same resume in one process, K1 launches per rank; (d) ``cli.evaluate``
      and ``cli.infer`` of the step-44 checkpoint and ``cli.infer`` of its
-     ``w8a8_fused_chain`` RGB export over two ranks, batched as in (c):
+     ``w8a8_fused_chain`` RGB export over two ranks (the three pairs at
+     once), batched as in (c):
      rank 0's JSON and JSONL byte-equal to one process's, 48 K2 launches
      per rank through the artifact; (e)
      semseg config A (256x640) with ``spatial_shard`` over a model axis of
      2: logits at batch 1 and 8 within bf16 rounding of the unsharded
      model's, one training step's loss (5e-3) and gradient norm (2e-2) the
      unsharded step's. One launch of the two ranks runs (a), (b) and (e).
+ 36. whole-host training on the one card, cuDNN deterministic as in 34,
+     the local launcher run as ``tests/torch_dist_child.py``'s ``local``
+     mode (``cli.train``'s own ``launch_local``, its ranks the child's
+     ``cli`` mode, which counts their launches): (a) ``cli.train`` config
+     B without process flags runs in this process (10 K1 launches, no
+     launcher call); with ``--num_processes 2 --backend gloo`` and no
+     ``--coordinator`` its two local ranks write the hand-launched
+     ``--coordinator`` pair's ``metrics.jsonl`` (every value but the
+     clock), 10 K1 launches per rank, the two pairs at once; (b)
+     ``--auto_restart 1`` over two local ranks (run beside (d) and (e)),
+     rank 1's device asleep in step 4: a watchdog exits for
+     the restart, the launcher starts both again, they resume from step 2
+     and reach step 12; the seconds from the stall to the exit and from the
+     exit to the relaunched ranks' first step; (c) config B, 30 steps of
+     ``Trainer.fit`` with a save every 5 steps, asynchronous, each
+     waited for at once, and none: host ms of the steps after a save and
+     of the others, the pinned MiB; a resume from the step-10 save ends at
+     the straight run's step-30 loss exactly; (d) QAT on a model axis of 2
+     against one process, 5 steps: losses within 5e-3, the ranks' scales
+     equal, step 1's ``s5b*.c2`` scales the one process's (weights exactly,
+     activations within 1e-2); (e) ``cli.evaluate --quantize
+     w8a8_fused_chain`` of phase 8's step-40 checkpoint over two local
+     ranks: metrics equal to one process calibrated alike and predicting
+     the same 8-row halves, 48 K2 launches per rank.
 
 Device times come from CUDA events around 20 back-to-back calls while the
 card first sleeps through the host's enqueueing (``cuda_ms``). Any failure
@@ -2842,6 +2868,7 @@ def phase_tiled(dev, workdir, smi):
     tr = Trainer(cfg, dev, checkpoint_dir=os.path.join(workdir, "semseg_ck"))
     tr.init_state()
     tr.ckpt.save(1, tr.checkpoint_state(None))
+    tr.ckpt.wait()  # the write is asynchronous
     rng = np.random.default_rng(3)
     os.makedirs(os.path.join(workdir, "big"))
     hw = (720, 1280)
@@ -3364,42 +3391,378 @@ def _phase_dist_serve(dev, workdir, seed, smi):
                       ckpt + images + ["--batch_size", "8"]),
         "cli.infer --artifact": ("cvm_tpu_torch.cli.infer", art + images, art + images)}
     outs = []
-    for case, (module, argv2, one) in cases.items():
-        two = [r for r, _ in child.launch(
-            2, ["cli", "--module", module, "--argv", json.dumps(argv2)],
+    # the three pairs of ranks run at once (six ranks share the card), while
+    # this process runs the one-process twins
+    with ThreadPoolExecutor(len(cases)) as ex:
+        launched = {case: ex.submit(child.launch, 2, [
+            "cli", "--module", module, "--argv", json.dumps(argv2)],
             os.path.join(workdir, "d_" + case.replace(" ", "").replace("-", "")),
-            device="cuda", timeout=600)]
-        k2_one = None
-        if one is not out_8:
-            fq.reset_counts()
-            rc, one, err = _cli(__import__(module, fromlist=["main"]).main, one)
-            k2_one = fq.fused_qconv.launches
-            if rc != 0:
-                raise AssertionError(f"35d {case}: one process rc {rc}\n{err[-2000:]}")
-        if any(r["rc"] != 0 for r in two):
-            raise AssertionError(f"35d {case}: rc {[r['rc'] for r in two]}")
-        one_text = "\n".join(one) + "\n"
-        same = two[0]["stdout"] == one_text and two[1]["stdout"] == ""
-        if case == "cli.evaluate":
-            with open(one_json, "rb") as f1, open(os.path.join(workdir, "d2.json"), "rb") as f2:
-                same = same and f1.read() == f2.read()
-        if not same:
-            raise AssertionError(f"35d {case}: two processes' output differs from one's:\n"
-                                 f"{two[0]['stdout'][-1500:]}\n---\n{one_text[-1500:]}")
-        what = f"{case}: {len(one)} lines byte-equal"
-        if case == "cli.evaluate":
-            what += f" and the JSON (mAP {scored['mAP']:.4f})"
-        if case == "cli.infer --artifact":
-            k2["cli.infer --artifact w8a8_fused_chain, 2 gloo ranks (35d)"] = dict(
-                launches=sum(r["k2"] for r in two))
-            if [r["k2"] for r in two] != [k2_one] * 2 or k2_one != 48:  # 24 per b8 call
-                raise AssertionError(f"35d K2: ranks {[r['k2'] for r in two]}, one {k2_one} "
-                                     "(48 expected: two batches of 8)")
-            what += f", K2 {[r['k2'] for r in two]} per rank / {k2_one} in one process"
-        outs.append(what)
+            device="cuda", timeout=600) for case, (module, argv2, _) in cases.items()}
+        for case, (module, argv2, one) in cases.items():
+            outs.append(_dist_cli_case(case, module, one, out_8, launched[case],
+                                       one_json, workdir, scored, fq, k2))
     log(f"[dist-serve] 35d over two gloo ranks on {smi}, rank 0's output against one "
         f"process's: " + "; ".join(outs))
     return k2, k1
+
+
+def _dist_cli_case(case, module, one, out_8, launched, one_json, workdir, scored, fq, k2):
+    """35d's check of one case: the two ranks' output (``launched``, a
+    future of ``child.launch``) against one process's (``one``: its output
+    lines, or the argv to run it with); a line for the log."""
+    k2_one = None
+    if one is not out_8:
+        fq.reset_counts()
+        rc, one, err = _cli(__import__(module, fromlist=["main"]).main, one)
+        k2_one = fq.fused_qconv.launches
+        if rc != 0:
+            raise AssertionError(f"35d {case}: one process rc {rc}\n{err[-2000:]}")
+    two = [r for r, _ in launched.result()]
+    if any(r["rc"] != 0 for r in two):
+        raise AssertionError(f"35d {case}: rc {[r['rc'] for r in two]}")
+    one_text = "\n".join(one) + "\n"
+    same = two[0]["stdout"] == one_text and two[1]["stdout"] == ""
+    if case == "cli.evaluate":
+        with open(one_json, "rb") as f1, open(os.path.join(workdir, "d2.json"), "rb") as f2:
+            same = same and f1.read() == f2.read()
+    if not same:
+        raise AssertionError(f"35d {case}: two processes' output differs from one's:\n"
+                             f"{two[0]['stdout'][-1500:]}\n---\n{one_text[-1500:]}")
+    what = f"{case}: {len(one)} lines byte-equal"
+    if case == "cli.evaluate":
+        what += f" and the JSON (mAP {scored['mAP']:.4f})"
+    if case == "cli.infer --artifact":
+        k2["cli.infer --artifact w8a8_fused_chain, 2 gloo ranks (35d)"] = dict(
+            launches=sum(r["k2"] for r in two))
+        if [r["k2"] for r in two] != [k2_one] * 2 or k2_one != 48:  # 24 per b8 call
+            raise AssertionError(f"35d K2: ranks {[r['k2'] for r in two]}, one {k2_one} "
+                                 "(48 expected: two batches of 8)")
+        what += f", K2 {[r['k2'] for r in two]} per rank / {k2_one} in one process"
+    return what
+
+
+def _local(child, workdir, tag, module, argv, hooks=(), env=None, timeout=600):
+    """``module``'s CLI on ``argv`` with no process flags but ``--num_processes``
+    and ``--backend gloo`` in it: the launcher runs as
+    ``tests/torch_dist_child.py``'s ``local`` mode in a child process, its
+    ranks as the script's ``cli`` mode (which counts their K1 and K2
+    launches). The launcher's exit code and errors, each rank's result, and
+    the ranks' events (``hang``, ``restart``, ``start``, ``first_step``)."""
+    out = os.path.join(workdir, f"{tag}.json")
+    proc = subprocess.run([sys.executable, DIST_CHILD, "--device", "cuda", "--backend", "gloo",
+                           "--out", out, *map(str, hooks), "local", "--module", module,
+                           "--argv", json.dumps(argv)],
+                          capture_output=True, text=True, timeout=timeout,
+                          env=dict(os.environ, **(env or {})))
+    if proc.returncode != 0:
+        raise AssertionError(f"{tag}: the launcher's process exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    with open(out) as f:
+        rc = json.load(f)["rc"]
+    ranks, events = [], []
+    for r in range(2):
+        if os.path.exists(f"{out}.rank{r}"):
+            with open(f"{out}.rank{r}") as f:
+                ranks.append(json.load(f))
+        if os.path.exists(f"{out}.rank{r}.events"):
+            with open(f"{out}.rank{r}.events") as f:
+                events += [line.split() for line in f]
+    return rc, proc.stderr, ranks, events
+
+
+def phase_launcher(dev, workdir, seed, smi):
+    """Phase 36: whole-host training (docstring, 36a-e), cuDNN deterministic
+    as in 34. Returns (K1's launches by path, K2's launches by path)."""
+    import torch
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process's cache
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        return _phase_launcher(dev, workdir, seed, smi)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _phase_launcher(dev, workdir, seed, smi):
+    import torch
+
+    from cvm_tpu_torch.cli.train import main as train_main
+    from cvm_tpu_torch.ops.cuda import gaussian_splat as gs
+    from cvm_tpu_torch.parallel import mesh as pmesh
+
+    child = _dist_child()
+    k1 = {}
+    train = "cvm_tpu_torch.cli.train"
+
+    # 36a: no process flags on one card: this process trains, no child
+    launched = []
+    real_launch = pmesh.run_local_ranks
+    pmesh.run_local_ranks = lambda *a, **kw: launched.append(a) or real_launch(*a, **kw)
+    gs.reset_counts()
+    t0 = time.perf_counter()
+    try:
+        rc, _, err = _cli(train_main, TRAIN_FLAGS + ["--workdir", os.path.join(workdir, "a1"),
+                                                     "--steps", "10"])
+    finally:
+        pmesh.run_local_ranks = real_launch
+    torch.cuda.synchronize()
+    one_k1, t_one = gs.render_heatmap.launches, time.perf_counter() - t0
+    if rc != 0 or launched or one_k1 != 10:
+        raise AssertionError(f"36a one card: rc {rc}, launcher calls {len(launched)}, K1 "
+                             f"{one_k1}\n{err[-2000:]}")
+    k1["cli.train, no process flags, one card (36a)"] = dict(launches=one_k1)
+    # --num_processes 2 --backend gloo without --coordinator, against the
+    # hand-launched --coordinator pair
+    # (the two pairs run at once: four ranks share the card)
+    flags = TRAIN_FLAGS + ["--steps", "10", "--checkpoint_every", "10"]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(1) as ex:
+        hand = ex.submit(child.launch, 2, ["cli", "--module", train, "--argv", json.dumps(
+            flags + ["--workdir", os.path.join(workdir, "a3")])],
+            os.path.join(workdir, "a_hand"), device="cuda", timeout=600)
+        rc, err, local, _ = _local(child, workdir, "a_local", train,
+                                   flags + ["--workdir", os.path.join(workdir, "a2"),
+                                            "--num_processes", "2", "--backend", "gloo"])
+        hand = [r for r, _ in hand.result()]
+    t_a = time.perf_counter() - t0
+    if rc != 0 or [r["rc"] for r in local + hand] != [0] * 4:
+        raise AssertionError(f"36a: launcher rc {rc}, ranks {[r['rc'] for r in local]}, "
+                             f"hand-launched {[r['rc'] for r in hand]}\n{err[-2000:]}")
+    clock = ("steps_per_sec", "ts")
+    got, want = ([{k: v for k, v in r.items() if k not in clock}
+                  for r in read_metrics(os.path.join(workdir, w, "metrics.jsonl"))]
+                 for w in ("a2", "a3"))
+    if got != want or [r["step"] for r in got] != list(range(1, 11)):
+        raise AssertionError(f"36a: the launcher's metrics.jsonl differs from the hand-launched "
+                             f"pair's:\n{got}\n{want}")
+    if [r["k1"] for r in local] != [10, 10] or [r["k1"] for r in hand] != [10, 10]:
+        raise AssertionError(f"36a K1: launcher's ranks {[r['k1'] for r in local]}, "
+                             f"hand-launched {[r['k1'] for r in hand]}")
+    k1["cli.train --num_processes 2 --backend gloo, the launcher's ranks (36a)"] = dict(
+        launches=sum(r["k1"] for r in local))
+    k1["cli.train --coordinator, the hand-launched pair (36a)"] = dict(
+        launches=sum(r["k1"] for r in hand))
+    log(f"[launcher] 36a cli.train config B, 10 steps, on {smi}: no process flags on one card "
+        f"ran in this process ({one_k1} K1 launches, no launcher call, {t_one:.1f} s); "
+        f"--num_processes 2 --backend gloo without --coordinator: two local ranks whose "
+        f"metrics.jsonl equals the hand-launched --coordinator pair's in every value but the "
+        f"clock (loss at step 10 {got[-1]['loss']:.4f}); K1 {[r['k1'] for r in local]} per "
+        f"rank (hand-launched {[r['k1'] for r in hand]}); {t_a:.1f} s for both pairs at "
+        f"once, starts included")
+
+    # 36c: asynchronous saves, config B 30 steps, a save every 5 steps
+    # (asynchronous, then waited for at once as the synchronous manager
+    # did) against none; an exact resume from the step-10 save
+    ck_ms, losses, pinned = {}, {}, 0
+    gs.reset_counts()
+    for tag, every in (("none", 1000), ("async", 5), ("sync", 5)):
+        ms, loss, trainer = _timed_fit(dev, os.path.join(workdir, "c_" + tag), every,
+                                       sync=tag == "sync")
+        saves = [m for i, m in enumerate(ms) if (i + 1) % 5 == 0]
+        others = [m for i, m in enumerate(ms) if (i + 1) % 5 and i >= 2]
+        ck_ms[tag] = (statistics.median(saves), statistics.median(others))
+        losses[tag] = loss
+        if tag == "async":
+            pinned = trainer.ckpt.pinned_bytes
+            if trainer.ckpt.all_steps() != [5, 10, 15, 20, 25, 30]:
+                raise AssertionError(f"36c: checkpoints {trainer.ckpt.all_steps()}")
+    resume_dir = os.path.join(workdir, "c_resume", "checkpoints")
+    os.makedirs(resume_dir)
+    for name in ("10.pt", "params.json"):
+        shutil.copy(os.path.join(workdir, "c_async", "checkpoints", name), resume_dir)
+    _, losses["resumed"], _ = _timed_fit(dev, os.path.join(workdir, "c_resume"), 1000)
+    if len(set(losses.values())) != 1 or gs.render_heatmap.launches != 3 * 30 + 20:
+        raise AssertionError(f"36c: the step-30 losses differ: {losses}, or K1 launched "
+                             f"{gs.render_heatmap.launches} times, not 110")
+    k1["Trainer.fit with asynchronous saves, 3 x 30 steps and a resume (36c)"] = dict(
+        launches=gs.render_heatmap.launches)
+    log(f"[launcher] 36c config B (flagship scenes, batch 16), 30 steps, host clock between "
+        f"step starts, on {smi}: a save every 5 steps, asynchronous: median "
+        f"{ck_ms['async'][0]:.3f} ms at the steps after a save, {ck_ms['async'][1]:.3f} ms at "
+        f"the others; each save "
+        f"waited for at once (the synchronous manager's cost): {ck_ms['sync'][0]:.3f} / "
+        f"{ck_ms['sync'][1]:.3f} ms; no save: {ck_ms['none'][1]:.3f} ms; pinned snapshot "
+        f"buffers {pinned / 2**20:.1f} MiB; the run resumed from the step-10 save ends at the "
+        f"straight run's step-30 loss exactly ({losses['none']!r})")
+
+    # 36b: --auto_restart 1 over two local ranks, rank 1 stalled in step 4;
+    # it runs beside 36d and 36e (its ranks mostly wait: for the stall, the
+    # watchdog, the relaunch), which time nothing
+    env = {"CVM_STALL_THRESHOLD_S": str(WATCHDOG_THRESHOLD_S),
+           "CVM_HANG_S": str(WATCHDOG_HANG_S)}
+    os.environ.pop("CVM_RESTART_COUNT", None)
+
+    def run_restart():
+        t0 = time.perf_counter()
+        out = _local(child, workdir, "b", train,
+                     TRAIN_FLAGS + ["--steps", "12", "--checkpoint_every", "2",
+                                    "--auto_restart", "1", "--workdir",
+                                    os.path.join(workdir, "b"), "--num_processes", "2",
+                                    "--backend", "gloo"],
+                     hooks=["--hang_rank", 1, "--hang_step", 4], env=env)
+        return (*out, time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(1) as pool:
+        restart = pool.submit(run_restart)
+        k2 = _launcher_qat_and_eval(dev, workdir, seed, smi, child, k1)
+
+    # 36b's results
+    rc, err, ranks, events, t_b = restart.result()
+    at = {}
+    for name, rank, t, count in events:
+        at.setdefault((name, count), []).append(float(t))
+    if (rc != 0 or [r["rc"] for r in ranks] != [0, 0] or "asked for restart 1" not in err
+            or len(at.get(("hang", "-"), [])) != 1 or not at.get(("restart", "-"))):
+        raise AssertionError(f"36b: launcher rc {rc}, ranks {[r['rc'] for r in ranks]}, "
+                             f"events {events}\n{err[-3000:]}")
+    out0 = ranks[0]["stdout"]
+    if "start_step=2" not in out0 or "done at step 12" not in out0 or \
+            [r["k1"] for r in ranks] != [10, 10]:
+        raise AssertionError(f"36b: not resumed from step 2 to 12 with 10 K1 launches per rank "
+                             f"({[r['k1'] for r in ranks]}):\n{out0[-2000:]}")
+    hang_at, restart_at = at[("hang", "-")][0], min(at[("restart", "-")])
+    first_at = max(at[("first_step", "1")])
+    k1["cli.train --auto_restart 1 over two local ranks, after the restart (36b)"] = dict(
+        launches=sum(r["k1"] for r in ranks))
+    log(f"[launcher] 36b --auto_restart 1 over two local gloo ranks, config B, rank 1's device "
+        f"asleep {WATCHDOG_HANG_S} s in step 4, threshold {WATCHDOG_THRESHOLD_S} s, on {smi}: "
+        f"a watchdog exited for a restart {restart_at - hang_at:.2f} s after the stall was "
+        f"enqueued; both ranks' first step after the relaunch done "
+        f"{first_at - restart_at:.2f} s after that exit (kill, spawn, python and CUDA start, "
+        f"group, model, checkpoint, a step); resumed at step 2, done at step 12, K1 "
+        f"{[r['k1'] for r in ranks]} per rank; the card took the new ranks after an exit "
+        f"with a kernel in flight; {t_b:.1f} s in all, beside 36d and 36e")
+
+    return k1, k2
+
+
+def _launcher_qat_and_eval(dev, workdir, seed, smi, child, k1):
+    """Phase 36d and 36e; K2's launches by path (K1's go into ``k1``)."""
+    from cvm_tpu_torch.cli.evaluate import main as eval_main
+    from cvm_tpu_torch.ops.cuda import fused_qconv as fq
+
+    k2 = {}
+    # 36d: QAT on a model axis of 2 against one process
+    t0 = time.perf_counter()
+    tp = [r for r, _ in child.launch(2, ["train", "--model", "centernet", "--config", "B",
+                                         "--steps", 5, "--model_parallel", 2,
+                                         "--tensor_parallel", "--qat"],
+                                     os.path.join(workdir, "d"), device="cuda", timeout=600)]
+    t_d = time.perf_counter() - t0
+    one = child.run_train(None, dev, "centernet", "B", 5, qat=True)
+    if tp[0]["losses"] != tp[1]["losses"] or tp[0]["scales"] != tp[1]["scales"]:
+        raise AssertionError("36d: the ranks' losses or scales differ")
+    err_d = _close(tp[0]["losses"], one["losses"], 5e-3, "36d QAT TP losses vs one process")
+    # Step 1 runs both sides from the same weights: its weight scales are
+    # equal, its activation scales within bf16 rounding; from step 2 on the
+    # weights differ by bf16 noise, which Adam turns into full-size steps.
+    gaps = {}
+    for name, want in one["scales"].items():
+        got, want = np.asarray(tp[0]["scales"][name]), np.asarray(want)
+        rel = np.abs(got - want) / want
+        gaps[name] = (float(rel[0, 0]), float(np.max(np.abs(got[0, 1:] - want[0, 1:]))),
+                      [round(float(v), 4) for v in rel[1:, 0]],
+                      [round(float(v), 4) for v in rel[1:, 1:].max(axis=1)])
+        if gaps[name][1] != 0 or gaps[name][0] > 1e-2:
+            raise AssertionError(f"36d {name}: step-1 scale gaps {gaps[name]}")
+    if [r["k1"] for r in tp] != [5, 5]:
+        raise AssertionError(f"36d K1 launches {[r['k1'] for r in tp]}")
+    k1["QAT, 2 tensor-parallel gloo ranks (36d)"] = dict(launches=sum(r["k1"] for r in tp))
+    log(f"[launcher] 36d QAT over a model axis of 2, config B batch 16, 5 steps, on {smi}: "
+        f"the ranks' losses and s5b*.c2 scales equal each other; max rel. loss gap to one "
+        f"process {err_d:.2e}; per conv against one process (step 1's activation-scale rel. "
+        f"gap, step 1's weight-scale max |d|, then steps 2-5's activation and max weight "
+        f"rel. gaps): {gaps}; K1 {[r['k1'] for r in tp]}; {t_d:.1f} s with the ranks' start")
+
+    # 36e: cli.evaluate --quantize w8a8_fused_chain over two local ranks
+    # against one process batched alike (phase 35's rule: cuDNN rounds 16 rows
+    # otherwise than 8). The pipeline pads a batch to the config's
+    # batch_size, and calibration takes a batch of batch_size scenes (the
+    # global batch, 16): so the one process runs batches of 8 (the rows of
+    # a rank) and calibrates on 16 scenes, as each rank does.
+    from cvm_tpu_torch.cli import evaluate as ev_mod
+
+    ev = ["--model", "centernet", "--workdir", seed, "--device", "cuda", "--pad_hw", "512,512",
+          "--quantize", "w8a8_fused_chain", "--calib_batches", "1"]
+    t0 = time.perf_counter()
+    rc, err, ranks, _ = _local(child, workdir, "e", "cvm_tpu_torch.cli.evaluate",
+                               ev + ["--batches", "2", "--json_out",
+                                     os.path.join(workdir, "e2.json"), "--num_processes", "2",
+                                     "--backend", "gloo"])
+    t_e = time.perf_counter() - t0
+    real_calibrate = ev_mod._calibrate
+
+    def calibrate_on_16(args, cfg, *rest):
+        return real_calibrate(args, cfg.replace(batch_size=16), *rest)
+
+    ev_mod._calibrate = calibrate_on_16
+    fq.reset_counts()
+    try:
+        rc1, one_out, err1 = _cli(eval_main, ev + ["--batches", "4", "--batch_size", "8",
+                                                   "--json_out",
+                                                   os.path.join(workdir, "e1.json")])
+    finally:
+        ev_mod._calibrate = real_calibrate
+    k2_one = fq.fused_qconv.launches
+    if rc != 0 or rc1 != 0 or [r["rc"] for r in ranks] != [0, 0]:
+        raise AssertionError(f"36e: rc {rc} / {rc1}, ranks {[r['rc'] for r in ranks]}\n"
+                             f"{err[-2000:]}\n{err1[-2000:]}")
+    with open(os.path.join(workdir, "e1.json")) as f1, \
+            open(os.path.join(workdir, "e2.json")) as f2:
+        m1, m2 = json.load(f1), json.load(f2)
+    k2["cli.evaluate w8a8_fused_chain, 2 local gloo ranks (36e)"] = dict(
+        launches=sum(r["k2"] for r in ranks))
+    k2["cli.evaluate w8a8_fused_chain, its one process (36e)"] = dict(launches=k2_one)
+    # 24 K2 calls per forward: 2 of 8 rows on each rank, 4 of 8 in one process
+    if [r["k2"] for r in ranks] != [48, 48] or k2_one != 96 or m1 != m2 or not m1["mAP"] > 0:
+        raise AssertionError(f"36e: K2 {[r['k2'] for r in ranks]} / {k2_one}, metrics "
+                             f"{m2} against {m1}")
+    log(f"[launcher] 36e cli.evaluate --quantize w8a8_fused_chain of phase 8's step-40 "
+        f"checkpoint, 2 batches of 16, over two local gloo ranks (8 rows each) on {smi}: "
+        f"metrics equal to one process predicting the same images in batches of 8, "
+        f"calibrated alike (mAP {m2['mAP']!r}); K2 {[r['k2'] for r in ranks]} per rank, "
+        f"{k2_one} in the one process; {t_e:.1f} s through the launcher")
+    return k2
+
+
+def _timed_fit(dev, workdir, every, sync=False):
+    """Config B (``TRAIN_FLAGS``' flagship recipe) trained to step 30 by
+    ``Trainer.fit`` from ``workdir``'s newest checkpoint, a save every
+    ``every`` steps (each waited for at once with ``sync``): the host ms
+    between consecutive steps' starts, the step-30 loss, the trainer."""
+    import torch
+
+    from cvm_tpu_torch.data.synthetic import SyntheticIterator
+    from cvm_tpu_torch.models.centernet.params import CenternetParams
+    from cvm_tpu_torch.train.loop import Trainer
+
+    cfg = CenternetParams(num_classes=10, max_objects=16, batch_size=16, warmup_steps=5,
+                          total_steps=5000)
+    trainer = Trainer(cfg, dev, checkpoint_dir=os.path.join(workdir, "checkpoints"),
+                      keep_checkpoints=10, checkpoint_every=every, log_every=1000, seed=0)
+    trainer.init_state()
+    it = SyntheticIterator(0, 16, (512, 512), num_classes=10)
+    if trainer.data_state is not None:
+        it.load_state_dict(trainer.data_state)
+    starts, real = [], trainer.train_step
+
+    def step(*args):
+        starts.append(time.perf_counter())
+        return real(*args)
+
+    trainer.train_step = step
+    if sync:
+        save = trainer._save
+
+        def save_and_wait(data_state):
+            save(data_state)
+            trainer.ckpt.wait()
+
+        trainer._save = save_and_wait
+    last = trainer.fit(it, 30 - trainer.state.step)
+    torch.cuda.synchronize()
+    return list(1e3 * np.diff(starts)), last["loss"], trainer
 
 
 def main() -> int:
@@ -3697,6 +4060,13 @@ def main() -> int:
         t0 = time.perf_counter()
         dist_serve_k2, dist_serve_k1 = phase_dist_serve(dev, workdir, seed.name, smi)
         log(f"[dist-serve] phase 35 took {time.perf_counter() - t0:.1f} s")
+
+    # Phase 36: whole-host training: the local launcher, --auto_restart over
+    # its ranks, asynchronous checkpoints, QAT under tensor parallelism.
+    with tempfile.TemporaryDirectory() as workdir:
+        t0 = time.perf_counter()
+        launcher_k1, launcher_k2 = phase_launcher(dev, workdir, seed.name, smi)
+        log(f"[launcher] phase 36 took {time.perf_counter() - t0:.1f} s")
     seed.cleanup()
 
     log(f"[zoo3d] on {smi}: 3D batch-8 predict fp {lat3d['fp']:.3f} ms, int8 "
@@ -3706,7 +4076,7 @@ def main() -> int:
         f"(artifact {dmds['artifact_ms']:.3f} ms); DMDS reaches no TPU kernel (the "
         "reference refuses W8A8 for it)")
 
-    log(f"[smoke] phases 1-35 took {time.perf_counter() - t_smoke:.1f} s")
+    log(f"[smoke] phases 1-36 took {time.perf_counter() - t_smoke:.1f} s")
     log(f"[card] {nvidia_smi()}")
     # K2's numbers are those of one config-B int8 forward; launches count
     # every main-path run (config B and each dense path), with each path's
@@ -3727,6 +4097,7 @@ def main() -> int:
     k2_paths["cli.infer --artifact"] = dict(launches=infer_k2)
     k2_paths["run_video + cli.video --artifact"] = dict(launches=video_k2)
     k2_paths.update(dist_serve_k2)
+    k2_paths.update(launcher_k2)
     k2_shapes = sorted({f"k{c['k']} B{c['B']} {c['H']}x{c['W']} {c['cin']}->{c['cout']}"
                         for calls in dense_calls.values() for c in calls})
     print(json.dumps({"kernels": [{
@@ -3741,7 +4112,8 @@ def main() -> int:
         "launches": (splat_launches + dense_k1 + qat_launches + train3d_launches + rec_k1
                      + coco_k1 + watchdog_k1 + prof_k1 + tb_k1 + lr_k1 + rot_k1
                      + sum(p["launches"] for p in dist_k1.values())
-                     + sum(p["launches"] for p in dist_serve_k1.values())),
+                     + sum(p["launches"] for p in dist_serve_k1.values())
+                     + sum(p["launches"] for p in launcher_k1.values())),
         "max_abs_err": splat_err,
         "ms": splat_times["flagship"][0], "plain_ms": splat_times["flagship"][1],
         "bound_ms": splat_times["bound_ms"], "bound_by": "bytes", "library_ms": None,
@@ -3759,7 +4131,7 @@ def main() -> int:
                                              ms=splat_times["multitask"][0],
                                              plain_ms=splat_times["multitask"][1],
                                              bound_ms=splat_times["multitask_bound_ms"]),
-                  **dist_k1, **dist_serve_k1}}]}))
+                  **dist_k1, **dist_serve_k1, **launcher_k1}}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """Benchmark harness for the BASELINE.json measurement configs A-E.
 
 ``python -m cvm_tpu_torch.cli.benchmark [--configs A,B,C,D,E] [--iters N]
-[--train] [--device cuda]``
+[--train] [--device cuda] [--num_processes N]``
 
 A: semseg 640x256 batch 1              C: depth KITTI-ish, batch 8
 B: centernet COCO 512x512 batch 8      D: multitask NuScenes-ish, batch 8
@@ -13,6 +13,15 @@ Mirrors ``cvm_tpu/cli/benchmark.py`` (``_bench_infer``,
 config: images/s and p50 latency of the end-to-end inference pipeline
 (preprocess + forward + postprocess), or, with ``--train``, steps/s of the
 training step; each line names the device and its power limit.
+
+The training leg runs over every visible card, as the reference's
+``Trainer(spec, cfg)`` runs over every chip: with more than one card (or
+``--num_processes N``) this process launches one rank per card
+(``parallel/mesh.py::launch_local``), the config's batch is the global
+batch split over them, and rank 0 prints each line with ``processes`` (N)
+and the rates of its card (``achieved_tflops``, ``mfu_pct``: this rank's
+FLOPs). The serving leg stays on one card, rank 0's, as the reference's
+does; one card gives one process and the lines it always gave.
 
 Timing keeps the reference's honesty rules: distinct host buffers
 (``max(8, warmup + 1)`` of them), a pipelined clock over ``iters`` calls
@@ -148,20 +157,24 @@ def _bench_infer(spec_name, cfg, device, iters=20, warmup=3):
     return res
 
 
-def _bench_train_step(spec_name, cfg, device, iters=10, warmup=2):
+def _bench_train_step(spec_name, cfg, device, iters=10, warmup=2, mesh=None):
     """Training throughput on two clocks: blocked (the loss read on the
     host every step) and pipelined (no host read until the end of a long
     window; each step's update feeds the next, so the final read cannot
-    finish before every step ran)."""
+    finish before every step ran). Under ``mesh`` each rank steps on its
+    rows of the global batch."""
     from cvm_tpu_torch.data.loader import prefetch_to_device
     from cvm_tpu_torch.data.synthetic import synthetic_batch
     from cvm_tpu_torch.train.loop import Trainer, step_generator
 
-    trainer = Trainer(cfg, device)
+    trainer = Trainer(cfg, device, mesh=mesh)
     trainer.init_state()
     nc = min(getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 3)), 10)
     batch = synthetic_batch(np.random.default_rng(0), cfg.batch_size, _pad_hw(cfg),
                             num_classes=nc, two_frame=spec_name == "dmds")
+    if trainer.mesh.data > 1:
+        rows = trainer.mesh.batch_rows(cfg.batch_size)
+        batch = {k: v[rows.start:rows.stop] for k, v in batch.items()}
     b = next(prefetch_to_device([batch], trainer.device))
     peak, kind = _device_peak_tflops(trainer.device)
     step = [0]
@@ -201,6 +214,8 @@ def _bench_train_step(spec_name, cfg, device, iters=10, warmup=2):
            "steps_per_sec_blocked": round(1.0 / dt_blocked, 2),
            "p50_step_ms_blocked": round(dt_blocked * 1e3, 3),
            "pipelined_steps": n_pipe, "batch_size": cfg.batch_size, "device_kind": kind}
+    if trainer.mesh.world > 1:
+        res["processes"] = trainer.mesh.world
     if flops_per_step > 0:
         res["tflops_per_step"] = round(flops_per_step / 1e12, 4)
     _rate_fields(res, flops_per_step, dt_pipe, peak, f"{spec_name} training")
@@ -225,6 +240,9 @@ def _configs():
 
 
 def main(argv=None):
+    from cvm_tpu_torch.parallel.mesh import (add_process_args, launch_local, process_count,
+                                             process_mesh)
+
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--configs", default="A,B,C,D,E")
     parser.add_argument("--iters", type=int, default=20)
@@ -233,29 +251,43 @@ def main(argv=None):
     parser.add_argument("--batch_size", type=int, default=None,
                         help="override the config's batch size")
     parser.add_argument("--device", default="cuda", help="'cuda', 'cuda:N' or 'cpu'")
+    add_process_args(parser)
     args = parser.parse_args(argv)
 
-    from cvm_tpu_torch.utils.device import resolve_device
-
-    device = resolve_device(args.device)
     cfgs = _configs()
+    runs = []
     for key in args.configs.split(","):
         key = key.strip().upper()
         if key not in cfgs:
             parser.error(f"unknown config {key!r}; choose from {sorted(cfgs)}")
         spec_name, cfg, mode = cfgs[key]
-        if args.train:
-            mode = "train"
         if args.batch_size:
             cfg = cfg.replace(batch_size=args.batch_size)
-        if mode == "train":
-            res = _bench_train_step(spec_name, cfg, device, iters=max(args.iters // 2, 5))
-        else:
-            res = _bench_infer(spec_name, cfg, device, iters=args.iters)
-        res.update({"config": key, "model": spec_name, "mode": mode,
-                    "input_hw": list(cfg.input_hw), "device": _device_name(device),
-                    "power_limit_w": _power_limit_w(device)})
-        print(json.dumps(res), flush=True)
+        runs.append((key, spec_name, cfg, "train" if args.train else mode))
+    # the serving leg runs on one card: over several only for a training leg
+    training = any(mode == "train" for *_, mode in runs)
+    world = process_count(parser, args) if training or args.coordinator else 1
+    rc = launch_local(args, world, "cvm_tpu_torch.cli.benchmark", argv)
+    if rc is not None:
+        return rc
+    from cvm_tpu_torch.utils.device import resolve_device
+
+    with process_mesh(args, args.device) as (device, mesh):
+        device = resolve_device(device)
+        for key, spec_name, cfg, mode in runs:
+            if mode == "train":
+                res = _bench_train_step(spec_name, cfg, device, iters=max(args.iters // 2, 5),
+                                        mesh=mesh)
+            elif mesh is None:
+                res = _bench_infer(spec_name, cfg, device, iters=args.iters)
+            else:  # rank 0's card serves; the other ranks wait for it
+                res = mesh.from_rank0(f"infer {key}", lambda: _bench_infer(
+                    spec_name, cfg, device, iters=args.iters))
+            if mesh is None or mesh.is_rank0:
+                res.update({"config": key, "model": spec_name, "mode": mode,
+                            "input_hw": list(cfg.input_hw), "device": _device_name(device),
+                            "power_limit_w": _power_limit_w(device)})
+                print(json.dumps(res), flush=True)
     return 0
 
 

@@ -26,8 +26,10 @@ decoder (``data/jpeg.py``), as RGB or, for a yuv420 artifact, as planes.
 Calibration for the static postures stays on synthetic scenes, as
 ``cli.export``'s.
 
-Over several processes, one per card (``--coordinator HOST:PORT
---num_processes N --process_id R``, as ``cli.train``'s): every rank loads
+Over every visible card by default, one process per card, as
+``cli.train`` runs (``--num_processes N`` for N local ranks; ``--coordinator
+HOST:PORT --num_processes N --process_id R`` for a group started by hand;
+one card or ``--device cpu`` is one process): every rank loads
 the checkpoint (or the artifact, each rank its own ``ServingModel``) and
 reads the same eval batches, each predicts its rows of every batch
 (``evaluate_model(mesh=)``, the reference's sharded evaluation), and rank 0
@@ -161,7 +163,8 @@ def _calibrate(args, cfg, model, pad_hw, device, say):
 
 
 def main(argv=None):
-    from cvm_tpu_torch.parallel.mesh import add_process_args, process_count, process_mesh
+    from cvm_tpu_torch.parallel.mesh import (add_process_args, launch_local, process_count,
+                                             process_mesh)
 
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", default=None,
@@ -215,7 +218,9 @@ def main(argv=None):
                              "run as served) instead of a checkpoint")
     add_process_args(parser)
     args, overrides = parser.parse_known_args(argv)
-    process_count(parser, args)
+    rc = launch_local(args, process_count(parser, args), "cvm_tpu_torch.cli.evaluate", argv)
+    if rc is not None:
+        return rc
     with process_mesh(args, args.device) as (args.device, mesh):
         if args.artifact:
             return _evaluate_artifact(parser, args, overrides, mesh)

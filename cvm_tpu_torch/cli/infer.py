@@ -37,13 +37,15 @@ artifact at export; yuv420 and two-frame artifacts; ``--w8a8`` for dmds;
 ``--tiled`` for detection, records, ``--w8a8`` and ``--tta``. A summary
 (batches, images, ms per batch on the host clock) goes to stderr.
 
-Over several processes, one per card (``--coordinator HOST:PORT
---num_processes N --process_id R``, as ``cli.train``'s): every rank reads
+Over every visible card by default, one process per card, as
+``cli.train`` runs (``--num_processes N`` for N local ranks; ``--coordinator
+HOST:PORT --num_processes N --process_id R`` for a group started by hand;
+one card or ``--device cpu`` is one process): every rank reads
 and decodes the same batches and predicts its rows of each
 (``InferencePipeline(mesh=)``, or ``shard_predict`` of its own artifact's
 ``ServingModel``), and rank 0 alone prints the JSONL, the summary and the
 ``--visualize`` PNGs, equal to one process's. ``--tiled`` runs image by
-image on one card and is refused there.
+image on one card: one process by default, and refused over more.
 """
 
 from __future__ import annotations
@@ -105,7 +107,8 @@ def _run_tiled(args, cfg, trainer) -> int:
 
 
 def main(argv=None) -> int:
-    from cvm_tpu_torch.parallel.mesh import add_process_args, process_count, process_mesh
+    from cvm_tpu_torch.parallel.mesh import (add_process_args, launch_local, process_count,
+                                             process_mesh)
 
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", default=None,
@@ -139,8 +142,13 @@ def main(argv=None) -> int:
 
     if bool(args.artifact) == bool(args.checkpoint_dir):
         parser.error("exactly one source: --checkpoint_dir or --artifact")
-    if process_count(parser, args) > 1 and args.tiled:
+    world = (1 if args.tiled and args.coordinator is None and args.num_processes is None
+             else process_count(parser, args))
+    if world > 1 and args.tiled:
         parser.error("--tiled predicts image by image on one card: run it in one process")
+    rc = launch_local(args, world, "cvm_tpu_torch.cli.infer", argv)
+    if rc is not None:
+        return rc
     with process_mesh(args, args.device) as (args.device, mesh):
         return _infer(parser, args, mesh)
 

@@ -37,7 +37,9 @@ rewritten to say so, since evaluation and export read the config there.
 ``--auto_restart N`` re-execs this command (``python -m
 cvm_tpu_torch.cli.train`` and the same arguments) up to N times when the
 stall watchdog finds the device stalled (``train/loop.py``); the new
-process resumes from the newest checkpoint. ``--tensorboard`` also writes
+process resumes from the newest checkpoint. Over the local ranks (below)
+the stalled rank exits instead, and the launcher starts every rank again
+from the newest checkpoint. ``--tensorboard`` also writes
 the metrics as TensorBoard events to ``<workdir>/tb``, and ``--eval_images
 N`` renders N eval samples' predictions (``infer/visualize.py``) into them
 at every eval. ``--profile_steps N`` trains up to 20 warm-up steps, then
@@ -46,11 +48,20 @@ records N steps with ``torch.profiler`` into ``<workdir>/trace``
 a non-finite output, loss, gradient or parameter, naming it.
 ``--aug_rotate_deg`` and ``--remat true`` are the reference's.
 
-Multi-process training, one process per card: ``--coordinator HOST:PORT
---num_processes N --process_id R`` on every process (the same arguments
-but R), rank 0 serving the rendezvous at HOST:PORT; NCCL between cards
-(``--device cuda``: rank R on ``cuda:{R % cards}``), gloo on the CPU
-(``parallel/mesh.py``). ``--model_parallel M`` lays the N ranks out as
+Multi-process training, one process per card. By default the command runs
+over every visible card of the host, as the reference's ``Trainer`` runs
+over every chip: with ``--device cuda`` and more than one card
+(``CUDA_VISIBLE_DEVICES`` narrows them), or with ``--num_processes N``,
+this process launches one rank per card (N ranks) on 127.0.0.1 and waits
+for them (``parallel/mesh.py::launch_local``): rank 0's output streams
+through it, SIGTERM and SIGINT reach every rank, and when one rank fails
+the others are killed and the command exits non-zero. One card, or
+``--device cpu`` without ``--num_processes``, is one process. Over hosts,
+or by hand: ``--coordinator HOST:PORT --num_processes N --process_id R``
+on every process (the same arguments but R), rank 0 serving the
+rendezvous at HOST:PORT. NCCL between cards (``--device cuda``: rank R on
+``cuda:{R % cards}``), gloo on the CPU, or ``--backend gloo``, with which
+ranks may share a card (``parallel/mesh.py``). ``--model_parallel M`` lays the N ranks out as
 N/M data x M model, and ``--tensor_parallel true`` (which needs M >= 2)
 splits the stage-5 blocks over the model axis (``parallel/sharding.py``).
 ``--batch_size`` stays the global batch, divided over the N/M data ranks;
@@ -60,8 +71,9 @@ Rank 0 alone prints, writes ``metrics.jsonl``, TensorBoard, checkpoints
 (whole tensors: ``cli.evaluate`` loads them in one process) and the best
 checkpoint. Every eval runs on every rank, each data rank predicting its
 rows (``evaluate_model(mesh=)``, as the reference's). ``--auto_restart``
-is refused there: it would re-exec one rank, which cannot rejoin the
-group. ``--dcn_slices`` is not ported (``_DCN_NOT_PORTED``).
+is refused with ``--coordinator``: it would re-exec one rank, which cannot
+rejoin the group, and the job spans processes no launcher here owns.
+``--dcn_slices`` is not ported (``_DCN_NOT_PORTED``).
 """
 
 from __future__ import annotations
@@ -105,7 +117,8 @@ def _record_qat_flip(workdir: str, cfg, keep_best: bool, params_cls, load_params
 
 
 def main(argv=None) -> int:
-    from cvm_tpu_torch.parallel.mesh import add_process_args, process_count, process_mesh
+    from cvm_tpu_torch.parallel.mesh import (RESTART_EXIT, add_process_args, launch_local,
+                                             process_count, process_mesh)
 
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", required=True,
@@ -177,10 +190,11 @@ def main(argv=None) -> int:
     if args.model_parallel < 1 or world % args.model_parallel:
         parser.error(f"{world} processes not divisible by --model_parallel "
                      f"{args.model_parallel}")
-    if args.auto_restart > 0 and world > 1:
+    if args.auto_restart > 0 and args.coordinator is not None and not args.restart_by_exit:
         parser.error("--auto_restart re-execs one process, which cannot rejoin the process "
                      "group of the others: restart the whole job instead (every rank "
-                     "resumes from the newest checkpoint)")
+                     "resumes from the newest checkpoint); without --coordinator the "
+                     "launcher restarts every rank")
 
     from cvm_tpu_torch.models.registry import get_model
     from cvm_tpu_torch.utils.config import parse_hw
@@ -198,6 +212,12 @@ def main(argv=None) -> int:
     if cfg.batch_size % data_ranks:
         parser.error(f"batch_size {cfg.batch_size} not divisible by {data_ranks} "
                      "data-parallel processes")
+    if world > 1 and args.auto_restart > 255 - RESTART_EXIT:
+        parser.error(f"--auto_restart over local ranks counts at most {255 - RESTART_EXIT} "
+                     "restarts (a rank's exit code carries the count)")
+    rc = launch_local(args, world, "cvm_tpu_torch.cli.train", argv)
+    if rc is not None:
+        return rc
     pad_hw = (parse_hw(args.pad_hw, "--pad_hw") if args.pad_hw
               else (int(cfg.input_hw[0] * 1.5), int(cfg.input_hw[1] * 1.5)))
     nc = min(getattr(cfg, "num_classes", getattr(cfg, "num_det_classes", 3)), 10)
@@ -255,7 +275,8 @@ def _train(args, argv, spec, cfg, pad_hw, nc, scenes, records, target_hw, device
                       tensorboard_dir=f"{args.workdir}/tb" if args.tensorboard else None,
                       checkpoint_every=args.checkpoint_every, log_every=args.log_every,
                       seed=args.seed, restart_argv=restart_argv,
-                      max_restarts=args.auto_restart, debug_nans=args.debug_nans, mesh=mesh)
+                      max_restarts=args.auto_restart, debug_nans=args.debug_nans, mesh=mesh,
+                      restart_by_exit=args.restart_by_exit)
     best = (BestCheckpoint(f"{args.workdir}/best", args.keep_best, args.keep_best_mode,
                            params_cfg=cfg) if args.keep_best and rank0 else None)
     stopper = (EarlyStopper(args.keep_best, args.early_stop, args.keep_best_mode)
@@ -431,6 +452,12 @@ def _train(args, argv, spec, cfg, pad_hw, nc, scenes, records, target_hw, device
         signal.signal(signal.SIGTERM, old_handler)
         if trainer.metrics_writer is not None:
             trainer.metrics_writer.close()
+    # the best checkpoint's write in flight is on disk before the run ends
+    # (rank 0 holds the writer; the other ranks wait for it)
+    if mesh is not None:
+        mesh.from_rank0("best saved", best.close if best is not None else lambda: None)
+    elif best is not None:
+        best.close()
     if trainer.stop_requested:
         log(f"[cvm_tpu_torch] stopped at step {trainer.state.step}: checkpoint "
             "committed, exiting cleanly")

@@ -15,8 +15,10 @@ consecutive frame pairs (t, t + stride). Video decode and encode need
 OpenCV (``cv2``), as the reference's do; ``cli.doctor`` says whether it
 imports.
 
-Over several processes, one per card (``--coordinator HOST:PORT
---num_processes N --process_id R``, as ``cli.train``'s): every rank reads
+Over every visible card by default, one process per card, as
+``cli.train`` runs (``--num_processes N`` for N local ranks; ``--coordinator
+HOST:PORT --num_processes N --process_id R`` for a group started by hand;
+one card or ``--device cpu`` is one process): every rank reads
 the clip and predicts its rows of each batch (``InferencePipeline(mesh=)``,
 or ``shard_predict`` of its own artifact's ``predict_batch``), as the
 reference shards its pipeline over the mesh; rank 0 alone writes the mp4
@@ -192,7 +194,8 @@ def artifact_predict(model, art_hw: Tuple[int, int], two_frame: bool = False):
 
 
 def main(argv=None) -> int:
-    from cvm_tpu_torch.parallel.mesh import add_process_args, process_count, process_mesh
+    from cvm_tpu_torch.parallel.mesh import (add_process_args, launch_local, process_count,
+                                             process_mesh)
 
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", default=None, help="zoo model name (with --checkpoint_dir)")
@@ -214,7 +217,7 @@ def main(argv=None) -> int:
     parser.add_argument("--device", default="cuda", help="'cuda', 'cuda:N' or 'cpu'")
     add_process_args(parser)
     args = parser.parse_args(argv)
-    process_count(parser, args)
+    world = process_count(parser, args)
     if not (args.out or args.jsonl):
         parser.error("need --out and/or --jsonl")
     if args.stride < 1:
@@ -223,6 +226,9 @@ def main(argv=None) -> int:
         parser.error("need exactly one of --checkpoint_dir (with --model) or --artifact")
     if args.checkpoint_dir and not args.model:
         parser.error("--checkpoint_dir requires --model")
+    rc = launch_local(args, world, "cvm_tpu_torch.cli.video", argv)
+    if rc is not None:
+        return rc
     with process_mesh(args, args.device) as (args.device, mesh):
         return _video(parser, args, mesh)
 

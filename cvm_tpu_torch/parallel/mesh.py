@@ -29,18 +29,35 @@ result is all-gathered back to every rank in row order
 reference splits a serving batch over both axes; here the ranks of one
 model group take the same rows, as in training.
 
+Launching (``run_local_ranks``, the one launcher; ``launch_local`` for the
+CLIs, ``launch_ranks`` for the tests): the reference's one controller per
+host drives every chip of it, so a CLI run without ``--coordinator`` uses
+every visible card. Here that is one rank per card, each a ``python -m
+<cli>`` child with this rank's process flags, started on 127.0.0.1 by the
+command the user ran, which waits for them: rank 0 writes to its output,
+SIGTERM and SIGINT are forwarded, the other ranks are killed as soon as
+one fails, and all are started again when a rank's watchdog asks for a
+restart (``RESTART_EXIT``). ``--coordinator`` keeps its contract over
+hosts: one process per card, each started by hand.
+
 Nothing falls back: a group that cannot form within ``timeout_s``, or two
-NCCL ranks that would share a card, raise, naming the cause.
+NCCL ranks that would share a card, raise, naming the cause; a rank that
+fails to start or join fails the whole command.
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
+import functools
 import os
 import pickle
+import signal
 import socket
 import subprocess
+import sys
+import tempfile
+import threading
 import time
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
@@ -315,37 +332,58 @@ def all_gather_rows(t: torch.Tensor, group, size: int, dim: int = 0) -> torch.Te
 
 def add_process_args(parser) -> None:
     """The multi-process flags of ``cli.train`` and the serving CLIs: one
-    process per card, started with the same arguments but its
-    ``--process_id``."""
+    process per card. Without ``--coordinator`` the command runs one rank
+    per visible card (or ``--num_processes`` ranks) on this host
+    (``launch_local``); with it, this process is one rank of a group
+    started by hand, with the same arguments but its ``--process_id``."""
     parser.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                        help="multi-process run: rank 0's rendezvous address; launch "
-                             "one process per card with the same arguments plus "
+                        help="multi-process run over hosts: rank 0's rendezvous address; "
+                             "launch one process per card with the same arguments plus "
                              "--process_id; requires --num_processes")
-    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--num_processes", type=int, default=None,
+                        help="the number of ranks; without --coordinator, ranks started on "
+                             "this host (default: one per visible card with --device cuda)")
     parser.add_argument("--process_id", type=int, default=None)
+    parser.add_argument("--restart_by_exit", action="store_true",
+                        help="set by the launcher on the ranks it starts: the watchdog's "
+                             "--auto_restart exits for the launcher to start every rank "
+                             "again, instead of re-exec'ing one")
+    parser.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                        help="the process group's backend (default: nccl on cards, gloo on "
+                             "the CPU; gloo lets ranks share a card)")
 
 
 def process_count(parser, args) -> int:
-    """The number of processes ``add_process_args``' flags ask for (1
-    without ``--coordinator``); a parser error when they are incomplete."""
-    if args.coordinator is None:
-        return 1
-    if args.num_processes is None or args.process_id is None:
-        parser.error("--coordinator requires --num_processes and --process_id")
-    return args.num_processes
+    """The number of ranks ``add_process_args``' flags ask for: with
+    ``--coordinator``, ``--num_processes`` (a parser error when a flag is
+    missing); without, ``--num_processes`` or, for ``--device cuda``, every
+    visible card (``CUDA_VISIBLE_DEVICES`` narrows them), else 1."""
+    if args.coordinator is not None:
+        if args.num_processes is None or args.process_id is None:
+            parser.error("--coordinator requires --num_processes and --process_id")
+        return args.num_processes
+    if args.num_processes is not None:
+        if args.num_processes < 1:
+            parser.error(f"--num_processes must be >= 1, got {args.num_processes}")
+        return args.num_processes
+    if args.device == "cuda" and torch.cuda.is_available():
+        return torch.cuda.device_count()
+    return 1
 
 
 @contextlib.contextmanager
 def process_mesh(args, device: DeviceLike, model_axis: int = 1
                  ) -> Iterator[Tuple[DeviceLike, Optional["Mesh"]]]:
     """``(device, mesh)`` of this process under ``add_process_args``' flags:
-    the group formed at ``--coordinator`` with this rank's device and its
-    (data, model) mesh, left when the block ends (after a barrier, unless
-    it raised); ``(device, None)`` without ``--coordinator``."""
+    the group formed at ``--coordinator`` (on ``--backend``) with this
+    rank's device and its (data, model) mesh, left when the block ends
+    (after a barrier, unless it raised); ``(device, None)`` without
+    ``--coordinator``."""
     if args.coordinator is None:
         yield device, None
         return
-    dev = init_distributed(args.coordinator, args.num_processes, args.process_id, device)
+    dev = init_distributed(args.coordinator, args.num_processes, args.process_id, device,
+                           backend=args.backend)
     try:
         yield dev, make_mesh(model_axis, dev)
         # Rank 0 serves the store: it leaves once every rank is done with
@@ -362,33 +400,146 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+# A rank's exit code RESTART_EXIT + k asks ``run_local_ranks`` to start every
+# rank again, for the k-th time (the stall watchdog's ``--auto_restart`` under
+# ``--restart_by_exit``, ``train/loop.py``). The rank says k, as it alone
+# knows whether it checkpointed past its resume point, which resets the count.
+RESTART_EXIT = 100
+_PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+
+def _tail(f, limit: Optional[int] = 4000) -> str:
+    f.seek(0)
+    text = f.read().decode(errors="replace")
+    return text if limit is None else text[-limit:]
+
+
+def run_local_ranks(n: int, command: Callable[[int, int], List[str]], capture: bool = False,
+                    timeout_s: Optional[float] = None, cwd: Optional[str] = None,
+                    threads: Optional[int] = None) -> Tuple[int, List[str], List[str]]:
+    """Run ``n`` ranks of one job on this host: rank r runs ``command(r,
+    port)``, ``port`` a free port of 127.0.0.1 for their rendezvous, each
+    with ``threads`` CPU threads (default: ``OMP_NUM_THREADS``, else this
+    host's cores shared out).
+    Returns the job's exit code, each rank's standard output and each failed
+    rank's errors.
+
+    Rank 0 writes to this process's standard output and errors, unless
+    ``capture``; every other rank's output is kept and the end of it shown
+    when it fails. SIGTERM and SIGINT are forwarded to every rank. When a
+    rank fails, the others are killed at once (an NCCL peer would otherwise
+    wait out its timeout), as they are when the job outlasts ``timeout_s``
+    (exit code 124). A rank that exits with ``RESTART_EXIT`` + k has every
+    rank killed and started again on a fresh port, with
+    ``CVM_RESTART_COUNT`` k in their environment. No rank outlives the call, nor this
+    process (Linux kills it with SIGKILL when this process dies)."""
+    import ctypes
+
+    env = dict(os.environ)
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    env.setdefault("OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // n)))
+    env["PYTHONPATH"] = os.pathsep.join([_PACKAGE_ROOT]
+                                        + [p for p in [env.get("PYTHONPATH")] if p])
+    libc = ctypes.CDLL(None)  # PR_SET_PDEATHSIG (1) in each rank between fork and exec
+    die_with_parent = functools.partial(libc.prctl, 1, int(signal.SIGKILL))
+    procs: List[subprocess.Popen] = []
+
+    def forward(signum, frame):
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signum)
+
+    handlers = {}
+    if threading.current_thread() is threading.main_thread():
+        handlers = {sig: signal.signal(sig, forward) for sig in (signal.SIGTERM, signal.SIGINT)}
+    deadline = None if timeout_s is None else time.monotonic() + timeout_s
+    try:
+        while True:
+            with contextlib.ExitStack() as files:
+                outs, errs = ([files.enter_context(tempfile.TemporaryFile()) for _ in range(n)]
+                              for _ in range(2))
+                port = free_port()
+                procs[:] = [subprocess.Popen(command(r, port), cwd=cwd, env=env,
+                                             stdout=outs[r] if capture or r else None,
+                                             stderr=errs[r] if capture or r else None,
+                                             start_new_session=True,
+                                             preexec_fn=die_with_parent)
+                            for r in range(n)]
+                print(f"[cvm_tpu_torch] launched {n} local ranks, pids "
+                      f"{[p.pid for p in procs]}, rendezvous 127.0.0.1:{port}",
+                      file=sys.stderr, flush=True)
+                failed, rc = None, 0
+                try:
+                    while failed is None:
+                        codes = [p.poll() for p in procs]
+                        bad = [r for r, c in enumerate(codes) if c]
+                        if bad:  # a restart asked for, else the first failure seen
+                            failed = next((r for r in bad if RESTART_EXIT < codes[r] < 256),
+                                          bad[0])
+                            rc = codes[failed]
+                        elif None not in codes:
+                            break
+                        elif deadline is not None and time.monotonic() > deadline:
+                            failed, rc = -1, 124
+                        time.sleep(0.05)
+                finally:
+                    for p in procs:
+                        if p.poll() is None:
+                            p.kill()
+                        p.wait()
+                if RESTART_EXIT < rc < 256:
+                    print(f"[cvm_tpu_torch] rank {failed} asked for restart "
+                          f"{rc - RESTART_EXIT}: every rank starts again from the newest "
+                          "checkpoint", file=sys.stderr, flush=True)
+                    env["CVM_RESTART_COUNT"] = str(rc - RESTART_EXIT)
+                    continue
+                said = [_tail(outs[r], None) for r in range(n)] if capture else []
+                problems = [f"rank {r} exited {p.returncode}:\n{_tail(errs[r])}{_tail(outs[r])}"
+                            for r, p in enumerate(procs) if (capture or r) and (
+                                r == failed or p.returncode not in (0, -signal.SIGKILL))]
+                if rc == 124:
+                    problems.insert(0, f"the ranks outlasted {timeout_s} s")
+                elif failed == 0 and not capture:
+                    problems.insert(0, f"rank 0 exited {rc}")
+                if problems and not capture:
+                    print("[cvm_tpu_torch] " + "\n".join(problems), file=sys.stderr, flush=True)
+                return (rc if rc >= 0 else 128 - rc), said, problems
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+
+
 def launch_ranks(n: int, argv: Callable[[int, int], List[str]], timeout_s: float,
                  cwd: Optional[str] = None) -> List[str]:
-    """Run ``n`` local processes, rank r's command line ``argv(r, port)``
-    with ``port`` free for their rendezvous at 127.0.0.1, each pinned to
-    one CPU thread (``OMP_NUM_THREADS``); their standard outputs, by rank.
-    Raises with every failed rank's errors when one fails or the run
-    outlasts ``timeout_s``; no process outlives the call."""
-    port = free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen(argv(r, port), cwd=cwd, env=env, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True) for r in range(n)]
-    outs, errs = [], []
-    try:
-        deadline = time.monotonic() + timeout_s
-        for r, proc in enumerate(procs):
-            out, err = proc.communicate(timeout=max(deadline - time.monotonic(), 1.0))
-            outs.append(out)
-            if proc.returncode != 0:
-                errs.append(f"rank {r} exited {proc.returncode}:\n{err[-3000:]}")
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    if errs:
-        raise RuntimeError("\n".join(errs))
+    """``run_local_ranks`` with every rank's output captured and one CPU
+    thread each: their standard outputs, by rank. Raises with every failed
+    rank's errors when one fails or the run outlasts ``timeout_s``."""
+    rc, outs, problems = run_local_ranks(n, argv, capture=True, timeout_s=timeout_s, cwd=cwd,
+                                         threads=1)
+    if rc:
+        raise RuntimeError("\n".join(problems) or f"the ranks exited {rc}")
     return outs
+
+
+def launch_local(args, world: int, module: str, argv: Optional[Sequence[str]]) -> Optional[int]:
+    """Without ``--coordinator`` and with more than one rank: run
+    ``world`` ranks of ``python -m module`` on this host, each with
+    ``argv`` (this process's arguments when None) plus
+    ``--restart_by_exit`` and its process flags, and return the job's exit
+    code (``run_local_ranks``). None when this process is the whole run
+    (one rank) or a rank of a group."""
+    if args.coordinator is not None or world == 1:
+        return None
+    argv = [*(sys.argv[1:] if argv is None else argv), "--restart_by_exit"]
+    return run_local_ranks(world, lambda r, port: rank_command(module, argv, r, world, port))[0]
+
+
+def rank_command(module: str, argv: Sequence[str], rank: int, world: int,
+                 port: int) -> List[str]:
+    """Rank ``rank``'s command line under ``launch_local``."""
+    return [sys.executable, "-m", module, *argv, "--coordinator", f"127.0.0.1:{port}",
+            "--num_processes", str(world), "--process_id", str(rank)]
 
 
 def single_mesh(device: DeviceLike) -> Mesh:

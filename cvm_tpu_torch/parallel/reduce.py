@@ -118,6 +118,10 @@ class BatchReducer:
         """``x`` summed elementwise over the processes' batches."""
         return x
 
+    def all_max(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``x`` over the processes."""
+        return x
+
     def sum(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every element of ``x`` over the global batch."""
         return self.all_sum(x.sum())
@@ -128,7 +132,7 @@ class BatchReducer:
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
         """The max of every element of ``x`` over the global batch."""
-        return torch.amax(x)
+        return self.all_max(torch.amax(x))
 
 
 LOCAL = BatchReducer()
@@ -147,8 +151,8 @@ class GroupReducer(BatchReducer):
     def mean(self, x: torch.Tensor) -> torch.Tensor:
         return self.sum(x) / (x.numel() * self.size)  # every process holds as many rows
 
-    def max(self, x: torch.Tensor) -> torch.Tensor:
-        return all_reduce_max(torch.amax(x), self.group)
+    def all_max(self, x: torch.Tensor) -> torch.Tensor:
+        return all_reduce_max(x, self.group)
 
     def __deepcopy__(self, memo):
         return self  # a process group is not copied (a model copy shares it)

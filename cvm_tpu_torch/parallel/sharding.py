@@ -37,7 +37,7 @@ import torch.nn as nn
 
 from cvm_tpu_torch.models.layers import BatchNorm, Conv
 from cvm_tpu_torch.parallel.mesh import Mesh, all_gather_rows
-from cvm_tpu_torch.parallel.reduce import sum_backward, sum_forward
+from cvm_tpu_torch.parallel.reduce import GroupReducer, sum_backward, sum_forward
 
 Rules = Sequence[Tuple[str, int]]
 
@@ -92,7 +92,9 @@ class ColumnConv(Conv):
 
 class RowConv(Conv):
     """This rank's C_in slice of a bias-free ``Conv``; the partial outputs
-    are summed over the model group."""
+    are summed over the model group. ``slices`` reduces over that group:
+    QAT's fake quant takes its scales over the slices with it, so that they
+    are the whole tensors' (``train/qat.py``)."""
 
     def __init__(self, conv: Conv, mesh: Mesh):
         if conv.bias is not None:
@@ -100,6 +102,7 @@ class RowConv(Conv):
         super().__init__(conv.in_channels // mesh.model, conv.out_channels, conv.kernel_size[0],
                          conv.stride[0], bias=False, dtype=conv.dtype)
         self.mesh = mesh
+        self.slices = GroupReducer(mesh.model_group, mesh.model)
         with torch.no_grad():
             self.weight = nn.Parameter(_part(conv.weight, 1, mesh).clone())
 

@@ -1,25 +1,43 @@
-"""Checkpoint manager: keep-N, self-describing, exact resume.
+"""Checkpoint manager: keep-N, self-describing, exact resume, asynchronous
+writes.
 
 Mirrors ``cvm_tpu/train/checkpoints.py`` (``CheckpointManager``,
 ``BestCheckpoint``, ``load_params_cfg``) with ``torch.save``/``torch.load``
 in place of Orbax. A checkpoint is one file ``<directory>/<step>.pt``,
 written to a temporary name and moved into place with ``os.replace``, so a
 reader sees a whole checkpoint or none. The model's hyperparameters are
-stored beside them as ``params.json``. Saves are synchronous: ``wait`` has
-nothing to wait for and is kept for the reference's interface.
+stored beside them as ``params.json``.
+
+Saves are asynchronous, as the reference's Orbax manager's
+(``enable_async_checkpointing=True``): ``save`` takes a snapshot of the
+state and returns, and one writer thread writes it. The snapshot copies
+each device tensor into a pinned host buffer (kept and reused by the next
+save) with ``non_blocking=True`` on the current stream, so the in-place
+updates of the steps enqueued after ``save`` run after the copy, and
+records a CUDA event after the copies; CPU tensors are cloned and every
+other object deep-copied. The writer waits for the event, then writes the
+temporary file, moves it into place and drops all but the newest ``keep``
+steps, in that order. At most one save is in flight: ``save`` first waits
+for the one before, as Orbax's does. A write that fails raises at the next
+``save``, ``wait`` or ``close``. A process that dies while a write is in
+flight leaves its temporary file, which ``all_steps`` ignores, and the
+previous checkpoints whole. Opening a manager removes nothing: another
+process (a trainer's writer thread) may be writing in the directory.
 
 Under multi-process training only rank 0 writes (Orbax coordinates one
 write for the reference): the other ranks hold a manager with ``writer``
 False, which creates nothing and whose ``save`` does nothing; the
-``Trainer`` gathers the state first and waits for rank 0 after.
+``Trainer`` gathers the state first.
 """
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 import re
-from typing import Any, Optional
+import threading
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -32,6 +50,9 @@ class CheckpointManager:
             raise ValueError(f"keep must be >= 1, got {keep}")
         self.directory = os.path.abspath(directory)
         self.keep, self.writer = keep, writer
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._pinned: Dict[Tuple, torch.Tensor] = {}  # snapshot buffers, by place in the state
         if not writer:
             return
         os.makedirs(self.directory, exist_ok=True)
@@ -44,21 +65,80 @@ class CheckpointManager:
     def _path(self, step: int) -> str:
         return os.path.join(self.directory, f"{int(step)}.pt")
 
+    @property
+    def pinned_bytes(self) -> int:
+        """The bytes of pinned host memory the snapshots hold."""
+        return sum(t.numel() * t.element_size() for t in self._pinned.values())
+
+    def _snapshot(self, obj: Any, place: Tuple, events: Dict) -> Any:
+        if torch.is_tensor(obj):
+            t = obj.detach()
+            if t.device.type != "cuda":
+                return t.clone()
+            buf = self._pinned.get(place)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = self._pinned[place] = torch.empty(t.shape, dtype=t.dtype,
+                                                        pin_memory=True)
+            buf.copy_(t, non_blocking=True)
+            events.setdefault(t.device, None)
+            return buf
+        if isinstance(obj, dict):
+            return {k: self._snapshot(v, place + (k,), events) for k, v in obj.items()}
+        if type(obj) in (list, tuple):
+            return type(obj)(self._snapshot(v, place + (i,), events) for i, v in enumerate(obj))
+        return copy.deepcopy(obj)
+
     def save(self, step: int, state: Any) -> None:
-        """Write ``state`` (tensors, numbers, strings, lists, dicts) as
-        ``step``, then drop all but the newest ``keep`` steps (nothing when
-        this is not the writer)."""
+        """Snapshot ``state`` (tensors, numbers, strings, lists, dicts) and
+        write it as ``step`` in the background, then drop all but the
+        newest ``keep`` steps (nothing when this is not the writer). Waits
+        for the save before it first; raises its error."""
         if not self.writer:
             return
+        self.wait()
+        events: Dict[torch.device, Any] = {}
+        snap = self._snapshot(state, (), events)
+        for dev in events:  # after the copies on each card's current stream
+            events[dev] = torch.cuda.Event()
+            events[dev].record(torch.cuda.current_stream(dev))
+        self._thread = threading.Thread(target=self._write, args=(int(step), snap,
+                                                                  list(events.values())),
+                                        name=f"checkpoint-{int(step)}", daemon=True)
+        self._thread.start()
+
+    def _write(self, step: int, snap: Any, events) -> None:
         path = self._path(step)
         tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(state, tmp)
-        os.replace(tmp, path)
-        for old in self.all_steps()[:-self.keep]:
-            os.remove(self._path(old))
+        try:
+            for ev in events:
+                ev.synchronize()
+            torch.save(snap, tmp)
+            os.replace(tmp, path)
+            for old in self.all_steps()[:-self.keep]:
+                os.remove(self._path(old))
+        except BaseException as e:  # raised by the next save, wait or close
+            self._error = e
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+    def wait(self) -> None:
+        """Wait for the save in flight, if any; raise its error."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            e, self._error = self._error, None
+            raise RuntimeError(f"the checkpoint write to {self.directory} failed: {e}") from e
+
+    def close(self) -> None:
+        """Wait for the save in flight and release the snapshot buffers."""
+        try:
+            self.wait()
+        finally:
+            self._pinned.clear()
 
     def all_steps(self) -> list:
-        """Steps on disk, ascending (bounded by keep-N)."""
+        """Steps on disk, ascending (bounded by keep-N): whole files only."""
         if not os.path.isdir(self.directory):
             return []
         return sorted(int(m.group(1)) for m in map(_NAME.match, os.listdir(self.directory))
@@ -77,9 +157,6 @@ class CheckpointManager:
         step = self.latest_step()
         return None if step is None else self.restore_step(step, map_location)
 
-    def wait(self) -> None:
-        """Saves complete before ``save`` returns."""
-
 
 class BestCheckpoint:
     """Keep the single best-by-eval-metric checkpoint (``--keep_best``): a
@@ -96,7 +173,8 @@ class BestCheckpoint:
         if os.path.exists(self._meta):
             with open(self._meta) as f:
                 d = json.load(f)
-            # Honor a bar only when its checkpoint is on disk.
+            # Honor a bar only when its checkpoint is on disk: the sidecar
+            # is written when the (asynchronous) save is issued.
             if (d.get("metric") == metric and d.get("mode", "max") == mode
                     and self._mngr.latest_step() == int(d.get("step", -1))):
                 self.best = float(d["value"])
@@ -120,6 +198,9 @@ class BestCheckpoint:
 
     def wait(self) -> None:
         self._mngr.wait()
+
+    def close(self) -> None:
+        self._mngr.close()
 
 
 def load_params_cfg(directory: str, params_cls):

@@ -29,7 +29,11 @@ step): the input pipeline (``await_batch``), or the device (``transfer``,
 re-execs that command (``_maybe_auto_restart``, at most ``max_restarts``
 times, counted in ``CVM_RESTART_COUNT``, which a checkpoint past the
 resume point clears), so that the new process resumes from the newest
-checkpoint. A process that was stopped (SIGSTOP) and resumed sees its
+checkpoint. With ``restart_by_exit`` (a rank of the local launcher,
+``parallel/mesh.py::run_local_ranks``) it exits instead, with the code
+that asks the launcher to start every rank again. Neither waits for a checkpoint write in flight: a
+stalled device never completes its snapshot copy, and the newest whole
+checkpoint is the one before. A process that was stopped (SIGSTOP) and resumed sees its
 watcher oversleep and does not count the pause. The time spent waiting
 for a batch is not counted against the device either: the quiet clock
 restarts when a batch arrives (the reference's keeps running, so a watcher
@@ -74,7 +78,13 @@ all-reduces a flag, which the host reads only once it has waited for that
 step's event anyway (up to ``MAX_INFLIGHT`` steps later on a card) or when
 ``fit`` ends, so the in-flight window stays open. The watchdog's re-exec would restart one rank,
 which cannot rejoin the group, so ``restart_argv`` is refused under a
-group of two or more.
+group of two or more, unless ``restart_by_exit`` says a launcher restarts
+them all.
+
+Checkpoints are written in the background (``train/checkpoints.py``): a
+save takes a snapshot and returns, so the steps go on while rank 0 writes;
+``fit`` waits for the write in flight when it ends, as the reference's
+does, and so does a stop, which ends ``fit``.
 """
 
 from __future__ import annotations
@@ -94,7 +104,7 @@ import torch.nn as nn
 from cvm_tpu_torch.data.loader import prefetch_to_device
 from cvm_tpu_torch.models.layers import BatchNorm
 from cvm_tpu_torch.models.registry import build_model, get_model
-from cvm_tpu_torch.parallel.mesh import Mesh, single_mesh
+from cvm_tpu_torch.parallel.mesh import RESTART_EXIT, Mesh, single_mesh
 from cvm_tpu_torch.parallel.reduce import LOCAL
 from cvm_tpu_torch.parallel.sharding import (gather_state_dict, shard_module,
                                              shard_state_dict, split_norm, tp_rules_for)
@@ -251,9 +261,11 @@ class Trainer:
     ``tensorboard_dir`` adds a TensorBoard event writer beside the JSONL
     one (``metrics_writer`` is then a ``MultiWriter``). ``restart_argv``
     (a command line, ``cli.train --auto_restart``) arms the watchdog's
-    re-exec, at most ``max_restarts`` times. ``tx`` builds the optimizer
-    from the parameter list in place of the config's (the LR finder's
-    sweep)."""
+    re-exec, at most ``max_restarts`` times; ``restart_by_exit`` makes it
+    an exit (``RESTART_EXIT`` + the restart's number) for a launcher that
+    restarts every rank (``cli.train --restart_by_exit``, which the local
+    launcher passes its ranks). ``tx`` builds the optimizer from the
+    parameter list in place of the config's (the LR finder's sweep)."""
 
     # Steps the host may enqueue ahead of the device before it waits: the
     # bound on the run-ahead that makes the watchdog's heartbeat the device's.
@@ -266,13 +278,13 @@ class Trainer:
                  seed: int = 0, restart_argv: Optional[Sequence[str]] = None,
                  max_restarts: int = 3, debug_nans: bool = False,
                  tx: Optional[Callable[[List[torch.Tensor]], Optimizer]] = None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, restart_by_exit: bool = False):
         self.cfg = params_cfg
         self.device = resolve_device(device)
         self.mesh = mesh if mesh is not None else single_mesh(self.device)
         if self.mesh.device != self.device:
             raise ValueError(f"device {self.device} is not the mesh's {self.mesh.device}")
-        if restart_argv is not None and self.mesh.world > 1:
+        if restart_argv is not None and self.mesh.world > 1 and not restart_by_exit:
             raise ValueError("auto-restart re-execs one process, which cannot rejoin a "
                              f"process group of {self.mesh.world}: restart the whole job "
                              "(every rank resumes from the newest checkpoint)")
@@ -283,7 +295,7 @@ class Trainer:
         self.split: Dict[str, int] = {}   # tensor-parallel slices: {name: dim}
         self.log_every, self.checkpoint_every, self.seed = log_every, checkpoint_every, seed
         self.restart_argv = None if restart_argv is None else list(restart_argv)
-        self.max_restarts = max_restarts
+        self.max_restarts, self.restart_by_exit = max_restarts, restart_by_exit
         self.tx = tx
         self.data_state = None      # data stream state restored from a checkpoint
         self._stop_requested = False  # asked on this rank
@@ -447,8 +459,14 @@ class Trainer:
                 "optimizer": opt, "ema": ema, "host": host}
 
     def _save(self, data_state) -> None:
+        """Every rank gathers the state; rank 0 issues its write (which
+        waits for the write before it) while the others wait."""
         state = self.checkpoint_state(data_state)
         self.mesh.from_rank0("save", lambda: self.ckpt.save(self.state.step, state))
+
+    def _wait_saved(self) -> None:
+        """Wait (on every rank) until rank 0's write in flight is on disk."""
+        self.mesh.from_rank0("saved", self.ckpt.wait)
 
     def _maybe_auto_restart(self, quiet_s: float) -> None:
         """Device-stall recovery: re-exec ``restart_argv`` (bounded retries).
@@ -458,7 +476,12 @@ class Trainer:
         checkpoint in ``init_state``. Progress since that checkpoint is
         lost. Does nothing without ``restart_argv`` or a checkpoint
         directory. The count of restarts crosses the exec in
-        ``CVM_RESTART_COUNT``."""
+        ``CVM_RESTART_COUNT``. With ``restart_by_exit`` the process exits
+        with ``RESTART_EXIT`` + the restart's number instead: its launcher
+        ends the other ranks and starts them all again, the count in their
+        environment. A write in
+        flight is not waited for (the stalled device would never complete
+        its snapshot)."""
         if self.restart_argv is None or self.ckpt is None:
             return
         count = int(os.environ.get("CVM_RESTART_COUNT", "0"))
@@ -467,6 +490,12 @@ class Trainer:
                   "on auto-recovery (persistent device failure)", file=sys.stderr, flush=True)
             return
         step = self.ckpt.latest_step()
+        if self.restart_by_exit:
+            print(f"[cvm_tpu_torch] AUTO-RESTART {count + 1}/{self.max_restarts}: device "
+                  f"stalled {quiet_s:.0f}s on rank {self.mesh.rank}; exiting so that the "
+                  f"launcher restarts every rank from checkpoint step {step}",
+                  file=sys.stderr, flush=True)
+            os._exit(RESTART_EXIT + count + 1)
         os.environ["CVM_RESTART_COUNT"] = str(count + 1)
         print(f"[cvm_tpu_torch] AUTO-RESTART {count + 1}/{self.max_restarts}: device stalled "
               f"{quiet_s:.0f}s; re-exec'ing to resume from checkpoint step {step}: "
@@ -538,7 +567,8 @@ class Trainer:
         ``data_iter``; returns the last metrics (floats, with
         ``steps_per_sec``). Logs at step 1 and every ``log_every`` steps,
         checkpoints every ``checkpoint_every`` steps and on a stop request,
-        under the stall watchdog."""
+        under the stall watchdog; returns once the last checkpoint is on
+        disk."""
         if self.state is None:
             raise RuntimeError("call init_state() first")
         step = self.state.step
@@ -634,4 +664,6 @@ class Trainer:
         if steps_in_window and metrics is not None:
             last = {k: float(v) for k, v in metrics.items()}
             last["steps_per_sec"] = steps_in_window / max(time.perf_counter() - t0, 1e-9)
+        if self.ckpt is not None:
+            self._wait_saved()
         return last

@@ -284,6 +284,7 @@ def test_artifact_refusals_and_tiled(setup, artifact, tmp_path):
     tr = Trainer(cfg, "cpu", checkpoint_dir=str(tmp_path / "sem"))
     tr.init_state()
     tr.ckpt.save(1, tr.checkpoint_state(None))
+    tr.ckpt.wait()  # the write is asynchronous
     # --tiled runs now: one line per image at its own size (the held
     # stitching is tests/test_torch_tiled.py)
     rc, lines, err = _run(infer_main, base + ["--checkpoint_dir", str(tmp_path / "sem"),

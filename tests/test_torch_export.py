@@ -66,6 +66,7 @@ def write_checkpoint(directory, cfg, state_dict):
     tr.state.model.load_state_dict(state_dict, strict=True)
     tr.state.step = 1
     tr.ckpt.save(1, tr.checkpoint_state(None))
+    tr.ckpt.wait()  # the write is asynchronous
     return str(directory)
 
 

@@ -404,6 +404,7 @@ def test_cli_infer_artifact_launches_k2_24_times_per_batch(cuda_device, tmp_path
     tr.init_state()
     tr.state.step = 1
     tr.ckpt.save(1, tr.checkpoint_state(None))
+    tr.ckpt.wait()  # the write is asynchronous
     art = str(tmp_path / "art")
     assert export_main(["--model", "centernet", "--checkpoint_dir", str(tmp_path / "ck"),
                         "--out", art, "--input_format", "rgb", "--quantize",

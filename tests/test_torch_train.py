@@ -365,6 +365,7 @@ def test_checkpoint_manager_keep_n_best_and_params(tmp_path):
     m = CheckpointManager(str(tmp_path / "c"), keep=2, params_cfg=cfg)
     for s in (1, 2, 3, 5, 4):
         m.save(s, {"step": s, "t": torch.full((2,), float(s))})
+    m.wait()  # the writes are asynchronous
     assert m.all_steps() == [4, 5] and m.latest_step() == 5
     assert float(m.restore_latest()["t"][0]) == 5.0 and m.restore_step(4)["step"] == 4
     assert not [f for f in os.listdir(tmp_path / "c") if f.endswith(".tmp")]
@@ -373,6 +374,7 @@ def test_checkpoint_manager_keep_n_best_and_params(tmp_path):
     best = BestCheckpoint(str(tmp_path / "best"), "mAP", "max")
     assert best.update(1, {"v": 1}, 0.5) and not best.update(2, {"v": 2}, 0.4)
     assert best.update(3, {"v": 3}, 0.7)
+    best.wait()
     again = BestCheckpoint(str(tmp_path / "best"), "mAP", "max")
     assert again.best == 0.7 and again._mngr.all_steps() == [3]
 

@@ -12,18 +12,22 @@ one-process run, which the tests and ``chip_smoke.py`` call in-process.
 Modes:
 
 * ``train --model NAME --config tiny|B --steps S [--model_parallel M]
-  [--tensor_parallel] [--ckdir D]``: S steps of the registry's model on
-  global batches of synthetic scenes seeded per step (every rank makes the
-  whole batch and keeps its rows), through ``Trainer.fit``; the losses and
-  metrics of every step, K1's launches, a float64 checksum of the whole
-  parameters, each stage-5 parameter's shape on this rank, ms per step,
-  the all-reduces of each step and their bytes, and with ``--ckdir`` a
-  checkpoint of the last step.
+  [--tensor_parallel] [--ckdir D] [--qat] [--float32]``: S steps of the
+  registry's model on global batches of synthetic scenes seeded per step
+  (every rank makes the whole batch and keeps its rows), through
+  ``Trainer.fit``; the losses and metrics of every step, K1's launches, a
+  float64 checksum of the whole parameters, each stage-5 parameter's shape
+  on this rank, ms per step, the all-reduces of each step and their bytes,
+  with ``--ckdir`` a checkpoint of the last step, and with ``--qat`` the
+  fake quant's scales of every ``s5b*.c2`` conv in every forward;
+  ``--float32`` runs every conv in float32.
 * ``grads --npz IN --steps S``: from IN's model weights (``sd/<name>``),
   processed inputs (``inputs``), targets (``t/<field>``) and config
   (``cfg``, JSON), the first step's averaged gradients, then S SGD steps'
   metrics, each rank on its rows of the inputs; every conv in float32
-  when IN's ``float32`` is set.
+  when IN's ``float32`` is set; with the config's ``tensor_parallel``
+  the stage-5 blocks split over ``--model_parallel``, and with its
+  ``qat`` the fake quant's ``s5b*.c2`` scales, as ``train``'s.
 * ``stop --steps S``: one ``Trainer.fit`` over S steps of the tiny
   CenterNet in which the last rank alone asks to stop as it takes its
   third batch; the step each rank stopped at and its ``stop_requested``.
@@ -54,7 +58,22 @@ Modes:
   sets the group's collective timeout to T seconds once it has formed;
   ``--slow_best S`` makes the first ``BestCheckpoint.update`` (rank 0's
   ``--keep_best`` write) sleep S seconds first; ``--late_best L`` makes
-  every other rank reach each ``from_rank0("best")`` L seconds late.
+  every other rank reach each ``from_rank0("best")`` L seconds late;
+  ``--hang_rank R --hang_step S`` stalls training step S on rank R in the
+  first image of a run (``CVM_RESTART_COUNT`` unset; ``torch_hang_child.py``'s
+  stall: the device sleeps ``CVM_HANG_S`` seconds on a card, the host an
+  hour on the CPU); ``--fail_rank R --hang_step S`` raises in step S on
+  rank R instead. Events go to FILE.events, a line each: ``hang``,
+  ``restart`` (the watchdog's), ``start`` and ``first_step`` (this image's
+  first step ended on the device), with the rank, ``time.time()`` and
+  ``CVM_RESTART_COUNT``. ``--tiny_benchmark`` gives ``cli.benchmark`` two tiny
+  configs: A (semseg, batch 1, serving) and E (CenterNet, batch 2,
+  training).
+* ``local --module M --argv JSON``: this process is the launcher: ``M.main``
+  on JSON (no ``--coordinator``; ``--num_processes`` or the visible cards
+  say how many ranks), whose ranks ``parallel/mesh.py::launch_local`` starts
+  as this script's ``cli`` mode (with this command line's hooks), each
+  writing FILE.rank<r>; FILE holds the launcher's exit code.
 
 ``grads``, ``spatial``, ``forward``, ``serve`` and ``evaluate`` take
 several IN, comma-separated: one result each, in order (the arrays of the
@@ -134,19 +153,66 @@ def _counting_all_reduces():
         dist.all_reduce = real
 
 
+@contextlib.contextmanager
+def _recording_scales(model: torch.nn.Module):
+    """``{conv name: [[activation scale, *weight scales], ...]}`` of the
+    fake quant of the row-split convs' places (``s5b*.c2``) while open, one
+    entry per forward: the scales ``train/qat.py`` computed."""
+    import re
+
+    from cvm_tpu_torch.train import qat
+
+    names = {id(m): n for n, m in model.named_modules() if re.search(r"s5b\d+\.c2\.conv$", n)}
+    real_fq, real_act, real_w = qat.fq_conv, qat.act_scale, qat.weight_scale
+    current, got = [None], {}
+
+    def fq(conv, *args, **kwargs):
+        current[0] = names.get(id(conv))
+        try:
+            return real_fq(conv, *args, **kwargs)
+        finally:
+            current[0] = None
+
+    def act(*args, **kwargs):
+        s = real_act(*args, **kwargs)
+        if current[0]:
+            got.setdefault(current[0], []).append([float(s)])
+        return s
+
+    def weight(*args, **kwargs):
+        s = real_w(*args, **kwargs)
+        if current[0]:
+            got[current[0]][-1].extend(s.reshape(-1).tolist())
+        return s
+
+    qat.fq_conv, qat.act_scale, qat.weight_scale = fq, act, weight
+    try:
+        yield got
+    finally:
+        qat.fq_conv, qat.act_scale, qat.weight_scale = real_fq, real_act, real_w
+
+
 def run_train(mesh, device, model: str, config: str, steps: int, tensor_parallel=False,
-              ckdir=None, batch=None):
+              ckdir=None, batch=None, qat=False, float32=False):
     batch = batch or GLOBAL_BATCH[config]
     fields, _, _ = CONFIGS[config][model]
     cfg = get_model(model).params_cls(**fields, batch_size=batch, warmup_steps=2,
-                                      total_steps=100, tensor_parallel=tensor_parallel)
+                                      total_steps=100, tensor_parallel=tensor_parallel,
+                                      qat=qat)
     trainer = Trainer(cfg, device if mesh is None else mesh.device, mesh=mesh,
                       checkpoint_dir=ckdir, checkpoint_every=steps, log_every=1)
     trainer.init_state()
+    if float32:
+        from cvm_tpu_torch.models.layers import Conv
+
+        for m in trainer.state.model.modules():
+            if isinstance(m, Conv):
+                m.dtype = torch.float32  # every conv computes in float32
     rows = slice(None) if mesh is None else slice(*mesh.batch_rows(batch)[:2])
     losses, metrics, ms, reduces = [], [], [], []
     gaussian_splat.reset_counts()
-    with _counting_all_reduces() as count:
+    with (_recording_scales(trainer.state.model) if qat else contextlib.nullcontext({})) \
+            as scales, _counting_all_reduces() as count:
         for step in range(steps):
             raw = {k: v[rows] for k, v in global_batch(step, model, config, batch).items()}
             t0 = time.perf_counter()
@@ -161,7 +227,8 @@ def run_train(mesh, device, model: str, config: str, steps: int, tensor_parallel
     return {"losses": losses, "metrics": metrics, "ms": ms, "checksum": checksum,
             "all_reduces": [n for n, _ in reduces], "all_reduce_bytes": [b for _, b in reduces],
             "k1": gaussian_splat.render_heatmap.launches,
-            "shapes": stage5(trainer.state.model), "split": sorted(trainer.split)}
+            "shapes": stage5(trainer.state.model), "split": sorted(trainer.split),
+            "scales": scales}
 
 
 def run_stop(mesh, steps: int):
@@ -216,21 +283,32 @@ def load_model(mesh, device, npz):
 
 def run_grads(mesh, device, path: str, steps: int):
     """The first step's averaged gradients and ``steps`` SGD steps' metrics
-    on IN's processed inputs (identity processor), with SGD."""
+    on IN's processed inputs (identity processor), with SGD; the stage-5
+    blocks split over the model axis when IN's config has
+    ``tensor_parallel`` (the gradients of split tensors this rank's
+    slices), and with its ``qat`` the ``s5b*.c2`` scales of every forward
+    (``scales``, as ``run_train``'s)."""
+    from cvm_tpu_torch.parallel.sharding import shard_module, split_norm, tp_rules_for
+
     npz = np.load(path)
     spec, cfg, model = load_model(mesh, device, npz)
     rows = slice(None) if mesh is None else slice(*mesh.batch_rows(cfg.batch_size)[:2])
     inputs = torch.from_numpy(npz["inputs"]).to(device)[rows]
     targets = _rows(_targets(npz, device), rows)
+    split = {}
     if mesh is not None:
         from cvm_tpu_torch.models.layers import BatchNorm
 
+        if getattr(cfg, "tensor_parallel", False):
+            split = shard_module(model, mesh, tp_rules_for(spec.name))
         for m in model.modules():
             if isinstance(m, BatchNorm):
                 m.reducer = mesh.reducer
     opt = make_optimizer(list(model.parameters()), cfg.learning_rate, cfg.total_steps,
                          cfg.warmup_steps, cfg.weight_decay, lr_schedule=cfg.lr_schedule,
                          optimizer=cfg.optimizer)
+    if split:
+        opt.norm = split_norm([n in split for n, _ in model.named_parameters()], mesh)
     state = create_train_state(model, cfg, opt)
     names = [n for n, _ in model.named_parameters()]
     grads = {}
@@ -249,10 +327,12 @@ def run_grads(mesh, device, path: str, steps: int):
 
     opt.step = record
     metrics = []
-    for _ in range(steps):
-        state, m = step(state, None, None)
-        metrics.append({k: float(v) for k, v in m.items()})
-    return {"metrics": metrics}, grads
+    with (_recording_scales(model) if getattr(cfg, "qat", False)
+          else contextlib.nullcontext({})) as scales:
+        for _ in range(steps):
+            state, m = step(state, None, None)
+            metrics.append({k: float(v) for k, v in m.items()})
+    return {"metrics": metrics, "split": sorted(split), "scales": scales}, grads
 
 
 def run_bn(mesh, device, path: str):
@@ -352,6 +432,48 @@ def run_evaluate(mesh, device, path: str):
                                       **opts)}, {}
 
 
+def _event(a, name: str) -> None:
+    with open(a.out + ".events", "a") as f:
+        f.write(f"{name} {a.rank} {time.time()!r} {os.environ.get('CVM_RESTART_COUNT', '-')}\n")
+
+
+def _step_hooks(a) -> None:
+    """``--hang_rank / --fail_rank`` at ``--hang_step``, and the ``first_step``
+    and ``restart`` events, in every ``Trainer`` this process builds."""
+    from cvm_tpu_torch.train import loop
+
+    make, restart = loop.make_train_step, loop.Trainer._maybe_auto_restart
+    first_image = "CVM_RESTART_COUNT" not in os.environ
+
+    def make_step(*args, **kwargs):
+        real, calls = make(*args, **kwargs), [0]
+
+        def step(state, raw, gen):
+            calls[0] += 1
+            if first_image and calls[0] == a.hang_step and a.rank == a.hang_rank:
+                sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+                from torch_hang_child import stall
+
+                _event(a, "hang")
+                stall(torch.device(a.device).type == "cuda")
+            if first_image and calls[0] == a.hang_step and a.rank == a.fail_rank:
+                raise RuntimeError(f"rank {a.rank} fails in step {calls[0]} (--fail_rank)")
+            out = real(state, raw, gen)
+            if calls[0] == 1:
+                float(out[1]["loss"])  # waits for the device
+                _event(a, "first_step")
+            return out
+
+        return step
+
+    def stamped_restart(self, quiet_s):
+        _event(a, "restart")
+        restart(self, quiet_s)
+
+    loop.make_train_step = make_step
+    loop.Trainer._maybe_auto_restart = stamped_restart
+
+
 def run_cli(a):
     import contextlib
     import importlib
@@ -359,8 +481,19 @@ def run_cli(a):
 
     from cvm_tpu_torch.parallel import mesh
 
+    _event(a, "start")
     argv = json.loads(a.argv) + ["--coordinator", f"127.0.0.1:{a.port}", "--num_processes",
                                  str(a.world), "--process_id", str(a.rank)]
+    if a.hang_rank >= 0 or a.fail_rank >= 0:
+        _step_hooks(a)
+    if a.tiny_benchmark:
+        from cvm_tpu_torch.cli import benchmark
+
+        benchmark._configs = lambda: {
+            "A": ("semseg", get_model("semseg").params_cls(**CONFIGS["tiny"]["semseg"][0],
+                                                           batch_size=1), "infer"),
+            "E": ("centernet", get_model("centernet").params_cls(
+                **CONFIGS["tiny"]["centernet"][0], batch_size=2), "train")}
     form = mesh.init_distributed
 
     def init(*args, **kw):
@@ -404,6 +537,25 @@ def run_cli(a):
             "k2": fused_qconv.fused_qconv.launches}
 
 
+def run_local(a) -> int:
+    """``local`` mode: ``M.main`` as the launcher of ``cli``-mode ranks."""
+    import importlib
+
+    from cvm_tpu_torch.parallel import mesh
+
+    hooks = ["--timeout", a.timeout, "--hang_rank", a.hang_rank, "--fail_rank", a.fail_rank,
+             "--hang_step", a.hang_step] + (["--tiny_benchmark"] if a.tiny_benchmark else [])
+
+    def rank_command(module, argv, rank, world, port):
+        return [sys.executable, os.path.abspath(__file__), "--rank", str(rank), "--world",
+                str(world), "--port", str(port), "--device", a.device, "--backend", a.backend,
+                "--out", f"{a.out}.rank{rank}", *map(str, hooks), "cli", "--module", module,
+                "--argv", json.dumps(list(argv))]
+
+    mesh.rank_command = rank_command
+    return importlib.import_module(a.module).main(json.loads(a.argv))
+
+
 # The modes that take several IN: mode -> run(mesh, device, IN, flags).
 RUNS = {"grads": lambda mesh, device, path, a: run_grads(mesh, device, path, a.steps),
         "spatial": lambda mesh, device, path, a: run_spatial(mesh, device, path),
@@ -435,20 +587,22 @@ def launch(world: int, args, out_dir: str, device: str = "cpu", timeout: float =
 
 def main() -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--rank", type=int, required=True)
-    p.add_argument("--world", type=int, required=True)
-    p.add_argument("--port", type=int, required=True)
+    p.add_argument("--rank", type=int, default=0)
+    p.add_argument("--world", type=int, default=1)
+    p.add_argument("--port", type=int, default=0)
     p.add_argument("--device", default="cpu")
     p.add_argument("--backend", default="gloo")
     p.add_argument("--out", required=True)
     p.add_argument("mode", choices=["train", "grads", "bn", "stop", "join", "spatial",
-                                    "forward", "serve", "evaluate", "cli"])
+                                    "forward", "serve", "evaluate", "cli", "local"])
     p.add_argument("--model", default="centernet")
     p.add_argument("--config", default="tiny")
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--batch", type=int, default=None)
     p.add_argument("--model_parallel", type=int, default=1)
     p.add_argument("--tensor_parallel", action="store_true")
+    p.add_argument("--qat", action="store_true")
+    p.add_argument("--float32", action="store_true")
     p.add_argument("--ckdir", default=None)
     p.add_argument("--npz", default=None)
     p.add_argument("--reps", type=int, default=0)
@@ -457,6 +611,10 @@ def main() -> int:
     p.add_argument("--timeout", type=float, default=0.0)
     p.add_argument("--slow_best", type=float, default=0.0)
     p.add_argument("--late_best", type=float, default=0.0)
+    p.add_argument("--hang_rank", type=int, default=-1)
+    p.add_argument("--fail_rank", type=int, default=-1)
+    p.add_argument("--hang_step", type=int, default=4)
+    p.add_argument("--tiny_benchmark", action="store_true")
     a = p.parse_args()
     if a.device == "cpu":
         torch.set_num_threads(1)
@@ -465,6 +623,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    if a.mode == "local":  # the CLI launches the ranks
+        rc = run_local(a)
+        with open(a.out, "w") as f:
+            json.dump({"rc": rc}, f)
+        return 0
     if a.mode == "cli":  # the CLI forms the group
         out = run_cli(a)
         with open(a.out, "w") as f:
@@ -477,7 +640,7 @@ def main() -> int:
         out, arrays = {}, {}
         if a.mode == "train":
             out = run_train(mesh, device, a.model, a.config, a.steps, a.tensor_parallel,
-                            a.ckdir, a.batch)
+                            a.ckdir, a.batch, a.qat, a.float32)
         elif a.mode == "bn":
             out, arrays = run_bn(mesh, device, a.npz)
         elif a.mode == "stop":

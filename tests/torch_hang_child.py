@@ -44,6 +44,18 @@ CONFIGS = {
 }
 
 
+def stall(on_card: bool) -> None:
+    """Stall the step that calls this: print ``HANGING <t>``, then on a card
+    sleep on the device for ``CVM_HANG_S`` seconds (default 30; the host
+    goes on enqueueing), on the CPU block the host for an hour."""
+    print(f"HANGING {time.time()!r}", flush=True)
+    if on_card:
+        # ~1.98e9 cycles a second at the H100's boost clock
+        torch.cuda._sleep(int(float(os.environ.get("CVM_HANG_S", "30")) * 2e9))
+    else:
+        time.sleep(3600)
+
+
 def main(ckdir: str, total_steps: int, device: str, config: str, mode: str) -> int:
     torch.set_num_threads(1)
     fields, pad_hw = CONFIGS[config]
@@ -67,12 +79,7 @@ def main(ckdir: str, total_steps: int, device: str, config: str, mode: str) -> i
     def step(state, raw, gen):
         calls[0] += 1
         if mode == "hang" and first_image and calls[0] == 4:
-            print(f"HANGING {time.time()!r}", flush=True)
-            if on_card:
-                # ~1.98e9 cycles a second at the H100's boost clock
-                torch.cuda._sleep(int(float(os.environ.get("CVM_HANG_S", "30")) * 2e9))
-            else:
-                time.sleep(3600)
+            stall(on_card)
         out = real_step(state, raw, gen)
         if calls[0] == 1:
             float(out[1]["loss"])  # waits for the device
