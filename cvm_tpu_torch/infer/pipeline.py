@@ -39,6 +39,13 @@ partial int32 sums. A ``spatial_shard`` semseg head runs H-sharded over the
 model axis (``SpatialConv3x3``). ``__call__`` shards its batch through
 ``shard_predict``, which shards any batch function alike (an artifact's
 ``predict_batch``).
+
+Under a recording ``torch.profiler`` a call shows as the ranges
+``cvm.infer.call`` (the whole call) and, inside it, ``cvm.infer.h2d``,
+``cvm.infer.preprocess``, ``cvm.infer.forward`` and
+``cvm.infer.postprocess`` (``utils/prof.py::span``, which lists what each
+covers); without one they record nothing, and an exported ``run`` holds
+none of them.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from cvm_tpu_torch.parallel.reduce import LOCAL
 from cvm_tpu_torch.pipeline.preprocess import preprocess_image_batch, preprocess_yuv420_batch
 from cvm_tpu_torch.utils.batch import pad_rows
 from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
+from cvm_tpu_torch.utils.prof import span
 
 _MODELS = ("centernet", "semseg", "depth", "multitask", "dmds")
 
@@ -271,10 +279,14 @@ class InferencePipeline:
         """``predict`` without its ``no_grad``: the steps ``cli/export.py``
         records as a program."""
         d = dict(zip(self.keys, data))
-        proc, rois = self._preprocess(d)
-        if self.cfg.name == "dmds":  # frame t+1 through the same ROI (same image_hw)
-            proc = torch.cat([proc, self._preprocess(d, "_t1")[0]], dim=-1)
-        return postprocess(self.cfg, self.heads(proc), rois, d.get("intrinsics"))
+        with span("cvm.infer.preprocess"):
+            proc, rois = self._preprocess(d)
+            if self.cfg.name == "dmds":  # frame t+1 through the same ROI (same image_hw)
+                proc = torch.cat([proc, self._preprocess(d, "_t1")[0]], dim=-1)
+        with span("cvm.infer.forward"):
+            out = self.heads(proc)
+        with span("cvm.infer.postprocess"):
+            return postprocess(self.cfg, out, rois, d.get("intrinsics"))
 
     def _preprocess(self, d: Dict[str, torch.Tensor], frame: str = ""):
         hw = self.cfg.input_hw
@@ -289,18 +301,21 @@ class InferencePipeline:
         (labels) are ignored. A ``with_3d`` batch without ``intrinsics``
         gets placeholder ones ([1, 1, 0, 0], as the reference): the 3D
         outputs are then geometrically meaningless but well formed."""
-        if self.with_3d and "intrinsics" not in batch:
-            n = batch["image_hw"].shape[0]
-            batch = dict(batch, intrinsics=np.tile(np.float32([[1.0, 1.0, 0.0, 0.0]]), (n, 1)))
-        args = [batch[k] for k in self.keys]
-        args = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args]
-        n = int(args[0].shape[0])
-        padded = dict(zip(self.keys, pad_rows(args, self.cfg.batch_size)))
-        out = shard_predict(self.mesh, self._predict_host)(padded)
-        return {k: v[:n] for k, v in out.items()}
+        with span("cvm.infer.call"):
+            if self.with_3d and "intrinsics" not in batch:
+                n = batch["image_hw"].shape[0]
+                batch = dict(batch, intrinsics=np.tile(np.float32([[1.0, 1.0, 0.0, 0.0]]), (n, 1)))
+            args = [batch[k] for k in self.keys]
+            args = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args]
+            n = int(args[0].shape[0])
+            padded = dict(zip(self.keys, pad_rows(args, self.cfg.batch_size)))
+            out = shard_predict(self.mesh, self._predict_host)(padded)
+            return {k: v[:n] for k, v in out.items()}
 
     def _predict_host(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        return self.predict(*(torch.from_numpy(batch[k]).to(self.device) for k in self.keys))
+        with span("cvm.infer.h2d"):
+            data = [torch.from_numpy(batch[k]).to(self.device) for k in self.keys]
+        return self.predict(*data)
 
 
 def shard_predict(mesh, predict: Callable[[Dict[str, Any]], Dict[str, Any]]

@@ -18,7 +18,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[2]           # cvm_tpu_torch/
@@ -27,9 +26,6 @@ BUILD_DIR = _PKG.parent / "build" / "cvm_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 CXX_FLAGS = ("-O3", "-Wall", "-fPIC", "-shared")
-
-# Seconds each library took to build in this process (0.0 = found built).
-BUILD_SECONDS: dict = {}
 
 
 def _nvcc() -> str:
@@ -65,7 +61,6 @@ def _build(name: str, src: Path, compiler, flags: tuple, libs: tuple,
     links = tuple(f"-l{lib}" for lib in libs)
     digest = hashlib.sha256(src.read_bytes() + " ".join(flags + links).encode())
     so = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
-    t0 = time.perf_counter()
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
@@ -77,7 +72,6 @@ def _build(name: str, src: Path, compiler, flags: tuple, libs: tuple,
                                f"(rc={proc.returncode}){': ' + what if what else ''}:\n"
                                f"{proc.stderr[-4000:]}")
         os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
-    BUILD_SECONDS[name] = time.perf_counter() - t0
     return ctypes.CDLL(str(so))
 
 

@@ -1,5 +1,6 @@
 """Profiling helpers; mirrors ``cvm_tpu/utils/prof.py`` (``trace``,
-``start_server``, ``StepTimer``).
+``start_server``, ``StepTimer``), and the port's one span primitive,
+``span``.
 
 ``trace`` records a ``torch.profiler`` trace (host and, on a card, CUDA
 activity) and writes it as a Chrome trace file (``trace.json``, readable
@@ -8,6 +9,24 @@ by Perfetto or ``chrome://tracing``) into ``log_dir``; the reference writes
 devices of the given tensors before it stops its clock, as the reference's
 ``block_until_ready`` does, so a section times the device's work and not
 its enqueueing. ``start_server`` has no PyTorch counterpart: it raises.
+
+``span(name)`` marks a stretch of host code as a named range of the trace
+(``torch.profiler.record_function``), beside the ops and kernels launched
+inside it, while a ``torch.profiler`` is recording and the code is not
+being compiled or exported; otherwise it costs two checks and records
+nothing, so spans stay in the serving path unconditionally and leave an
+exported program free of profiler ops. ``StepTimer.section(name)`` opens ``span(name)``
+too. The spans the program opens (``infer/pipeline.py``):
+
+  * ``cvm.infer.call``: one ``InferencePipeline.__call__``: staging the
+    batch on the host, padding it to the batch size, the four below, and
+    slicing the results back;
+  * ``cvm.infer.h2d``: the host-to-device copy of the batch's arrays (the
+    planes or the RGB buffer, ``image_hw``, the intrinsics);
+  * ``cvm.infer.preprocess``: the ROI, the YUV or RGB resample, the
+    normalisation and the bf16 cast (both frames for DMDS);
+  * ``cvm.infer.forward``: the model's forward (and hflip's second pass);
+  * ``cvm.infer.postprocess``: decode, argmax and the box mapping.
 """
 
 from __future__ import annotations
@@ -18,6 +37,7 @@ import time
 from typing import Dict
 
 import torch
+from torch._C._autograd import _profiler_enabled
 
 
 @contextlib.contextmanager
@@ -57,9 +77,33 @@ def _synchronize(block_on) -> None:
             _synchronize(v)
 
 
+class span:
+    """``with span(name):`` records a ``torch.profiler`` range ``name``
+    around the block while a profiler is recording and nothing compiles or
+    exports the code (module docstring). A class, not a generator: a
+    no-op span costs two flag reads."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self) -> "span":
+        if _profiler_enabled() and not torch.compiler.is_compiling():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        rng, self._range = self._range, None
+        if rng is not None:
+            rng.__exit__(*exc)
+
+
 class StepTimer:
-    """Named wall-clock sections; ``block_on`` tensors are synchronized
-    before a section's clock stops."""
+    """Named wall-clock sections, each also a ``span``; ``block_on``
+    tensors are synchronized before a section's clock stops."""
 
     def __init__(self):
         self.totals: Dict[str, float] = {}
@@ -69,7 +113,8 @@ class StepTimer:
     def section(self, name: str, block_on=None):
         t0 = time.perf_counter()
         try:
-            yield
+            with span(name):
+                yield
         finally:
             if block_on is not None:
                 _synchronize(block_on)
