@@ -67,8 +67,10 @@ prerequisites) is printed first:
      2 batches, in four postures: fp, ``--fold_bn``, ``--quantize
      w8a8_fused_chain`` (24 K2 launches per forward, 7 int8-out, no weight
      packs) and ``--tta hflip``; then the int8 posture at batch 16 through
-     K2 and through its plain version (heads and mAP), and the eval layer's
-     host and device ms per batch;
+     K2 and through its plain version (heads and mAP; the plain version in
+     a pipeline of its own, since a CUDA graph's replay runs the kernel
+     whatever is swapped in after its capture), and the eval layer's host
+     and device ms per batch;
  12. dense serving, each model at batch 8 (and semseg at batch 1): fp with
      BN folded and ``w8a8_fused_chain`` after 1 calibration batch, K2's
      launches per int8 forward (24 semseg, 27 depth, 28 multitask), the
@@ -1230,6 +1232,8 @@ def phase_evaluate(dev, workdir, smi):
         eval_main(EVAL_FLAGS + ["--workdir", workdir, "--json_out", out] + extra)  # main path
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
+        # counted at each launch: of the 2 batches the first runs eagerly
+        # and the second is the CUDA graph's capture (no replay)
         counts = (fq.fused_qconv.launches, fq.fused_qconv.int8_out_launches,
                   fq.fused_qconv.weight_packs)
         with open(out) as f:
@@ -1257,8 +1261,12 @@ def phase_evaluate(dev, workdir, smi):
     proc_cal, _ = preprocess_image_batch(torch.from_numpy(cal["image"]).to(dev),
                                          torch.from_numpy(cal["image_hw"]).to(dev), cfg.input_hw)
     scales = qz.calibrate_activation_scales(model, [proc_cal])
-    pipe_q = InferencePipeline(cfg, model, dev, input_format="rgb", w8a8=scales,
-                               w8a8_fused=True, w8a8_chain=True)
+    # The plain pass gets a pipeline of its own, built alike and first
+    # called with the plain version swapped in: the kernel pass's second
+    # batch captures a CUDA graph of the kernel, which a replay would run
+    # whatever ``qz.fused_qconv`` holds by then.
+    pipe_q, pipe_plain = (InferencePipeline(cfg, model, dev, input_format="rgb", w8a8=scales,
+                                            w8a8_fused=True, w8a8_chain=True) for _ in range(2))
     pipe_fp = InferencePipeline(cfg, model, dev, input_format="rgb")
     rng = np.random.default_rng(999)
     val = [synthetic_batch(rng, cfg.batch_size, (512, 512), num_classes=10) for _ in range(2)]
@@ -1266,17 +1274,29 @@ def phase_evaluate(dev, workdir, smi):
     proc, _ = preprocess_image_batch(*data, cfg.input_hw, out_dtype=torch.bfloat16)
     st_k, st_p, st_fp = {}, {}, {}
     with torch.no_grad():
+        fq.reset_counts()
         m_k = evaluate_model("centernet", cfg, None, val, device=dev, predict_fn=pipe_q, stats=st_k)
         heads_k = pipe_q.heads(proc)
+        k2_kernel = fq.fused_qconv.launches
         real = qz.fused_qconv
         qz.fused_qconv = lambda *a, w_packed=None, **k: fq.fused_qconv_reference(*a, **k)
+        fq.reset_counts()
         try:
-            m_p = evaluate_model("centernet", cfg, None, val, device=dev, predict_fn=pipe_q,
+            m_p = evaluate_model("centernet", cfg, None, val, device=dev, predict_fn=pipe_plain,
                                  stats=st_p)
-            heads_p = pipe_q.heads(proc)
+            heads_p = pipe_plain.heads(proc)
         finally:
             qz.fused_qconv = real
+        k2_plain = fq.fused_qconv.launches
         evaluate_model("centernet", cfg, None, val, device=dev, predict_fn=pipe_fp, stats=st_fp)
+    graphs_k, graphs_p = (dict((k, p.graph_counts[k]) for k in ("captures", "replays"))
+                          for p in (pipe_q, pipe_plain))
+    log(f"[evaluate] kernel pass: {k2_kernel} K2 launches, graphs {graphs_k}; plain pass on a "
+        f"pipeline of its own: {k2_plain} K2 launches, graphs {graphs_p}")
+    if k2_kernel != 3 * 24 or k2_plain != 0:
+        raise AssertionError(f"int8 posture at batch 16: K2 launches kernel / plain pass "
+                             f"{k2_kernel} / {k2_plain}, expected 72 (two batches of 16 and a "
+                             f"forward of the heads, 24 each) / 0")
     d_sig = float((torch.sigmoid(heads_k["heatmap"]) - torch.sigmoid(heads_p["heatmap"]))
                   .abs().mean())
     d_map = abs(m_k["mAP"] - m_p["mAP"])
@@ -3714,7 +3734,10 @@ def _launcher_qat_and_eval(dev, workdir, seed, smi, child, k1):
     k2["cli.evaluate w8a8_fused_chain, 2 local gloo ranks (36e)"] = dict(
         launches=sum(r["k2"] for r in ranks))
     k2["cli.evaluate w8a8_fused_chain, its one process (36e)"] = dict(launches=k2_one)
-    # 24 K2 calls per forward: 2 of 8 rows on each rank, 4 of 8 in one process
+    # 24 K2 calls per forward: 2 of 8 rows on each rank, 4 of 8 in one
+    # process. The ranks' sharded pipelines run eagerly and count at each
+    # launch; in the one process the third and fourth batches replay a CUDA
+    # graph, and their 48 are the capture's counts, added per replay
     if [r["k2"] for r in ranks] != [48, 48] or k2_one != 96 or m1 != m2 or not m1["mAP"] > 0:
         raise AssertionError(f"36e: K2 {[r['k2'] for r in ranks]} / {k2_one}, metrics "
                              f"{m2} against {m1}")
@@ -3916,8 +3939,10 @@ def main() -> int:
                                                                   direct_scores[i], atol=1e-4):
             raise AssertionError(f"batcher: request {i} result differs from its direct run")
     st = batcher.stats()
+    # pipe_q's signature was captured by the second direct call: each batch
+    # replays, and its launches are the capture's, added per replay
     log(f"[server] 16 threaded requests answered: {st['batches']} batches, fill "
-        f"{st['batch_fill']}, {fq.fused_qconv.launches} kernel launches")
+        f"{st['batch_fill']}, {fq.fused_qconv.launches} kernel launches (replayed)")
 
     # Phase 6: median batch-8 latency, inputs resident on the card.
     lat_fp = host_ms(lambda: pipe_fp.predict(*planes))

@@ -116,6 +116,8 @@ def _pad_hw(cfg):
 
 
 def _bench_infer(spec_name, cfg, device, iters=20, warmup=3):
+    import torch
+
     from cvm_tpu_torch.data.synthetic import synthetic_batch
     from cvm_tpu_torch.infer.pipeline import InferencePipeline
     from cvm_tpu_torch.models.registry import build_model, get_model
@@ -133,7 +135,10 @@ def _bench_infer(spec_name, cfg, device, iters=20, warmup=3):
 
     for b in batches:
         readback(pipe(b))
-    flops = _count_flops(lambda: pipe(batches[0]))
+    # counted on the eager step: a CUDA graph's replay dispatches no op
+    data = [torch.from_numpy(batches[0][k]).to(device) for k in pipe.keys]
+    with torch.no_grad():
+        flops = _count_flops(lambda: pipe.run(*data))
 
     t0 = time.perf_counter()
     outs = [pipe(batches[i % n_buf]) for i in range(iters)]

@@ -40,12 +40,19 @@ model axis (``SpatialConv3x3``). ``__call__`` shards its batch through
 ``shard_predict``, which shards any batch function alike (an artifact's
 ``predict_batch``).
 
+On a CUDA device and without a mesh, ``predict`` replays one CUDA graph of
+the whole step per input signature (``infer/graphs.py``: the first call of
+a signature runs eagerly, the second captures; ``graph_counts`` says how
+often each path ran); ``run`` always runs eagerly. A mesh's collectives
+keep a sharded pipeline eager.
+
 Under a recording ``torch.profiler`` a call shows as the ranges
-``cvm.infer.call`` (the whole call) and, inside it, ``cvm.infer.h2d``,
-``cvm.infer.preprocess``, ``cvm.infer.forward`` and
-``cvm.infer.postprocess`` (``utils/prof.py::span``, which lists what each
-covers); without one they record nothing, and an exported ``run`` holds
-none of them.
+``cvm.infer.call`` (the whole call) and, inside it, ``cvm.infer.h2d`` and
+then either ``cvm.infer.preprocess``, ``cvm.infer.forward`` and
+``cvm.infer.postprocess`` (an eager call) or ``cvm.infer.replay`` (a
+graph's replay, which runs no host op of the stages);
+``utils/prof.py::span`` lists what each covers. Without a profiler they
+record nothing, and an exported ``run`` holds none of them.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from cvm_tpu_torch.infer.graphs import StepGraphs, blocked_by
 from cvm_tpu_torch.ops.decode import decode_centernet, decode_centernet_3d, semseg_argmax
 from cvm_tpu_torch.ops.image import map_boxes_to_input
 from cvm_tpu_torch.ops.warp import scale_intrinsics
@@ -217,6 +225,8 @@ class InferencePipeline:
                 if isinstance(m, Int8Conv):
                     m.reducer = self._reducer
         self.model = model
+        self._graphs = StepGraphs(self.run, self.device, blocked_by(self.device, mesh))
+        self.graph_counts = self._graphs.counts
 
     def _place_stage5(self, model: nn.Module, split_ok: bool) -> bool:
         """Split ``model``'s stage-5 convs over the mesh's model axis, keep a
@@ -272,8 +282,10 @@ class InferencePipeline:
         """Device tensors in, device tensors out, in ``self.keys``' order:
         ``(y, u, v, image_hw)`` for yuv420, ``(image, image_hw)`` for rgb
         (DMDS's second frame and 3D intrinsics as ``data_keys`` says). With
-        a mesh, this rank's rows alone: ``__call__`` shards a batch."""
-        return self.run(*data)
+        a mesh, this rank's rows alone: ``__call__`` shards a batch. On a
+        CUDA device without a mesh, a graph of the step per input signature
+        (module docstring); the outputs are the caller's own."""
+        return self._graphs(data)
 
     def run(self, *data: torch.Tensor) -> Dict[str, torch.Tensor]:
         """``predict`` without its ``no_grad``: the steps ``cli/export.py``
@@ -313,9 +325,7 @@ class InferencePipeline:
             return {k: v[:n] for k, v in out.items()}
 
     def _predict_host(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-        with span("cvm.infer.h2d"):
-            data = [torch.from_numpy(batch[k]).to(self.device) for k in self.keys]
-        return self.predict(*data)
+        return self._graphs([torch.from_numpy(batch[k]) for k in self.keys], h2d=True)
 
 
 def shard_predict(mesh, predict: Callable[[Dict[str, Any]], Dict[str, Any]]

@@ -48,6 +48,7 @@ import torch.nn.functional as F
 from cvm_tpu_torch.models.layers import ACTS, BatchNorm, Conv, ConvBN, ResBlock, same_pads
 from cvm_tpu_torch.ops.cuda.fused_qconv import fused_qconv, pack_qconv_weights
 from cvm_tpu_torch.parallel.reduce import LOCAL, BatchReducer
+from cvm_tpu_torch.utils.prof import launch_counter
 
 WeightTable = Dict[str, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -262,6 +263,9 @@ class Int8Conv(nn.Module):
         if self.bias is not None:
             y = y + self.bias
         return y.to(dtype or self.dtype)
+
+
+launch_counter(Int8Conv, "mm_launches")
 
 
 def int8_conv_mm(conv: Int8Conv, xq: torch.Tensor) -> torch.Tensor:

@@ -33,6 +33,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from cvm_tpu_torch.utils.prof import launch_counter
+
 _X_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _OUT_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _ACT = {None: 0, "silu": 1, "relu": 2}
@@ -277,6 +279,7 @@ def fused_qconv(x, w_q, scale, bias, *, inv_sx: Optional[float],
 fused_qconv.launches = 0           # kernel launches (CUDA tensors only)
 fused_qconv.int8_out_launches = 0  # of which emitted int8 lattice points
 fused_qconv.weight_packs = 0       # calls that had to pack w_q themselves
+launch_counter(fused_qconv, "launches", "int8_out_launches", "weight_packs")
 
 
 def reset_counts() -> None:

@@ -28,6 +28,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from cvm_tpu_torch.utils.prof import launch_counter
+
 
 # Kernel constants (csrc/gaussian_splat.cu): objects culled per pass and the
 # bytes of one culled object in shared memory (struct Obj).
@@ -162,6 +164,7 @@ def render_heatmap(iy, ix, sigma, radius, classes, valid,
 
 
 render_heatmap.launches = 0  # kernel launches (CUDA tensors only)
+launch_counter(render_heatmap, "launches")
 
 
 def reset_counts() -> None:

@@ -138,6 +138,7 @@ def upsample_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     from cvm_tpu_torch.ops.image import full_roi, sample_bilinear
 
     B, h, w = x.shape[:3]
-    hw = torch.tensor([h, w], dtype=torch.float32, device=x.device).expand(B, 2)
-    roi = full_roi(hw[:, 0], hw[:, 1], out_hw[0], out_hw[1])
+    src_h, src_w = (torch.full((B,), float(n), dtype=torch.float32, device=x.device)
+                    for n in (h, w))
+    roi = full_roi(src_h, src_w, out_hw[0], out_hw[1])
     return sample_bilinear(x, roi, out_hw)

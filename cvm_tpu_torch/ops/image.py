@@ -56,6 +56,13 @@ class Roi(NamedTuple):
         return self.dst_w / self.src_w
 
 
+def _scalar(value, dtype: torch.dtype):
+    """``value`` as a Python number of ``dtype``'s values (a pad value for
+    ``torch.where``, which then keeps ``dtype``): no device tensor, so no
+    host-to-device copy."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
 def _f(x, like: Optional[torch.Tensor] = None) -> torch.Tensor:
     dev = like.device if isinstance(like, torch.Tensor) else None
     if isinstance(x, torch.Tensor):
@@ -143,7 +150,10 @@ def _axis_coords(out_size: int, dst0, dst_len, src0, src_len, valid_hi, flip=Non
     lo = torch.floor(src)
     frac = src - lo
     lo_i = lo.to(torch.int64)
-    hi = torch.clamp_min(torch.as_tensor(valid_hi, device=dst0.device) - 1, 0)[..., None]
+    if torch.is_tensor(valid_hi):
+        hi = torch.clamp_min(valid_hi.to(dst0.device) - 1, 0)[..., None]
+    else:  # a Python extent: filled on the device, no host-to-device copy
+        hi = torch.full((1,), max(int(valid_hi) - 1, 0), dtype=torch.int64, device=dst0.device)
     idx_lo = torch.minimum(torch.clamp_min(lo_i, 0), hi)
     idx_hi = torch.minimum(torch.clamp_min(lo_i + 1, 0), hi)
     inside = (i >= dst0) & (i < dst0 + dst_len)
@@ -179,8 +189,7 @@ def sample_bilinear(image: torch.Tensor, roi: Roi, out_hw: Tuple[int, int],
     cols_hi = torch.gather(rows, 2, xhi[:, None, :, None].expand(shape))
     out = cols_lo + (cols_hi - cols_lo) * fx[:, None, :, None]
     inside = in_y[:, :, None] & in_x[:, None, :]
-    return torch.where(inside[..., None], out, torch.tensor(pad_value, dtype=torch.float32,
-                                                            device=out.device))
+    return torch.where(inside[..., None], out, float(pad_value))
 
 
 def sample_nearest(image: torch.Tensor, roi: Roi, out_hw: Tuple[int, int],
@@ -206,8 +215,7 @@ def sample_nearest(image: torch.Tensor, roi: Roi, out_hw: Tuple[int, int],
     inside = in_y[:, :, None] & in_x[:, None, :]
     if out.dim() == 4:
         inside = inside[..., None]
-    return torch.where(inside, out, torch.tensor(pad_value, dtype=image.dtype,
-                                                 device=image.device))
+    return torch.where(inside, out, _scalar(pad_value, image.dtype))
 
 
 def letterbox(image: torch.Tensor, h, w, out_hw: Tuple[int, int],
@@ -334,7 +342,7 @@ def rotate_image(image: torch.Tensor, angle: torch.Tensor, pad_value=0.0,
         sj = torch.round(sxf).to(torch.int64).clamp(0, W - 1)
         out = image[b, si, sj]
         mask = inside if out.dim() == 3 else inside[..., None]
-        return torch.where(mask, out, torch.tensor(pad_value, dtype=image.dtype, device=dev))
+        return torch.where(mask, out, _scalar(pad_value, image.dtype))
     img = image.to(torch.float32)
     ylo, xlo = torch.floor(syf), torch.floor(sxf)
     fy, fx = syf - ylo, sxf - xlo
@@ -348,8 +356,7 @@ def rotate_image(image: torch.Tensor, angle: torch.Tensor, pad_value=0.0,
         fy, fx, inside = fy[..., None], fx[..., None], inside[..., None]
     top = a + (bb - a) * fx
     bot = cc + (d - cc) * fx
-    out = torch.where(inside, top + (bot - top) * fy,
-                      torch.tensor(float(pad_value), dtype=torch.float32, device=dev))
+    out = torch.where(inside, top + (bot - top) * fy, float(pad_value))
     return out.to(image.dtype) if image.is_floating_point() else out
 
 

@@ -19,14 +19,24 @@ exported program free of profiler ops. ``StepTimer.section(name)`` opens ``span(
 too. The spans the program opens (``infer/pipeline.py``):
 
   * ``cvm.infer.call``: one ``InferencePipeline.__call__``: staging the
-    batch on the host, padding it to the batch size, the four below, and
+    batch on the host, padding it to the batch size, the spans below, and
     slicing the results back;
   * ``cvm.infer.h2d``: the host-to-device copy of the batch's arrays (the
-    planes or the RGB buffer, ``image_hw``, the intrinsics);
+    planes or the RGB buffer, ``image_hw``, the intrinsics), into a
+    graph's input buffers when one replays;
   * ``cvm.infer.preprocess``: the ROI, the YUV or RGB resample, the
     normalisation and the bf16 cast (both frames for DMDS);
   * ``cvm.infer.forward``: the model's forward (and hflip's second pass);
-  * ``cvm.infer.postprocess``: decode, argmax and the box mapping.
+  * ``cvm.infer.postprocess``: decode, argmax and the box mapping;
+  * ``cvm.infer.replay``: in place of the three stages above, the replay
+    of a CUDA graph of all three (``infer/graphs.py``) and the clones of
+    its outputs; no host op runs the stages then.
+
+``launch_counter(owner, *names)`` registers the plain-integer counters
+``owner.<name>`` that a kernel's wrapper adds to in Python at each launch,
+where the wrapper is defined (``LAUNCH_COUNTERS`` lists them). A CUDA
+graph's replay runs no Python, so ``infer/graphs.py`` adds to each
+registered counter what the graph's capture saw it move.
 """
 
 from __future__ import annotations
@@ -34,10 +44,21 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 from torch._C._autograd import _profiler_enabled
+
+
+LAUNCH_COUNTERS: List[Tuple[object, str]] = []
+
+
+def launch_counter(owner: object, *names: str) -> None:
+    """Register ``owner.<name>`` for each of ``names`` as a launch counter
+    (module docstring)."""
+    for name in names:
+        if (owner, name) not in LAUNCH_COUNTERS:
+            LAUNCH_COUNTERS.append((owner, name))
 
 
 @contextlib.contextmanager
