@@ -49,9 +49,10 @@ keep a sharded pipeline eager.
 Under a recording ``torch.profiler`` a call shows as the ranges
 ``cvm.infer.call`` (the whole call) and, inside it, ``cvm.infer.h2d`` and
 then either ``cvm.infer.preprocess``, ``cvm.infer.forward`` and
-``cvm.infer.postprocess`` (an eager call) or ``cvm.infer.replay`` (a
-graph's replay, which runs no host op of the stages);
-``utils/prof.py::span`` lists what each covers. Without a profiler they
+``cvm.infer.postprocess`` (an eager call; for CenterNet and multitask
+``cvm.infer.decode`` inside the last) or ``cvm.infer.replay`` (a graph's
+replay, which runs no host op of the stages); ``utils/prof.py::span``
+lists what each covers. Without a profiler they
 record nothing, and an exported ``run`` holds none of them.
 """
 
@@ -106,20 +107,21 @@ def postprocess(cfg, out: Dict[str, Any], rois,
     res: Dict[str, torch.Tensor] = {}
     if cfg.name in ("centernet", "multitask"):
         stride = getattr(cfg, "stride", getattr(cfg, "det_stride", 4))
-        if intrinsics is not None and "depth3d" in out:
-            # Back-projection uses the intrinsics of the model input: the
-            # source-image ones through the image's ROI.
-            d3 = decode_centernet_3d(out["heatmap"], out["offset"], out["size"],
-                                     out["depth3d"], out["dims3d"], out["rot"],
-                                     scale_intrinsics(intrinsics, rois), stride=stride,
-                                     top_k=cfg.top_k)
-            det = d3.det
-            res.update(centers3d=d3.centers3d, dims=d3.dims, yaw=d3.yaw)
-        else:
-            det = decode_centernet(out["heatmap"], out["offset"], out["size"], stride=stride,
-                                   top_k=cfg.top_k)
-        res.update(boxes=map_boxes_to_input(det.boxes, rois), scores=det.scores,
-                   classes=det.classes)
+        with span("cvm.infer.decode"):
+            if intrinsics is not None and "depth3d" in out:
+                # Back-projection uses the intrinsics of the model input: the
+                # source-image ones through the image's ROI.
+                d3 = decode_centernet_3d(out["heatmap"], out["offset"], out["size"],
+                                         out["depth3d"], out["dims3d"], out["rot"],
+                                         scale_intrinsics(intrinsics, rois), stride=stride,
+                                         top_k=cfg.top_k)
+                det = d3.det
+                res.update(centers3d=d3.centers3d, dims=d3.dims, yaw=d3.yaw)
+            else:
+                det = decode_centernet(out["heatmap"], out["offset"], out["size"],
+                                       stride=stride, top_k=cfg.top_k)
+            res.update(boxes=map_boxes_to_input(det.boxes, rois), scores=det.scores,
+                       classes=det.classes)
     if cfg.name in ("semseg", "multitask"):
         res["class_map"] = semseg_argmax(out["logits"])
     if cfg.name in ("depth", "multitask"):

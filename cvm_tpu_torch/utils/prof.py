@@ -28,9 +28,13 @@ too. The spans the program opens (``infer/pipeline.py``):
     normalisation and the bf16 cast (both frames for DMDS);
   * ``cvm.infer.forward``: the model's forward (and hflip's second pass);
   * ``cvm.infer.postprocess``: decode, argmax and the box mapping;
-  * ``cvm.infer.replay``: in place of the three stages above, the replay
-    of a CUDA graph of all three (``infer/graphs.py``) and the clones of
-    its outputs; no host op runs the stages then.
+  * ``cvm.infer.decode``: inside ``cvm.infer.postprocess``, CenterNet's
+    and multitask's peak and top-k decode (2D or 3D) and the mapping of
+    its boxes into source pixels;
+  * ``cvm.infer.replay``: in place of the three stages above (and the
+    decode inside the last), the replay of a CUDA graph of all three
+    (``infer/graphs.py``) and the clones of its outputs; no host op runs
+    the stages then.
 
 ``launch_counter(owner, *names)`` registers the plain-integer counters
 ``owner.<name>`` that a kernel's wrapper adds to in Python at each launch,

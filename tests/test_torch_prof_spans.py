@@ -2,8 +2,9 @@
 frame through a tiny semseg and a tiny CenterNet ``InferencePipeline``
 (yuv420, BN folded) under ``utils.prof.trace`` shows each of the five
 ``cvm.infer.*`` ranges once, the four stages inside ``cvm.infer.call`` in
-order; the outputs are bit-equal with and without the profiler; without
-one ``record_function`` is never entered; ``StepTimer.section`` opens its
+order, and CenterNet's ``cvm.infer.decode`` inside the postprocess; the
+outputs are bit-equal with and without the profiler; without one
+``record_function`` is never entered; ``StepTimer.section`` opens its
 span; and ``torch.export`` of ``run`` records the same graph inside a
 running profiler as outside it, with no profiler op in it.
 """
@@ -21,6 +22,7 @@ from cvm_tpu_torch.utils import prof
 
 CALL = "cvm.infer.call"
 STAGES = ("cvm.infer.h2d", "cvm.infer.preprocess", "cvm.infer.forward", "cvm.infer.postprocess")
+DECODE = "cvm.infer.decode"
 TINY = {"semseg": dict(input_hw=(32, 32), backbone="tiny", decoder_features=8, num_classes=3,
                        batch_size=1),
         "centernet": dict(input_hw=(32, 32), backbone="tiny", neck_features=16, head_features=8,
@@ -67,12 +69,16 @@ def test_one_frame_shows_each_span_once_in_order(name, tmp_path):
     for k in plain:
         assert torch.equal(plain[k], traced[k]), k
     spans = _ranges(tmp_path / "tr" / "trace.json")
-    assert [e["name"] for e in spans] == [CALL, *STAGES]
-    call, stages = spans[0], spans[1:]
-    for e in stages:
+    decode = [DECODE] if name == "centernet" else []
+    assert [e["name"] for e in spans] == [CALL, *STAGES, *decode]
+    call, stages = spans[0], spans[1:len(STAGES) + 1]
+    for e in spans[1:]:
         assert call["ts"] <= e["ts"] and e["ts"] + e["dur"] <= call["ts"] + call["dur"]
     for a, b in zip(stages, stages[1:]):
         assert a["ts"] + a["dur"] <= b["ts"]
+    if decode:  # the decode and box mapping, inside the postprocess
+        post, dec = stages[-1], spans[-1]
+        assert post["ts"] <= dec["ts"] and dec["ts"] + dec["dur"] <= post["ts"] + post["dur"]
 
 
 def test_no_profiler_no_record_function(monkeypatch):
