@@ -49,6 +49,19 @@ prerequisites) is printed first:
      kernel vs through the plain version on the card;
   5. a DynamicBatcher over the int8 pipeline answering 16 threaded requests;
   6. median batch-8 latency of both postures;
+  6b. the folded conv's epilogue (``csrc/conv_epilogue.cu``) in the
+     benchmark's two fp cells (config B at batch 8, semseg A at batch 1,
+     seeded as the cells seed them): every call of one forward recorded
+     (31 and 29), the kernel vs its plain version bit for bit, the calls'
+     device time per forward beside their bytes bound at 3.35 TB/s, the
+     plain version's and the old fold's unfused sequence (``library_ms``,
+     the yardstick); the kernel's own launch counter over 10 replays of
+     each pipeline (one launch per folded conv per replay, none in the
+     old fold); then each cell's replayed step with the old fold
+     (``BiasAdd``, a cast per weight and bias per call) and the new, in
+     turns (old, new, new, old), and its device kernels by class. Every
+     fp fold_bn path this process serves (phases 4, 6, 6b, 9, 12, 16, 18,
+     20, 21) is held to that counter too (``epilogue_launches``);
   7. the Gaussian splat kernel K1 vs its plain version at the flagship
      training shape, config B's default shape, multitask's (B8 K128 64x160
      C10) and twelve edge cases, each
@@ -280,6 +293,11 @@ KERNEL_SOURCE = "cvm_tpu_torch/csrc/fused_qconv.cu"
 KERNEL_REPLACES = "cvm_tpu/ops/pallas/fused_qconv.py:150"
 SPLAT_SOURCE = "cvm_tpu_torch/csrc/gaussian_splat.cu"
 SPLAT_REPLACES = "cvm_tpu/ops/pallas/gaussian_splat.py:60"
+EPILOGUE_SOURCE = "cvm_tpu_torch/csrc/conv_epilogue.cu"
+# Phase 6b: the benchmark's fp cells (cvbench/configs, cvbench/traffic) and a seed.
+EPILOGUE_CELLS = {"centernet_b": "closed_loop_coco_b8", "semseg_a": "closed_loop_camera"}
+EPILOGUE_SEED = 2147490011
+HBM_BYTES_PER_S = 3.35e12
 # The flagship training recipe (scripts/flagship_persist.sh) at 30 + 10
 # steps, with a short warmup so the loss visibly falls within them.
 TRAIN_FLAGS = ["--model", "centernet", "--data", "synthetic", "--pad_hw", "512,512",
@@ -410,6 +428,35 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3, rounds: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+# conv_epilogue's launches on each fp fold_bn path the smoke runs in this
+# process, read from the kernel's own counter (``epilogue_launches``).
+EPILOGUE_PATHS = {}
+HOST_MS_CALLS = 23  # host_ms's default 3 warm-up and 20 timed calls
+DMDS_PASSES = 2  # a DMDS call runs its depth net on both frames, its motion net both ways
+
+
+def epilogue_launches(path: str, folded, forwards: int, fn):
+    """``fn()``, which runs ``forwards`` passes of every conv of a pipeline
+    whose ``folded_counts`` is ``folded`` (None: no folded module), with
+    conv_epilogue's launch counter set to 0 first; the count must be
+    ``folded["fused"]`` per pass, replays included. Recorded under
+    ``path`` in ``EPILOGUE_PATHS``; returns ``fn()``'s result."""
+    import torch
+
+    from cvm_tpu_torch.ops.cuda import conv_epilogue as ce
+
+    want = (folded["fused"] if folded else 0) * forwards
+    ce.conv_epilogue.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = ce.conv_epilogue.launches
+    if got != want:
+        raise AssertionError(f"{path}: {got} conv_epilogue launches in {forwards} forwards, "
+                             f"expected {want} (folded {folded})")
+    EPILOGUE_PATHS[path] = dict(launches=got, forwards=forwards)
+    return out
 
 
 def host_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -1023,6 +1070,165 @@ def device_kernels(fn):
     return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
+def _cell_pipelines(cell, dev):
+    """A benchmark cell's program (``cvbench``: its configuration, traffic
+    mix and weights from ``EPILOGUE_SEED``) as two ``fold_bn`` pipelines,
+    the folded convs' (``swap_folded``) and the old fold's (``BiasAdd``,
+    a cast of each weight and bias per call), and one batch on the card."""
+    import torch
+    from cvbench import program
+    from cvbench.runners.closed_loop_batches import stack
+    from cvbench.traffic.generator import frame_pool, stream
+    from cvm_tpu_torch.infer import fold_bn
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "cvbench", "configs", f"{cell}.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(root, "cvbench", "traffic", f"{EPILOGUE_CELLS[cell]}.json")) as f:
+        mix = json.load(f)
+    cfg = program.cell_config(cfg, mix)
+    params, model, _ = program.build(cfg, EPILOGUE_SEED, dev)
+    new = InferencePipeline(params, model, dev, input_format="yuv420", fold_bn=True)
+    real = fold_bn.swap_folded
+    fold_bn.swap_folded = lambda m: None
+    try:
+        old = InferencePipeline(params, model, dev, input_format="yuv420", fold_bn=True)
+    finally:
+        fold_bn.swap_folded = real
+    n = int(cfg["params"]["batch_size"])
+    batch = stack(frame_pool(stream(EPILOGUE_SEED, 1), dict(mix, pool=n),
+                             cfg["params"]["num_classes"]), n)[0]
+    return new, old, [torch.from_numpy(batch[k]).to(dev) for k in new.keys]
+
+
+def _kernel_classes(fn, n: int = 10):
+    """Device ms per ``fn()`` by kernel class (torch.profiler over ``n``
+    calls): cuDNN's convs, the epilogue, PyTorch's elementwise kernels
+    (adds, casts, silu, copies), memory copies and the rest; and kernels
+    per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = dict.fromkeys(("conv", "epilogue", "elementwise", "memcpy", "other"), 0.0)
+    count = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name, ms = e.name.lower(), (e.time_range.end - e.time_range.start) / 1e3 / n
+        if "conv_epilogue" in name:
+            split["epilogue"] += ms
+        elif "xmma" in name or "conv" in name or "fprop" in name or "implicit_gemm" in name:
+            split["conv"] += ms
+        elif "elementwise" in name or ("copy" in name and "memcpy" not in name):
+            split["elementwise"] += ms
+        elif "memcpy" in name or "memset" in name:
+            split["memcpy"] += ms
+        else:
+            split["other"] += ms
+        count += 1
+    return {k: round(v, 4) for k, v in split.items()}, count / n
+
+
+def phase_conv_epilogue(dev, smi):
+    """Phase 6b (module docstring). Returns the kernel's record for the
+    final JSON line: launches per forward and per-forward times by cell."""
+    import torch
+    from cvm_tpu_torch.infer import fold_bn
+    from cvm_tpu_torch.ops.cuda import conv_epilogue as ce
+
+    record = {}
+    for cell in EPILOGUE_CELLS:
+        new, old, data = _cell_pipelines(cell, dev)
+        calls, real = [], fold_bn.conv_epilogue
+
+        def recording(y, bias, residual=None, **kw):
+            calls.append((y.clone(), bias, None if residual is None else residual.clone(),
+                          kw["act"], kw["out_dtype"]))
+            return real(y, bias, residual, **kw)
+
+        fold_bn.conv_epilogue = recording
+        try:
+            with torch.no_grad():
+                new.run(*data)
+        finally:
+            fold_bn.conv_epilogue = real
+        if len(calls) != new.folded_counts["fused"]:
+            raise AssertionError(f"{cell}: {len(calls)} epilogue calls per forward, "
+                                 f"{new.folded_counts} folded")
+        max_err = 0.0
+        for y, b, r, act, out in calls:
+            got = ce.conv_epilogue(y, b, r, act=act, out_dtype=out)
+            ref = ce.conv_epilogue_reference(y, b, r, act, out)
+            max_err = max(max_err, float((got.float() - ref.float()).abs().max()))
+            if not torch.equal(got, ref):
+                raise AssertionError(f"{cell}: conv_epilogue differs from its plain version "
+                                     f"at {tuple(y.shape)} act={act} residual={r is not None}")
+        nbytes = sum(y.numel() * (2 + (2 if r is not None else 0) + out.itemsize)
+                     + b.numel() * 2 for y, b, r, _, out in calls)
+        old_bias = [b.float() for _, b, _, _, _ in calls]  # what the old fold cast per call
+        acts = {None: lambda v: v, "silu": torch.nn.functional.silu,
+                "relu": torch.nn.functional.relu}
+
+        def kernel():
+            for y, b, r, act, out in calls:
+                ce.conv_epilogue(y, b, r, act=act, out_dtype=out)
+
+        def plain():
+            for y, b, r, act, out in calls:
+                ce.conv_epilogue_reference(y, b, r, act, out)
+
+        def library():
+            for (y, _, r, act, out), b32 in zip(calls, old_bias):
+                v = y + b32.to(torch.bfloat16)
+                acts[act](v if r is None else r + v).to(out)
+
+        t = dict(ms=cuda_ms(kernel), plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        t["bound_share_pct"] = 100.0 * t["bound_ms"] / t["ms"]
+        log(f"[epilogue] {cell}: {len(calls)} calls per forward, {nbytes / 1e6:.1f} MB; "
+            f"kernel {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms (bytes at 3.35 TB/s; "
+            f"{t['bound_share_pct']:.1f}%), plain {t['plain_ms']:.4f} ms, the old fold's "
+            f"unfused sequence {t['library_ms']:.4f} ms per forward, on {smi}")
+
+        for pipe in (old, new):  # first sighting, then the capture
+            pipe.predict(*data), pipe.predict(*data)
+        launches = {}
+        for side, pipe in (("old", old), ("new", new)):
+            path = f"phase 6b {cell} {side} fold, 10 replays"
+            replays = pipe.graph_counts["replays"]
+            epilogue_launches(path, pipe.folded_counts, 10,
+                              lambda: [pipe.predict(*data) for _ in range(10)])
+            if pipe.graph_counts["replays"] - replays != 10:
+                raise AssertionError(f"{cell} {side}: {pipe.graph_counts} after 10 predicts "
+                                     "from a captured signature")
+            launches[side] = EPILOGUE_PATHS[path]["launches"]
+        steps = {"old": [], "new": []}
+        for side in ("old", "new", "new", "old"):
+            pipe = old if side == "old" else new
+            steps[side].append(cuda_ms(lambda: pipe.predict(*data)))
+        split = {side: _kernel_classes(lambda p=p: p.predict(*data))
+                 for side, p in (("old", old), ("new", new))}
+        for side in ("old", "new"):
+            log(f"[epilogue] {cell} {side} fold: replayed step {steps[side][0]:.4f} / "
+                f"{steps[side][1]:.4f} ms on the device (CUDA events), {split[side][1]:.0f} "
+                f"kernels, by class (ms, profiled) {split[side][0]}")
+        log(f"[epilogue] {cell}: conv_epilogue launches in 10 replays, by its counter: old "
+            f"fold {launches['old']}, new {launches['new']} "
+            f"({new.folded_counts}); max |kernel - plain| {max_err}")
+        record[cell] = dict(launches=launches["new"], max_abs_err=max_err, **t,
+                            step_ms=steps,
+                            split={k: v[0] for k, v in split.items()},
+                            kernels={k: v[1] for k, v in split.items()})
+    return record
+
+
 def phase_splat(dev):
     """K1 against its plain version, each output block first poisoned with
     NaN (the kernel's output comes from torch.empty and must be written
@@ -1163,8 +1369,7 @@ def phase_serve_trained(dev, workdir):
     model.load_state_dict(sd, strict=True)
     pipe = InferencePipeline(cfg, model.eval(), dev, fold_bn=True)
     batch = synthetic_yuv420_batch(np.random.default_rng(3), B, PAD_HW, num_classes=10)
-    out = pipe(batch)
-    torch.cuda.synchronize()
+    out = epilogue_launches("phase 9 step-40 model", pipe.folded_counts, 1, lambda: pipe(batch))
     if out["boxes"].shape != (B, cfg.top_k, 4) or not torch.isfinite(out["boxes"]).all():
         raise AssertionError(f"trained model: bad boxes {tuple(out['boxes'].shape)}")
     if not torch.isfinite(out["scores"]).all():
@@ -1358,7 +1563,8 @@ def phase_dense_serve(dev, smi):
         pipe_q = InferencePipeline(cfg, model, dev, input_format="rgb", w8a8=scales,
                                    w8a8_fused=True, w8a8_chain=True)
         batch = synthetic_batch(np.random.default_rng(1), b, DENSE_PAD, num_classes=5)
-        out_fp = pipe_fp(batch)
+        out_fp = epilogue_launches(f"phase 12 {path} fp", pipe_fp.folded_counts, 1,
+                                   lambda: pipe_fp(batch))
         fq.reset_counts()
         out_q = pipe_q(batch)                  # a main path: the dense int8 posture
         torch.cuda.synchronize()
@@ -1622,8 +1828,8 @@ def phase_export(dev, workdir, smi):
         eager = InferencePipeline(cfg.replace(batch_size=B), eager_model, dev,
                                   w8a8=scales if q.startswith("w8a8") else None, **flags)
         fq.reset_counts()
-        got = sm(*data)                           # a main path: the served artifact
-        torch.cuda.synchronize()
+        got = epilogue_launches(f"phase 16 {q} artifact", eager.folded_counts, 1,
+                                lambda: sm(*data))  # a main path: the served artifact
         launches[q] = (fq.fused_qconv.launches, fq.fused_qconv.int8_out_launches)
         want = eager(batch)
         diff = compare(fingerprint(want), fingerprint(got))
@@ -1783,7 +1989,7 @@ def phase_3d_serve(dev, smi):
         raise AssertionError(f"3D: unexpected fused coverage {pipe_q.fused_counts}")
     batch = synthetic_batch(np.random.default_rng(1), B, PAD_HW, num_classes=10, with_3d=True,
                             yuv420=True)
-    out_fp = pipe_fp(batch)
+    out_fp = epilogue_launches("phase 18 3D fp", pipe_fp.folded_counts, 1, lambda: pipe_fp(batch))
     fq.reset_counts()
     out_q = pipe_q(batch)                      # a main path: 3D int8 serving
     torch.cuda.synchronize()
@@ -1809,7 +2015,8 @@ def phase_3d_serve(dev, smi):
     r_k, r_p = (postprocess(cfg, h, rois, data[4]) for h in (h_k, h_p))
     same_classes = torch.equal(r_k["classes"], r_p["classes"])
     agree = float((r_k["classes"] == r_p["classes"]).float().mean())
-    lat_fp = host_ms(lambda: pipe_fp.predict(*data))
+    lat_fp = epilogue_launches("phase 18 3D fp latency", pipe_fp.folded_counts, HOST_MS_CALLS,
+                               lambda: host_ms(lambda: pipe_fp.predict(*data)))
     lat_q = host_ms(lambda: pipe_q.predict(*data))
     log(f"[3d-serve] config B + 3D heads, B{B} 768^2 yuv420 + intrinsics: calibration "
         f"{t_cal:.1f} s; K2 launches / int8-out / packs {counts}; int8 through K2 vs its plain "
@@ -1888,8 +2095,9 @@ def _export_and_serve(tag, model_name, ckdir, art, quantize, fmt, eager, batch, 
     problems = sm.selftest()
     data = [batch[k] for k in sm.keys]
     fq.reset_counts()
-    got = sm(*data)                            # a main path: the served artifact
-    torch.cuda.synchronize()
+    passes = DMDS_PASSES if model_name == "dmds" else 1
+    got = epilogue_launches(f"{tag} {quantize} artifact", eager.folded_counts, passes,
+                            lambda: sm(*data))  # a main path: the served artifact
     launches = fq.fused_qconv.launches
     want = eager(batch)
     diff = compare(fingerprint(want), fingerprint(got))
@@ -2037,14 +2245,16 @@ def phase_dmds(dev, workdir, smi):
     batch = synthetic_batch(np.random.default_rng(5), B, pad, num_classes=10, two_frame=True)
     pipe = InferencePipeline(cfg.replace(batch_size=B), model, dev, input_format="rgb",
                              fold_bn=True)
-    out = pipe(batch)
-    torch.cuda.synchronize()
+    out = epilogue_launches("phase 21 DMDS fp", pipe.folded_counts, DMDS_PASSES,
+                            lambda: pipe(batch))
     shapes = {k: tuple(v.shape) for k, v in out.items()}
     if shapes != {"depth": (B, *cfg.input_hw, 1), "rotation": (B, 3), "translation": (B, 3)} \
             or not all(torch.isfinite(v).all() for v in out.values()):
         raise AssertionError(f"dmds serving: {shapes}")
     data = [torch.from_numpy(batch[k]).to(dev) for k in pipe.keys]
-    lat = host_ms(lambda: pipe.predict(*data))
+    lat = epilogue_launches("phase 21 DMDS fp latency", pipe.folded_counts,
+                            DMDS_PASSES * HOST_MS_CALLS,
+                            lambda: host_ms(lambda: pipe.predict(*data)))
     log(f"[dmds] two-frame batch-8 request, fp (BN folded): {shapes}; depth "
         f"{float(out['depth'].min()):.3f}..{float(out['depth'].max()):.3f} m; predict median of "
         f"20 on {smi}: {lat:.3f} ms")
@@ -3820,10 +4030,10 @@ def main() -> int:
         return name, time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        took = dict(ex.map(timed_load, ["fused_qconv", "gaussian_splat"]))
+    with ThreadPoolExecutor(3) as ex:
+        took = dict(ex.map(timed_load, ["fused_qconv", "gaussian_splat", "conv_epilogue"]))
     log(f"[build] fused_qconv {took['fused_qconv']:.1f} s, gaussian_splat "
-        f"{took['gaussian_splat']:.1f} s, together "
+        f"{took['gaussian_splat']:.1f} s, conv_epilogue {took['conv_epilogue']:.1f} s, together "
         f"{time.perf_counter() - t0:.1f} s, into {_build.BUILD_DIR}")
 
     # Phase 2: kernel vs plain, at config B's shapes and at every shape of
@@ -3861,7 +4071,8 @@ def main() -> int:
 
     # Phase 4: serve one batch-8 request through each posture.
     batch = synthetic_yuv420_batch(np.random.default_rng(1), B, PAD_HW, num_classes=10)
-    out_fp = pipe_fp(batch)
+    out_fp = epilogue_launches("phase 4 config B fp", pipe_fp.folded_counts, 1,
+                               lambda: pipe_fp(batch))
     fq.reset_counts()
     out_q = pipe_q(batch)                      # the main path, int8 posture
     torch.cuda.synchronize()
@@ -3945,10 +4156,16 @@ def main() -> int:
         f"{st['batch_fill']}, {fq.fused_qconv.launches} kernel launches (replayed)")
 
     # Phase 6: median batch-8 latency, inputs resident on the card.
-    lat_fp = host_ms(lambda: pipe_fp.predict(*planes))
+    lat_fp = epilogue_launches("phase 6 config B fp latency", pipe_fp.folded_counts,
+                               HOST_MS_CALLS, lambda: host_ms(lambda: pipe_fp.predict(*planes)))
     lat_q = host_ms(lambda: pipe_q.predict(*planes))
     log(f"[latency] batch-8 predict (preprocess+forward+decode), median of 20 on {smi}: "
         f"fp (BN folded) {lat_fp:.3f} ms, int8 (fused, chained) {lat_q:.3f} ms")
+
+    # Phase 6b: the folded conv's epilogue in the benchmark's fp cells.
+    t0 = time.perf_counter()
+    epilogue = phase_conv_epilogue(dev, smi)
+    log(f"[epilogue] phase 6b took {time.perf_counter() - t0:.1f} s")
 
     # Phase 7: K1 against its plain version.
     t0 = time.perf_counter()
@@ -4161,7 +4378,15 @@ def main() -> int:
                                              ms=splat_times["multitask"][0],
                                              plain_ms=splat_times["multitask"][1],
                                              bound_ms=splat_times["multitask_bound_ms"]),
-                  **dist_k1, **dist_serve_k1, **launcher_k1}}]}))
+                  **dist_k1, **dist_serve_k1, **launcher_k1}}, {
+        "name": "conv_epilogue", "route": "cuda", "source": EPILOGUE_SOURCE,
+        "replaces": None, "launches": sum(p["launches"] for p in EPILOGUE_PATHS.values()),
+        "max_abs_err": max(p["max_abs_err"] for p in epilogue.values()),
+        "ms": epilogue["centernet_b"]["ms"],
+        "plain_ms": epilogue["centernet_b"]["plain_ms"],
+        "bound_ms": epilogue["centernet_b"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": epilogue["centernet_b"]["library_ms"], "cells": epilogue,
+        "paths": EPILOGUE_PATHS}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -16,7 +16,9 @@ bucket) hold no weights. The artifact directory:
     when there are several;
   * ``weights.npz``: the served model's tensors by name, flat; with
     ``--quantize int8`` each eligible conv weight as ``{name}/int8`` and
-    ``{name}/scale``;
+    ``{name}/scale``; a bf16 tensor (a folded conv's, ``--fold_bn``) under
+    ``{name}/bf16``, its bits as int16 (or its int8 pair under it,
+    quantized from the float32 folded weight, as the reference's);
   * ``params.json``, the model's config;
   * ``artifact.json``: the reference's keys, a selftest fingerprint taken
     by running the artifact just written, ``torch_version``, ``device``
@@ -26,9 +28,11 @@ A program's data arguments are ``infer/pipeline.py::data_keys``'s: a
 ``with_3d`` artifact takes the (B, 4) intrinsics after the images, a dmds
 artifact both frames; dmds refuses the ``w8a8*`` postures, as the
 reference does. A program is read back by the torch version that wrote it. The fused int8
-postures record the kernel's custom op (``cvm_tpu_torch::fused_qconv``), so
-loading them needs ``cvm_tpu_torch.ops.cuda.fused_qconv`` imported, and no
-other module of the package. ``--quantize w8a8`` is static-calibrated
+postures record the kernel's custom op (``cvm_tpu_torch::fused_qconv``), a
+``--fold_bn`` program (the default of ``--quantize none``) the folded conv's
+(``cvm_tpu_torch::conv_epilogue``), so loading them needs
+``cvm_tpu_torch.ops.cuda.fused_qconv`` and ``.conv_epilogue`` imported, and
+no other module of the package. ``--quantize w8a8`` is static-calibrated
 W8A8, as the reference's: its program runs ``Int8Conv`` on calibrated
 scales, and ``weights.npz`` holds the int8 weight matrices (the reference
 ships the fp kernels and quantizes inside the program).
@@ -101,26 +105,38 @@ def _trace_args(keys, bs: int, pad_hw, device):
     return tuple(args)
 
 
-def _flat_weights(model: nn.Module, quantize: str):
-    """``weights.npz``'s arrays and the quantization stats."""
+def _flat_weights(model: nn.Module, quantize: str, float_weights=None):
+    """``weights.npz``'s arrays and the quantization stats. With ``int8``, a
+    folded conv's weight is quantized from its float32 value in
+    ``float_weights`` (``infer/fold_bn.py::folded_float_weights``), not
+    from its bf16 copy."""
     tensors = served_tensors(model)
+    # A folded model's convs hold bf16 weights and biases (infer/fold_bn.py):
+    # stored under "{name}/bf16", as their bits, or as an int8 pair.
+    bf16 = {k for k, v in tensors.items() if v.dtype == torch.bfloat16}
     qstats = {}
     if quantize == "int8":
         from cvm_tpu_torch.infer.quantize import quantization_error, quantize_params
 
+        float_weights = float_weights or {}
+        missing = sorted(k for k in bf16 if k.endswith(".weight") and k not in float_weights)
+        if missing:
+            raise ValueError(f"export int8: no float32 weight for the folded {missing}")
         params = dict(model.named_parameters())
+        params.update(float_weights)
         qparams, qstats = quantize_params(params)
         qstats["max_rel_error"] = quantization_error(params, qparams)
         tensors.update(qparams)
     flat = {}
     for name, v in tensors.items():
+        key = f"{name}/bf16" if name in bf16 else name
         if isinstance(v, dict):  # {"int8", "scale"}
-            flat[f"{name}/int8"] = v["int8"].cpu().numpy()
-            flat[f"{name}/scale"] = v["scale"].cpu().numpy()
-        elif v.dtype == torch.bfloat16:
-            raise TypeError(f"export: {name} is bfloat16, which weights.npz cannot hold")
+            flat[f"{key}/int8"] = v["int8"].cpu().numpy()
+            flat[f"{key}/scale"] = v["scale"].cpu().numpy()
+        elif name in bf16:
+            flat[key] = v.detach().to(torch.bfloat16).view(torch.int16).cpu().numpy()
         else:
-            flat[name] = v.detach().cpu().numpy()
+            flat[key] = v.detach().cpu().numpy()
     return flat, qstats
 
 
@@ -220,7 +236,12 @@ def export_model(spec_name: str, checkpoint_dir: str, out_dir: str, batch_size: 
             torch.export.save(ep, os.path.join(out_dir, f"model_b{bs}.pt2"))
     with open(os.path.join(out_dir, "params.json"), "w") as f:
         f.write(cfg.to_json())
-    flat, qstats = _flat_weights(pipe.model, quantize)
+    floats = None
+    if quantize == "int8" and pipe.folded_counts:
+        from cvm_tpu_torch.infer.fold_bn import folded_float_weights
+
+        floats = folded_float_weights(model, pipe.model)
+    flat, qstats = _flat_weights(pipe.model, quantize, floats)
     if scales is not None:
         qstats["calibrated_convs"] = len(scales)
     np.savez(os.path.join(out_dir, "weights.npz"), **flat)

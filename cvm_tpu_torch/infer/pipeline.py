@@ -9,7 +9,10 @@ through one ROI, frame t's depth and the forward ego-motion.
 Mirrors ``cvm_tpu/infer/pipeline.py`` (``InferencePipeline``,
 ``_postprocess``) for the whole zoo in the deploy postures (DMDS in fp
 only: the reference refuses W8A8 for it):
-  * fp, optionally with BN folded (``fold_bn=True``);
+  * fp, optionally with BN folded (``fold_bn=True``): each conv then runs
+    as cuDNN's conv and one epilogue kernel on weights prepared once
+    (``infer/fold_bn.py::swap_folded``; ``folded_counts`` says how many
+    convs it took and how many it left);
   * W8A8 with dynamic scales (``w8a8=True``) or calibrated static ones
     (``w8a8=<scales>``), every conv an ``Int8Conv``; both compose with
     ``fold_bn`` (the quantizer then sees the folded kernels);
@@ -202,16 +205,18 @@ class InferencePipeline:
         # A QAT model's fp forward is not what ships: serve the fake-quant
         # convs its train step ran, unless an int8 path already runs.
         self.fake_quant = bool(getattr(params, "qat", False)) and w8a8 is None
-        self.fused_counts = self.int8_counts = None
+        self.fused_counts = self.int8_counts = self.folded_counts = None
         from cvm_tpu_torch.models.layers import bind_spatial_mesh
 
         model = copy.deepcopy(model).to(self.device).eval()
         self.tensor_parallel = self._place_stage5(model, w8a8 is None and not self.fake_quant)
         bind_spatial_mesh(model, mesh)
         if fold_bn:
-            from cvm_tpu_torch.infer.fold_bn import fold_batchnorm
+            from cvm_tpu_torch.infer.fold_bn import fold_batchnorm, swap_folded
 
             model = fold_batchnorm(model)
+            if w8a8 is None and not self.fake_quant:
+                self.folded_counts = swap_folded(model)
         if w8a8_fused:
             from cvm_tpu_torch.infer.quantize import prequantize_fused_weights, swap_fused
 

@@ -166,7 +166,7 @@ def conv_geometry(k: int, s: int, h: int, w: int) -> Dict[str, Any]:
     """``{"k", "stride", "pads": (top, bottom, left, right), "out_hw"}`` of
     a k x k stride-s SAME conv on an h x w input: the one place that maps
     the port's Conv onto an explicit conv (the int8 paths here;
-    ``train/qat.py`` runs the Conv's own ``conv_nhwc``)."""
+    ``train/qat.py`` runs ``models/layers.py::conv_nhwc``, as the Conv)."""
     pads = (*same_pads(h, k, s), *same_pads(w, k, s))
     out_hw = ((h + pads[0] + pads[1] - k) // s + 1, (w + pads[2] + pads[3] - k) // s + 1)
     return {"k": k, "stride": s, "pads": pads, "out_hw": out_hw}

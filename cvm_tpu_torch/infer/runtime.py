@@ -6,7 +6,9 @@ Mirrors ``cvm_tpu/infer/runtime.py`` (``_unflatten``, ``_dequantize``,
 bucket) and the weights of ``weights.npz`` (weight-only int8 leaves
 dequantized at load) and runs the whole device pipeline, preprocess,
 forward and decode, with none of the model-zoo code: the programs need
-only the fused int8 kernel's op registration (``ops/cuda/fused_qconv.py``).
+only the op registrations of the fused int8 kernel
+(``ops/cuda/fused_qconv.py``) and of the folded conv's epilogue
+(``ops/cuda/conv_epilogue.py``).
 A program is read by the torch version that wrote it (``artifact.json``
 records it).
 
@@ -35,7 +37,9 @@ def load_weights(path: str, device: torch.device) -> Dict[str, torch.Tensor]:
     """``weights.npz`` -> ``{name: tensor}`` on ``device``: a
     ``{name}/int8`` + ``{name}/scale`` pair (the format of
     ``infer/quantize.py::quantize_params``: per-output-channel scales on
-    axis 0) becomes the float32 product, as ``dequantize_params`` makes it."""
+    axis 0) becomes the float32 product, as ``dequantize_params`` makes it;
+    ``{name}/bf16`` (bf16 bits as int16, or such a pair) becomes a bf16
+    tensor."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     out = {}
@@ -46,14 +50,18 @@ def load_weights(path: str, device: torch.device) -> Dict[str, torch.Tensor]:
             name = key[:-len("/int8")]
             q = torch.from_numpy(a).to(device).to(torch.float32)
             s = torch.from_numpy(flat[name + "/scale"]).to(device).to(torch.float32)
-            out[name] = q * s.view(-1, *([1] * (q.dim() - 1)))
+            t = q * s.view(-1, *([1] * (q.dim() - 1)))
         else:
-            out[key] = torch.from_numpy(a).to(device)
+            name, t = key, torch.from_numpy(a).to(device)
+        if name.endswith("/bf16"):
+            name = name[:-len("/bf16")]
+            t = t.view(torch.bfloat16) if t.dtype == torch.int16 else t.to(torch.bfloat16)
+        out[name] = t
     return out
 
 
 def _load_program(path: str, device: torch.device, exported_on: str):
-    from cvm_tpu_torch.ops.cuda import fused_qconv  # noqa: F401  (registers the op)
+    from cvm_tpu_torch.ops.cuda import conv_epilogue, fused_qconv  # noqa: F401  (the ops)
 
     ep = torch.export.load(path)
     if exported_on != device.type:

@@ -19,6 +19,11 @@ stride-2 conv on an even input (0 before, 1 after), unlike ``padding=1``.
 runs a 3x3 stride-1 conv with H split over a mesh's model axis
 (``parallel/spatial.py``); its parameters are those of the ``Conv`` it
 replaces.
+
+These modules are what training, the W8A8 postures and QAT run. A BN-folded
+serving model (``infer/fold_bn.py``) swaps its ``ConvBN``s, ``ResBlock``s and
+``Head``s for serving-only modules that hold bf16 weights prepared once and
+run one epilogue kernel after each conv, with the same numerics.
 """
 
 from __future__ import annotations
@@ -44,6 +49,19 @@ def same_pads(size: int, k: int, s: int):
     return total // 2, total - total // 2
 
 
+def conv_nhwc(x: torch.Tensor, weight: torch.Tensor, stride: int) -> torch.Tensor:
+    """The SAME conv of NHWC ``x`` with square OIHW ``weight`` (same dtype),
+    no bias, NHWC out."""
+    k = weight.shape[2]
+    xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view
+    (pt, pb), (pl, pr) = same_pads(xc.shape[2], k, stride), same_pads(xc.shape[3], k, stride)
+    if pt == pb and pl == pr:
+        y = F.conv2d(xc, weight, stride=stride, padding=(pt, pl))
+    else:
+        y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), weight, stride=stride)
+    return y.permute(0, 2, 3, 1)
+
+
 class Conv(nn.Conv2d):
     """``flax.linen.Conv`` with SAME padding on NHWC tensors: computes in
     ``dtype`` (the fp32 weight is cast per call), bias added after the conv
@@ -61,23 +79,11 @@ class Conv(nn.Conv2d):
         super().__init__(in_ch, out_ch, kernel, stride=stride, bias=bias)
         self.dtype = dtype
 
-    def conv_nhwc(self, x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
-        """The SAME conv of NHWC ``x`` with OIHW ``weight`` (same dtype), no
-        bias, NHWC out."""
-        k, s = self.kernel_size[0], self.stride[0]
-        xc = x.permute(0, 3, 1, 2)  # channels-last NCHW view
-        (pt, pb), (pl, pr) = same_pads(xc.shape[2], k, s), same_pads(xc.shape[3], k, s)
-        if pt == pb and pl == pr:
-            y = F.conv2d(xc, weight, stride=s, padding=(pt, pl))
-        else:
-            y = F.conv2d(F.pad(xc, (pl, pr, pt, pb)), weight, stride=s)
-        return y.permute(0, 2, 3, 1)
-
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if Conv.fake_quant is not None:
             return Conv.fake_quant(self, x, dtype)
         dt = dtype or self.dtype
-        y = self.conv_nhwc(x.to(dt), self.weight.to(dt))
+        y = conv_nhwc(x.to(dt), self.weight.to(dt), self.stride[0])
         if self.bias is not None:
             y = y + self.bias.to(dt)
         return y
@@ -166,7 +172,8 @@ class BatchNorm(nn.BatchNorm2d):
 
 class BiasAdd(nn.Module):
     """What a BatchNorm becomes after ``infer.fold_bn.fold_batchnorm``: its
-    residual bias, added in the conv's output dtype."""
+    residual bias, added in the conv's output dtype (until
+    ``infer.fold_bn.swap_folded`` moves it into the conv's epilogue)."""
 
     def __init__(self, bias: torch.Tensor):
         super().__init__()

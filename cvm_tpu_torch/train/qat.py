@@ -37,7 +37,7 @@ from typing import Optional
 import torch
 
 from cvm_tpu_torch.infer.quantize import div127
-from cvm_tpu_torch.models.layers import Conv
+from cvm_tpu_torch.models.layers import Conv, conv_nhwc
 from cvm_tpu_torch.parallel.reduce import LOCAL, BatchReducer
 
 
@@ -85,8 +85,8 @@ def fq_conv(conv: Conv, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
     with a ``slices`` reducer (``RowConv``) takes its scales over it too."""
     cdt = dtype or conv.dtype
     slices = getattr(conv, "slices", LOCAL)  # a row split's model group
-    y = conv.conv_nhwc(fake_quant_act(x, reducer, slices).to(cdt),
-                       fake_quant_weight(conv.weight, slices).to(cdt))
+    y = conv_nhwc(fake_quant_act(x, reducer, slices).to(cdt),
+                  fake_quant_weight(conv.weight, slices).to(cdt), conv.stride[0])
     if conv.bias is not None:
         y = y.to(torch.float32) + conv.bias.to(torch.float32)
     return y.to(cdt)
