@@ -73,14 +73,6 @@ HEADS_3D = ("depth3d", "dims3d", "rot")
 T = torch.from_numpy
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _raw(seed, B=2):
     raw = j_synthetic_batch(np.random.default_rng(seed), B, PAD, num_classes=3, max_objects=8,
                             with_3d=True)

@@ -63,14 +63,6 @@ MARGIN = 0.25         # spreads above the least served score: a peak that must b
 LOGIT_MAX = float(np.log(1 - 1e-6) - np.log(1e-6))
 
 
-@pytest.fixture(autouse=True)
-def _threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
-
-
 def _frames(seed: int):
     rng = np.random.default_rng(seed)
     out = []

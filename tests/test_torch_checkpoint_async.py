@@ -36,14 +36,6 @@ TINY = ["--model", "centernet", "--data", "synthetic", "--device", "cpu", "--pad
         "--warmup_steps", "2", "--log_every", "1", "--checkpoint_every", "2"]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)  # as the killed process, whose numbers the resumed run repeats
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture
 def gate(monkeypatch):
     """``torch.save`` held until ``gate.set()``; ``gate.entered`` is set once
@@ -197,6 +189,8 @@ def test_a_process_killed_in_its_write_resumes_from_the_previous_step(tmp_path, 
     with open(os.path.join(work, "metrics.jsonl")) as f:
         killed = {r["step"]: r for r in map(json.loads, f)}
     capsys.readouterr()
+    # one thread here (the root conftest's) as in the killed process
+    # (OMP_NUM_THREADS=1): only then does the resumed run repeat its numbers
     assert train_main(argv) == 0
     assert "start_step=2" in capsys.readouterr().out
     assert sorted(os.listdir(ckdir)) == sorted(["2.pt", "4.pt", "6.pt", "params.json", *left])

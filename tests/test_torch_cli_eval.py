@@ -10,7 +10,6 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
 import cvm_tpu.cli.train as j_train
 from cvm_tpu_torch.cli.evaluate import main as eval_main
@@ -22,17 +21,6 @@ BASE = ["--model", "centernet", "--data", "synthetic", "--device", "cpu", "--pad
         "--head_features", "16", "--num_classes", "3", "--batch_size", "2",
         "--warmup_steps", "2", "--log_every", "1", "--checkpoint_every", "3"]
 EVAL = ["--eval_every", "5", "--eval_batches", "1", "--keep_best", "mAP"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for these tiny models: pytest-xdist runs several
-    workers at once, and torch's default of a thread per core in each of
-    them oversubscribes the machine many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def records(workdir):

@@ -58,14 +58,6 @@ from test_torch_records import load_reference_decoder
 _SIZES = [(40, 44), (30, 48), (48, 36), (33, 41), (44, 44)]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     load_reference_decoder()

@@ -45,14 +45,6 @@ from test_torch_adapters import assert_same_shard, pack_both
 from test_torch_records import load_reference_decoder
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _jpeg(rng, hw=(24, 40), quality=85):
     buf = io.BytesIO()
     Image.fromarray(rng.integers(0, 255, (*hw, 3), dtype=np.uint8)).save(

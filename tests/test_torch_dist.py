@@ -64,14 +64,6 @@ KW = dict(child.CONFIGS["tiny"]["centernet"][0], batch_size=4, optimizer="sgd",
 TARGET_FIELDS = ("heatmap", "offset", "size", "mask", "indices", "valid")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _leaf_close(got, want, tol, what):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     assert got.shape == want.shape, what

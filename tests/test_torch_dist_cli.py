@@ -23,7 +23,6 @@ import os
 import sys
 
 import pytest
-import torch
 
 from cvm_tpu_torch.cli.evaluate import main as eval_main
 from cvm_tpu_torch.cli.train import main as train_main
@@ -36,14 +35,6 @@ TINY = ["--model", "centernet", "--data", "synthetic", "--device", "cpu", "--pad
         "--input_hw", "64,64", "--backbone", "tiny", "--neck_features", "32",
         "--head_features", "16", "--num_classes", "3", "--batch_size", "4",
         "--warmup_steps", "2", "--log_every", "1"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cli_ranks(work, steps):

@@ -67,14 +67,6 @@ DET = dict(CFG, batch_size=4)
 SEG = dict(input_hw=(64, 128), backbone="tiny", decoder_features=16, batch_size=4)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _variables(name, fields, seed):
     """The reference's variables of a tiny model (random BatchNorm
     statistics; CenterNet's heatmap head sharpened, as

@@ -43,14 +43,6 @@ from cvm_tpu_torch.train.loop import Trainer
 STEPS = 3
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.mark.parametrize("name", ["centernet", "semseg", "depth", "multitask", "dmds"])
 def test_two_ranks_equal_one_process(name, tmp_path):
     ranks = [r for r, _ in child.launch(2, ["train", "--model", name, "--steps", STEPS],

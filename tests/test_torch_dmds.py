@@ -55,14 +55,6 @@ MOTION = ("rotation", "translation", "residual_translation")
 T = torch.from_numpy
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _pair(seed=0, **kw):
     jspec, tspec = j_get_model("dmds"), get_model("dmds")
     jp, tp = jspec.params_cls(**CFG, **kw), tspec.params_cls(**CFG, **kw)

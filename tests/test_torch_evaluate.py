@@ -58,17 +58,6 @@ CFG = dict(input_hw=(32, 32), num_classes=3, backbone="tiny", neck_features=16,
 PAD = (48, 48)
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread for these tiny models: pytest-xdist runs several
-    workers at once, and torch's default of a thread per core in each of
-    them oversubscribes the machine many times over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def to_flax(template, sd):
     """The port's ``state_dict`` as flax variables shaped like ``template``
     (the inverse of ``convert_variables``)."""

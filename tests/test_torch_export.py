@@ -51,14 +51,6 @@ META_KEYS = {"model", "input_format", "batch_size", "batch_sizes", "pad_hw", "qu
              "device_kind"}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def write_checkpoint(directory, cfg, state_dict):
     """A checkpoint of the port's (step 1) holding ``state_dict``."""
     tr = Trainer(cfg, "cpu", checkpoint_dir=str(directory))

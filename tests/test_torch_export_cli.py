@@ -46,14 +46,6 @@ from test_torch_export import CFG, PAD, write_checkpoint
 from test_torch_model import random_bn_stats
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     jp = get_model("centernet").params_cls(**CFG)

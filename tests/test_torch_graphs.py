@@ -178,14 +178,6 @@ TINY = {"semseg": dict(input_hw=(32, 32), backbone="tiny", decoder_features=8, n
                           num_classes=3, top_k=10, batch_size=1)}
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _pipeline(name, unblock=True):
     spec = get_model(name)
     cfg = spec.params_cls(**TINY[name])

@@ -13,7 +13,6 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
 from cvm_tpu.train import lr_find as jlr
 from cvm_tpu_torch.cli.lr_find import main as lr_main
@@ -23,14 +22,6 @@ from cvm_tpu_torch.train import lr_find
 
 TINY = dict(input_hw=(64, 64), num_classes=3, max_objects=8, backbone="tiny",
             neck_features=32, head_features=16, batch_size=2)
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("lo,hi,n", [(1e-6, 1.0, 200), (1e-4, 3e-2, 7), (0.5, 2.0, 1)])

@@ -24,14 +24,6 @@ BASE = ["--model", "centernet", "--device", "cpu", "--pad_hw", "96,96", "--input
         "--num_classes", "3", "--batch_size", "2", "--log_every", "1"]
 
 
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_step_timer_sections():
     t = StepTimer()
     x = torch.ones(64, 64)

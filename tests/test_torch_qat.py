@@ -53,14 +53,6 @@ CLI = ["--model", "centernet", "--data", "synthetic", "--device", "cpu", "--pad_
        "--warmup_steps", "2", "--log_every", "1", "--checkpoint_every", "2"]
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_fake_quant_values_match_reference_and_the_gradient_is_the_identity():
     rng = np.random.default_rng(0)
     x = rng.normal(0, 2.0, (2, 6, 5, 16)).astype(np.float32)

@@ -43,8 +43,6 @@ from unittest import mock
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
-import torch
 
 import torch_dist_child as child
 from cvm_tpu.data.synthetic import synthetic_batch as j_synthetic_batch
@@ -59,14 +57,6 @@ from cvm_tpu_torch.models import get_model
 from test_torch_dist import KW, _reference_in_float32, _write_npz
 
 STEPS = 2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_qat_scales_under_tensor_parallelism_are_the_whole_tensors(tmp_path):

@@ -66,12 +66,8 @@ CASES = {
 
 
 @pytest.fixture(scope="module", autouse=True)
-def one_thread():
+def reference_decoder():
     load_reference_decoder()  # the reference loader's, never its PIL fallback
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))

@@ -26,14 +26,6 @@ CFGS = {
 }
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _model(name, **extra):
     spec = get_model(name)
     cfg = spec.params_cls(**CFGS[name], **extra)

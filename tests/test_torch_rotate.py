@@ -39,14 +39,6 @@ from test_torch_processor import jax_draws
 T = torch.from_numpy
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_quarter_turn_is_exact():
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (1, 9, 9, 3)).astype(np.uint8)

@@ -30,7 +30,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from cvm_tpu.infer.server import ModelServer as RefServer
 from cvm_tpu.infer.server import result_record as ref_result_record
@@ -53,14 +52,6 @@ from test_torch_model import random_bn_stats
 from test_torch_records import encode, make_shard
 
 THRESHOLD = 0.0  # every decoded box goes into the record
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

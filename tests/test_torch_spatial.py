@@ -52,14 +52,6 @@ SEMSEG = dict(input_hw=(64, 128), backbone="tiny", decoder_features=16, batch_si
 SEMSEG_CLASSES = get_model("semseg").params_cls(**SEMSEG).num_classes
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _conv_case(ranks):
     """x (NHWC), the HWIO weight, the loss's weights g and the OIHW weight
     of the ``ranks``-rank conv case (tests/test_spatial_sharding.py's

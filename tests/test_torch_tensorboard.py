@@ -16,7 +16,6 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
 import cvm_tpu.train.tensorboard as jtb
 import cvm_tpu_torch.train.tensorboard as ttb
@@ -86,17 +85,12 @@ def test_multi_writer_and_mlflow_adapter(tmp_path, monkeypatch):
 def test_cli_train_tensorboard_with_eval_images(tmp_path):
     from cvm_tpu_torch.cli.train import main
 
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        assert main(["--model", "centernet", "--device", "cpu", "--workdir", str(tmp_path),
-                     "--steps", "4", "--pad_hw", "96,96", "--input_hw", "64,64",
-                     "--backbone", "tiny", "--neck_features", "32", "--head_features", "16",
-                     "--num_classes", "3", "--batch_size", "2", "--warmup_steps", "1",
-                     "--log_every", "1", "--eval_every", "2", "--eval_batches", "1",
-                     "--tensorboard", "--eval_images", "2"]) == 0
-    finally:
-        torch.set_num_threads(n)
+    assert main(["--model", "centernet", "--device", "cpu", "--workdir", str(tmp_path),
+                 "--steps", "4", "--pad_hw", "96,96", "--input_hw", "64,64",
+                 "--backbone", "tiny", "--neck_features", "32", "--head_features", "16",
+                 "--num_classes", "3", "--batch_size", "2", "--warmup_steps", "1",
+                 "--log_every", "1", "--eval_every", "2", "--eval_batches", "1",
+                 "--tensorboard", "--eval_images", "2"]) == 0
     (path,) = glob.glob(str(tmp_path / "tb" / "events.out.tfevents.*"))
     ev = ttb.read_scalar_events(path)
     assert [e["step"] for e in ev if "loss" in e.get("scalars", {})] == [1, 2, 3, 4]

@@ -30,14 +30,6 @@ from cvm_tpu_torch.models import get_model
 from test_torch_model import assert_bf16_close, random_bn_stats
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def test_tile_positions_and_window_are_the_references():
     for full in (1, 31, 64, 65, 100, 257, 640):
         for tile in (32, 64, 256):

@@ -20,7 +20,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 cv2 = pytest.importorskip("cv2")
 
@@ -34,14 +33,6 @@ from cvm_tpu_torch.models.centernet.params import CenternetParams  # noqa: E402
 from test_torch_cli_infer import assert_jsonl_close  # noqa: E402
 from test_torch_export import CFG, write_checkpoint  # noqa: E402
 from test_torch_model import random_bn_stats  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def write_clip(path, n=10, hw=(44, 60), fps=10):

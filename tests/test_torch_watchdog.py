@@ -20,19 +20,9 @@ import threading
 import time
 
 import numpy as np
-import pytest
-import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "torch_hang_child.py")
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def child_env(threshold: str) -> dict:

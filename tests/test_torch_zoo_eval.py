@@ -24,7 +24,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 
 from cvm_tpu.models import get_model as j_get_model
 from cvm_tpu.train import evaluate as j_eval
@@ -47,14 +46,6 @@ TINY = {
 }
 
 SEG_LEAN = 0.4  # added to an untrained seg head's background logit
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _val(n=3, seed=999):

@@ -45,14 +45,6 @@ TINY = {
 }
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _pair(case):
     name = case.split("_")[0]
     jspec, tspec = j_get_model(name), get_model(name)

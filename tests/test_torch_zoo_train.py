@@ -59,14 +59,6 @@ TINY = {
 KEYS = ("image", "image_hw", "boxes", "classes", "num_objects", "mask", "depth")
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _raw(seed, B=2):
     raw = j_synthetic_batch(np.random.default_rng(seed), B, PAD, num_classes=3, max_objects=8)
     return {k: raw[k] for k in KEYS}
