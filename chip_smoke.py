@@ -62,6 +62,19 @@ prerequisites) is printed first:
      turns (old, new, new, old), and its device kernels by class. Every
      fp fold_bn path this process serves (phases 4, 6, 6b, 9, 12, 16, 18,
      20, 21) is held to that counter too (``epilogue_launches``);
+  6c. the eval YUV420 letterbox kernel (``csrc/yuv_letterbox.cu``) in the
+     same two cells: the kernel vs its plain version (the eager ops) bit for
+     bit on a batch of each cell's frames, in bf16 and float32, ROI fields
+     included; the device kernels of one call (one) against the eager
+     ops'; the kernel's device time beside its bytes bound at 3.35 TB/s
+     (the output, and the plane rows and columns its taps touch) and the
+     eager ops' time; its launch counter over 10 replays of a pipeline on
+     the kernel (10) and of one captured on the eager preprocess (0),
+     whose outputs are equal; each cell's replayed step on the eager
+     preprocess and on the kernel in turns, and its kernels by class. Every
+     CUDA YUV420 eval path this process serves (phases 3, 4, 6, 6b, 9, 16,
+     18, 20, 21) and phase 35's ranks are held to that counter too
+     (``letterbox_launches``: one a call, one per frame in DMDS);
   7. the Gaussian splat kernel K1 vs its plain version at the flagship
      training shape, config B's default shape, multitask's (B8 K128 64x160
      C10) and twelve edge cases, each
@@ -276,6 +289,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -294,6 +308,7 @@ KERNEL_REPLACES = "cvm_tpu/ops/pallas/fused_qconv.py:150"
 SPLAT_SOURCE = "cvm_tpu_torch/csrc/gaussian_splat.cu"
 SPLAT_REPLACES = "cvm_tpu/ops/pallas/gaussian_splat.py:60"
 EPILOGUE_SOURCE = "cvm_tpu_torch/csrc/conv_epilogue.cu"
+LETTERBOX_SOURCE = "cvm_tpu_torch/csrc/yuv_letterbox.cu"
 # Phase 6b: the benchmark's fp cells (cvbench/configs, cvbench/traffic) and a seed.
 EPILOGUE_CELLS = {"centernet_b": "closed_loop_coco_b8", "semseg_a": "closed_loop_camera"}
 EPILOGUE_SEED = 2147490011
@@ -456,6 +471,31 @@ def epilogue_launches(path: str, folded, forwards: int, fn):
         raise AssertionError(f"{path}: {got} conv_epilogue launches in {forwards} forwards, "
                              f"expected {want} (folded {folded})")
     EPILOGUE_PATHS[path] = dict(launches=got, forwards=forwards)
+    return out
+
+
+# yuv_letterbox's launches on each CUDA YUV420 eval path the smoke runs, in
+# this process (``letterbox_launches``) and in phase 35's ranks, read from
+# the kernel's own counter.
+LETTERBOX_PATHS = {}
+
+
+def letterbox_launches(path: str, calls: int, fn):
+    """``fn()``, which runs ``calls`` eval preprocesses of YUV420 planes on
+    the card, with yuv_letterbox's launch counter set to 0 first; the count
+    must be ``calls``, replays included. Recorded under ``path`` in
+    ``LETTERBOX_PATHS``; returns ``fn()``'s result."""
+    import torch
+
+    from cvm_tpu_torch.ops.cuda import yuv_letterbox as yl
+
+    yl.yuv_letterbox.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    got = yl.yuv_letterbox.launches
+    if got != calls:
+        raise AssertionError(f"{path}: {got} yuv_letterbox launches, expected {calls}")
+    LETTERBOX_PATHS[path] = dict(launches=got, calls=calls)
     return out
 
 
@@ -1070,17 +1110,13 @@ def device_kernels(fn):
     return [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
-def _cell_pipelines(cell, dev):
+def _cell_program(cell, dev):
     """A benchmark cell's program (``cvbench``: its configuration, traffic
-    mix and weights from ``EPILOGUE_SEED``) as two ``fold_bn`` pipelines,
-    the folded convs' (``swap_folded``) and the old fold's (``BiasAdd``,
-    a cast of each weight and bias per call), and one batch on the card."""
-    import torch
+    mix and weights from ``EPILOGUE_SEED``): params, model and one batch of
+    its frames on the host."""
     from cvbench import program
     from cvbench.runners.closed_loop_batches import stack
     from cvbench.traffic.generator import frame_pool, stream
-    from cvm_tpu_torch.infer import fold_bn
-    from cvm_tpu_torch.infer.pipeline import InferencePipeline
 
     root = os.path.dirname(os.path.abspath(__file__))
     with open(os.path.join(root, "cvbench", "configs", f"{cell}.json")) as f:
@@ -1089,6 +1125,21 @@ def _cell_pipelines(cell, dev):
         mix = json.load(f)
     cfg = program.cell_config(cfg, mix)
     params, model, _ = program.build(cfg, EPILOGUE_SEED, dev)
+    n = int(cfg["params"]["batch_size"])
+    batch = stack(frame_pool(stream(EPILOGUE_SEED, 1), dict(mix, pool=n),
+                             cfg["params"]["num_classes"]), n)[0]
+    return params, model, batch
+
+
+def _cell_pipelines(cell, dev):
+    """A benchmark cell's program as two ``fold_bn`` pipelines, the folded
+    convs' (``swap_folded``) and the old fold's (``BiasAdd``, a cast of each
+    weight and bias per call), and one batch on the card."""
+    import torch
+    from cvm_tpu_torch.infer import fold_bn
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+
+    params, model, batch = _cell_program(cell, dev)
     new = InferencePipeline(params, model, dev, input_format="yuv420", fold_bn=True)
     real = fold_bn.swap_folded
     fold_bn.swap_folded = lambda m: None
@@ -1096,15 +1147,12 @@ def _cell_pipelines(cell, dev):
         old = InferencePipeline(params, model, dev, input_format="yuv420", fold_bn=True)
     finally:
         fold_bn.swap_folded = real
-    n = int(cfg["params"]["batch_size"])
-    batch = stack(frame_pool(stream(EPILOGUE_SEED, 1), dict(mix, pool=n),
-                             cfg["params"]["num_classes"]), n)[0]
     return new, old, [torch.from_numpy(batch[k]).to(dev) for k in new.keys]
 
 
 def _kernel_classes(fn, n: int = 10):
     """Device ms per ``fn()`` by kernel class (torch.profiler over ``n``
-    calls): cuDNN's convs, the epilogue, PyTorch's elementwise kernels
+    calls): cuDNN's convs, the epilogue, the letterbox kernel, PyTorch's elementwise kernels
     (adds, casts, silu, copies), memory copies and the rest; and kernels
     per call."""
     import torch
@@ -1116,7 +1164,8 @@ def _kernel_classes(fn, n: int = 10):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    split = dict.fromkeys(("conv", "epilogue", "elementwise", "memcpy", "other"), 0.0)
+    split = dict.fromkeys(("conv", "epilogue", "letterbox", "elementwise", "memcpy", "other"),
+                          0.0)
     count = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -1124,6 +1173,8 @@ def _kernel_classes(fn, n: int = 10):
         name, ms = e.name.lower(), (e.time_range.end - e.time_range.start) / 1e3 / n
         if "conv_epilogue" in name:
             split["epilogue"] += ms
+        elif "yuv_letterbox" in name:
+            split["letterbox"] += ms
         elif "xmma" in name or "conv" in name or "fprop" in name or "implicit_gemm" in name:
             split["conv"] += ms
         elif "elementwise" in name or ("copy" in name and "memcpy" not in name):
@@ -1203,8 +1254,8 @@ def phase_conv_epilogue(dev, smi):
         for side, pipe in (("old", old), ("new", new)):
             path = f"phase 6b {cell} {side} fold, 10 replays"
             replays = pipe.graph_counts["replays"]
-            epilogue_launches(path, pipe.folded_counts, 10,
-                              lambda: [pipe.predict(*data) for _ in range(10)])
+            epilogue_launches(path, pipe.folded_counts, 10, lambda: letterbox_launches(
+                path, 10, lambda: [pipe.predict(*data) for _ in range(10)]))
             if pipe.graph_counts["replays"] - replays != 10:
                 raise AssertionError(f"{cell} {side}: {pipe.graph_counts} after 10 predicts "
                                      "from a captured signature")
@@ -1224,6 +1275,116 @@ def phase_conv_epilogue(dev, smi):
             f"({new.folded_counts}); max |kernel - plain| {max_err}")
         record[cell] = dict(launches=launches["new"], max_abs_err=max_err, **t,
                             step_ms=steps,
+                            split={k: v[0] for k, v in split.items()},
+                            kernels={k: v[1] for k, v in split.items()})
+    return record
+
+
+def _letterbox_read_bytes(hw, out_hw) -> int:
+    """Bytes of the planes the eval letterbox reads: per image and plane, the
+    rows and columns its bilinear taps touch (at most two per output row or
+    column, within the valid extent), luma once and chroma twice."""
+    import torch
+
+    from cvm_tpu_torch.ops.image import _axis_coords, chroma_roi, letterbox_roi
+
+    def distinct(lo, hi, inside):
+        return int(torch.cat([lo[inside], hi[inside]]).unique().numel())
+
+    hw = hw.cpu()
+    h, w = hw[:, 0], hw[:, 1]
+    roi = letterbox_roi(h, w, out_hw[0], out_hw[1])
+    total = 0
+    for r, vh, vw, n in ((roi, h, w, 1), (chroma_roi(roi), (h + 1) // 2, (w + 1) // 2, 2)):
+        ylo, yhi, _, yin = _axis_coords(out_hw[0], r.dst_y0, r.dst_h, r.src_y0, r.src_h, vh)
+        xlo, xhi, _, xin = _axis_coords(out_hw[1], r.dst_x0, r.dst_w, r.src_x0, r.src_w, vw)
+        for b in range(len(h)):
+            total += n * distinct(ylo[b], yhi[b], yin[b]) * distinct(xlo[b], xhi[b], xin[b])
+    return total
+
+
+def phase_yuv_letterbox(dev, smi):
+    """Phase 6c (module docstring). Returns the kernel's record for the
+    final JSON line: per cell its time, bound, launches and the largest
+    |kernel - plain| over its calls."""
+    import torch
+    from cvm_tpu_torch.infer.pipeline import InferencePipeline
+    from cvm_tpu_torch.ops.cuda import yuv_letterbox as yl
+    from cvm_tpu_torch.pipeline import preprocess
+
+    record = {}
+    for cell in EPILOGUE_CELLS:
+        params, model, batch = _cell_program(cell, dev)
+        new = InferencePipeline(params, model, dev, input_format="yuv420", fold_bn=True)
+        plain = InferencePipeline(params, model, dev, input_format="yuv420", fold_bn=True)
+        data = [torch.from_numpy(batch[k]).to(dev) for k in new.keys]
+        y, u, v, hw = data[:4]
+        out_hw = tuple(params.input_hw)
+        unequal, max_abs_err = {}, 0.0
+        for dt in (torch.bfloat16, torch.float32):
+            got, roi = yl.yuv_letterbox(y, u, v, hw, out_hw, dt)
+            want, want_roi = yl.yuv_letterbox_reference(y, u, v, hw, out_hw, dt)
+            unequal[str(dt)] = int((got != want).sum())
+            max_abs_err = max(max_abs_err, float((got.float() - want.float()).abs().max()))
+            same_roi = all(torch.equal(a, b) for a, b in zip(roi, want_roi))
+            if unequal[str(dt)] or not same_roi:
+                raise AssertionError(f"{cell}: yuv_letterbox differs from its plain version in "
+                                     f"{dt}: {unequal[str(dt)]} of {got.numel()} elements, "
+                                     f"ROI {roi} against {want_roi}")
+        kernels = device_kernels(lambda: yl.yuv_letterbox(y, u, v, hw, out_hw))
+        plain_kernels = device_kernels(lambda: yl.yuv_letterbox_reference(y, u, v, hw, out_hw))
+        if len(kernels) != 1:
+            raise AssertionError(f"{cell}: the kernel path runs {len(kernels)} device kernels "
+                                 f"(expected 1): {kernels}")
+        nbytes = (y.shape[0] * out_hw[0] * out_hw[1] * 3 * 2 + hw.numel() * 4 + 33 * y.shape[0]
+                  + _letterbox_read_bytes(hw, out_hw))
+        t = dict(ms=cuda_ms(lambda: yl.yuv_letterbox(y, u, v, hw, out_hw)),
+                 plain_ms=cuda_ms(lambda: yl.yuv_letterbox_reference(y, u, v, hw, out_hw)),
+                 bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        t["bound_share_pct"] = 100.0 * t["bound_ms"] / t["ms"]
+        log(f"[letterbox] {cell}: B{y.shape[0]} {tuple(y.shape[1:])} -> {out_hw}, bit-equal to "
+            f"the plain version (unequal {unequal}, max |d| {max_abs_err}); {len(kernels)} "
+            f"device kernels a call ({kernels}) against {len(plain_kernels)} for the eager ops; "
+            f"kernel {t['ms'] * 1e3:.2f} us, bound {t['bound_ms'] * 1e3:.2f} us (bytes: the "
+            f"output, and the plane rows and columns the taps touch, {nbytes / 1e6:.2f} MB at "
+            f"3.35 TB/s; {t['bound_share_pct']:.1f}%), plain (the eager ops) "
+            f"{t['plain_ms'] * 1e3:.1f} us, on {smi}")
+
+        real = preprocess.yuv_letterbox
+        preprocess.yuv_letterbox = yl.yuv_letterbox_reference
+        try:  # the plain pipeline's first sighting and capture take the eager ops
+            plain.predict(*data), plain.predict(*data)
+        finally:
+            preprocess.yuv_letterbox = real
+        new.predict(*data), new.predict(*data)
+        launches = {}
+        for side, pipe in (("plain", plain), ("kernel", new)):
+            path = f"phase 6c {cell} {side} preprocess, 10 replays"
+            letterbox_launches(path, 10 if side == "kernel" else 0,
+                               lambda: [pipe.predict(*data) for _ in range(10)])
+            launches[side] = LETTERBOX_PATHS[path]["launches"]
+            if pipe.graph_counts["replays"] < 11:
+                raise AssertionError(f"{cell} {side}: {pipe.graph_counts}")
+        want = plain.predict(*data)
+        for k, val in new.predict(*data).items():
+            if not torch.equal(val, want[k]):
+                raise AssertionError(f"{cell}: the replayed step's {k} differs from the plain "
+                                     "preprocess's")
+        steps = {"plain": [], "kernel": []}
+        for side in ("plain", "kernel", "kernel", "plain"):
+            pipe = plain if side == "plain" else new
+            steps[side].append(cuda_ms(lambda: pipe.predict(*data)))
+        split = {side: _kernel_classes(lambda p=p: p.predict(*data))
+                 for side, p in (("plain", plain), ("kernel", new))}
+        for side in ("plain", "kernel"):
+            log(f"[letterbox] {cell} {side} preprocess: replayed step {steps[side][0]:.4f} / "
+                f"{steps[side][1]:.4f} ms on the device (CUDA events), {split[side][1]:.0f} "
+                f"kernels, by class (ms, profiled) {split[side][0]}")
+        log(f"[letterbox] {cell}: yuv_letterbox launches in 10 replays, by its counter: "
+            f"{launches}; outputs equal")
+        record[cell] = dict(launches_per_replay=launches["kernel"] / 10, device_kernels=kernels,
+                            plain_device_kernels=len(plain_kernels), unequal=unequal,
+                            max_abs_err=max_abs_err, bound_bytes=nbytes, **t, step_ms=steps,
                             split={k: v[0] for k, v in split.items()},
                             kernels={k: v[1] for k, v in split.items()})
     return record
@@ -1369,7 +1530,9 @@ def phase_serve_trained(dev, workdir):
     model.load_state_dict(sd, strict=True)
     pipe = InferencePipeline(cfg, model.eval(), dev, fold_bn=True)
     batch = synthetic_yuv420_batch(np.random.default_rng(3), B, PAD_HW, num_classes=10)
-    out = epilogue_launches("phase 9 step-40 model", pipe.folded_counts, 1, lambda: pipe(batch))
+    out = epilogue_launches("phase 9 step-40 model", pipe.folded_counts, 1,
+                            lambda: letterbox_launches("phase 9 step-40 model", 1,
+                                                       lambda: pipe(batch)))
     if out["boxes"].shape != (B, cfg.top_k, 4) or not torch.isfinite(out["boxes"]).all():
         raise AssertionError(f"trained model: bad boxes {tuple(out['boxes'].shape)}")
     if not torch.isfinite(out["scores"]).all():
@@ -1829,7 +1992,8 @@ def phase_export(dev, workdir, smi):
                                   w8a8=scales if q.startswith("w8a8") else None, **flags)
         fq.reset_counts()
         got = epilogue_launches(f"phase 16 {q} artifact", eager.folded_counts, 1,
-                                lambda: sm(*data))  # a main path: the served artifact
+                                lambda: letterbox_launches(f"phase 16 {q} artifact", 1,
+                                                           lambda: sm(*data)))  # a main path
         launches[q] = (fq.fused_qconv.launches, fq.fused_qconv.int8_out_launches)
         want = eager(batch)
         diff = compare(fingerprint(want), fingerprint(got))
@@ -1989,9 +2153,12 @@ def phase_3d_serve(dev, smi):
         raise AssertionError(f"3D: unexpected fused coverage {pipe_q.fused_counts}")
     batch = synthetic_batch(np.random.default_rng(1), B, PAD_HW, num_classes=10, with_3d=True,
                             yuv420=True)
-    out_fp = epilogue_launches("phase 18 3D fp", pipe_fp.folded_counts, 1, lambda: pipe_fp(batch))
+    out_fp = epilogue_launches("phase 18 3D fp", pipe_fp.folded_counts, 1,
+                               lambda: letterbox_launches("phase 18 3D fp", 1,
+                                                          lambda: pipe_fp(batch)))
     fq.reset_counts()
-    out_q = pipe_q(batch)                      # a main path: 3D int8 serving
+    out_q = letterbox_launches("phase 18 3D int8", 1,
+                               lambda: pipe_q(batch))  # a main path: 3D int8 serving
     torch.cuda.synchronize()
     counts = (fq.fused_qconv.launches, fq.fused_qconv.int8_out_launches,
               fq.fused_qconv.weight_packs)
@@ -2015,9 +2182,12 @@ def phase_3d_serve(dev, smi):
     r_k, r_p = (postprocess(cfg, h, rois, data[4]) for h in (h_k, h_p))
     same_classes = torch.equal(r_k["classes"], r_p["classes"])
     agree = float((r_k["classes"] == r_p["classes"]).float().mean())
-    lat_fp = epilogue_launches("phase 18 3D fp latency", pipe_fp.folded_counts, HOST_MS_CALLS,
-                               lambda: host_ms(lambda: pipe_fp.predict(*data)))
-    lat_q = host_ms(lambda: pipe_q.predict(*data))
+    lat_fp = epilogue_launches(
+        "phase 18 3D fp latency", pipe_fp.folded_counts, HOST_MS_CALLS,
+        lambda: letterbox_launches("phase 18 3D fp latency", HOST_MS_CALLS,
+                                   lambda: host_ms(lambda: pipe_fp.predict(*data))))
+    lat_q = letterbox_launches("phase 18 3D int8 latency", HOST_MS_CALLS,
+                               lambda: host_ms(lambda: pipe_q.predict(*data)))
     log(f"[3d-serve] config B + 3D heads, B{B} 768^2 yuv420 + intrinsics: calibration "
         f"{t_cal:.1f} s; K2 launches / int8-out / packs {counts}; int8 through K2 vs its plain "
         f"version: mean |d| / mean |plain| per head " + ", ".join(
@@ -2096,8 +2266,10 @@ def _export_and_serve(tag, model_name, ckdir, art, quantize, fmt, eager, batch, 
     data = [batch[k] for k in sm.keys]
     fq.reset_counts()
     passes = DMDS_PASSES if model_name == "dmds" else 1
+    frames = passes if fmt == "yuv420" else 0  # a DMDS pass preprocesses each frame
     got = epilogue_launches(f"{tag} {quantize} artifact", eager.folded_counts, passes,
-                            lambda: sm(*data))  # a main path: the served artifact
+                            lambda: letterbox_launches(f"{tag} {quantize} {fmt} artifact",
+                                                       frames, lambda: sm(*data)))  # a main path
     launches = fq.fused_qconv.launches
     want = eager(batch)
     diff = compare(fingerprint(want), fingerprint(got))
@@ -2255,9 +2427,20 @@ def phase_dmds(dev, workdir, smi):
     lat = epilogue_launches("phase 21 DMDS fp latency", pipe.folded_counts,
                             DMDS_PASSES * HOST_MS_CALLS,
                             lambda: host_ms(lambda: pipe.predict(*data)))
+    # the same model on YUV420 planes: each frame through the letterbox kernel
+    yuv = synthetic_batch(np.random.default_rng(6), B, pad, num_classes=10, two_frame=True,
+                          yuv420=True)
+    pipe_yuv = InferencePipeline(cfg.replace(batch_size=B), model, dev, input_format="yuv420",
+                                 fold_bn=True)
+    out_yuv = epilogue_launches("phase 21 DMDS yuv420 fp", pipe_yuv.folded_counts, DMDS_PASSES,
+                                lambda: letterbox_launches("phase 21 DMDS yuv420 fp", 2,
+                                                           lambda: pipe_yuv(yuv)))
+    if {k: tuple(v.shape) for k, v in out_yuv.items()} != shapes \
+            or not all(torch.isfinite(v).all() for v in out_yuv.values()):
+        raise AssertionError(f"dmds yuv420 serving: {out_yuv.keys()}")
     log(f"[dmds] two-frame batch-8 request, fp (BN folded): {shapes}; depth "
         f"{float(out['depth'].min()):.3f}..{float(out['depth'].max()):.3f} m; predict median of "
-        f"20 on {smi}: {lat:.3f} ms")
+        f"20 on {smi}: {lat:.3f} ms; yuv420 planes: the letterbox kernel once per frame")
 
     t0 = time.perf_counter()
     buf = io.StringIO()
@@ -3348,19 +3531,23 @@ def _phase_dist(dev, workdir, smi):
         f"gathered step-5 checkpoint loads in one process with the ranks' checksum; "
         f"{_reduces(tp[0])} on each rank; {t_tp:.1f} s with the ranks' start")
 
-    # 34d: two NCCL ranks on one card are refused, by name
+    # 34d: two NCCL ranks on one card are refused, by name. Each rank reads
+    # both cards and refuses; the launcher kills the other ranks at the first
+    # failure it sees, so the second rank is reported only when it exited
+    # before that: every rank reported must carry the refusal.
     try:
         child.launch(2, ["join"], os.path.join(workdir, "d"), device="cuda:0", timeout=300,
                      backend="nccl")
     except RuntimeError as e:
         msg = str(e)
-        if not ("rank 0 exited" in msg and "rank 1 exited" in msg
-                and "NCCL ranks 0 and 1 would share the card" in msg):
+        reported = re.split(r"(?m)^(?=rank \d+ exited)", msg)[1:]
+        if not reported or not all("NCCL ranks 0 and 1 would share the card" in part
+                                   for part in reported):
             raise AssertionError(f"34d: not the shared-card refusal:\n{msg}") from e
     else:
         raise AssertionError("34d: two NCCL ranks on one card formed a group")
-    log("[dist] 34d two NCCL ranks asked to share cuda:0: both refused before NCCL's init, "
-        "naming the card")
+    log(f"[dist] 34d two NCCL ranks asked to share cuda:0: refused before NCCL's init, naming "
+        f"the card ({', '.join(part.split(':')[0] for part in reported)} reported)")
     return k1
 
 
@@ -3425,6 +3612,19 @@ def phase_dist_serve(dev, workdir, seed, smi):
         return _phase_dist_serve(dev, workdir, seed, smi)
     finally:
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
+def _letterbox_ranks(path, one, ranks):
+    """Phase 35's first YUV420 call, in the one process and on each rank
+    (``tests/torch_dist_child.py::run_serve``): one yuv_letterbox launch
+    each, recorded in ``LETTERBOX_PATHS``."""
+    got = [one["letterbox"]] + [res["letterbox"] for res, _ in ranks]
+    if got != [1] * len(got):
+        raise AssertionError(f"{path}: yuv_letterbox launches in one call (one process, then "
+                             f"each rank) {got}, expected 1 each")
+    LETTERBOX_PATHS[f"{path}, one process"] = dict(launches=1, calls=1)
+    LETTERBOX_PATHS[f"{path}, {len(ranks)} gloo ranks"] = dict(launches=len(ranks),
+                                                               calls=len(ranks))
 
 
 def _phase_dist_serve(dev, workdir, seed, smi):
@@ -3497,6 +3697,7 @@ def _phase_dist_serve(dev, workdir, seed, smi):
             if q == "w8a8_fused_chain" and not res["k2"] == one["k2"] == 24:
                 raise AssertionError(f"35a K2 launches per call: rank {res['rank']} "
                                      f"{res['k2']}, one process {one['k2']} (24 expected)")
+        _letterbox_ranks(f"phase 35a {q}", one, ranks[f"a {q}"])
         ms = [statistics.median(res["ms"]) for res, _ in ranks[f"a {q}"]]
         k2_ranks = [res["k2"] for res, _ in ranks[f"a {q}"]]
         if q == "w8a8_fused_chain":
@@ -3510,6 +3711,7 @@ def _phase_dist_serve(dev, workdir, seed, smi):
         + "; ".join(lines) + " (median of 5 calls each)")
 
     one, want = child.run_serve(None, dev, ins["b"], reps=5)
+    _letterbox_ranks("phase 35b fold_bn", one, ranks["b"])
     gaps = []
     for res, got in ranks["b"]:
         if not res["tensor_parallel"]:
@@ -4030,10 +4232,12 @@ def main() -> int:
         return name, time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as ex:
-        took = dict(ex.map(timed_load, ["fused_qconv", "gaussian_splat", "conv_epilogue"]))
+    with ThreadPoolExecutor(4) as ex:
+        took = dict(ex.map(timed_load, ["fused_qconv", "gaussian_splat", "conv_epilogue",
+                                        "yuv_letterbox"]))
     log(f"[build] fused_qconv {took['fused_qconv']:.1f} s, gaussian_splat "
-        f"{took['gaussian_splat']:.1f} s, conv_epilogue {took['conv_epilogue']:.1f} s, together "
+        f"{took['gaussian_splat']:.1f} s, conv_epilogue {took['conv_epilogue']:.1f} s, "
+        f"yuv_letterbox {took['yuv_letterbox']:.1f} s, together "
         f"{time.perf_counter() - t0:.1f} s, into {_build.BUILD_DIR}")
 
     # Phase 2: kernel vs plain, at config B's shapes and at every shape of
@@ -4056,10 +4260,9 @@ def main() -> int:
     cfg, model = build_model(dev)
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
-    cal = []
-    for _ in range(3):
-        planes = batch_to(synthetic_yuv420_batch(rng, B, PAD_HW, num_classes=10), dev)
-        cal.append(preprocess_yuv420_batch(*planes, cfg.input_hw)[0])
+    cal = letterbox_launches("phase 3 config B calibration, float32", 3, lambda: [
+        preprocess_yuv420_batch(*batch_to(synthetic_yuv420_batch(rng, B, PAD_HW, num_classes=10),
+                                          dev), cfg.input_hw)[0] for _ in range(3)])
     scales = qz.calibrate_activation_scales(model, cal)
     log(f"[calibrate] {len(scales)} conv scales from 3 batches in "
         f"{time.perf_counter() - t0:.1f} s")
@@ -4072,9 +4275,11 @@ def main() -> int:
     # Phase 4: serve one batch-8 request through each posture.
     batch = synthetic_yuv420_batch(np.random.default_rng(1), B, PAD_HW, num_classes=10)
     out_fp = epilogue_launches("phase 4 config B fp", pipe_fp.folded_counts, 1,
-                               lambda: pipe_fp(batch))
+                               lambda: letterbox_launches("phase 4 config B fp", 1,
+                                                          lambda: pipe_fp(batch)))
     fq.reset_counts()
-    out_q = pipe_q(batch)                      # the main path, int8 posture
+    out_q = letterbox_launches("phase 4 config B int8", 1,
+                               lambda: pipe_q(batch))  # the main path, int8 posture
     torch.cuda.synchronize()
     launches, int8_launches = fq.fused_qconv.launches, fq.fused_qconv.int8_out_launches
     packs = fq.fused_qconv.weight_packs
@@ -4156,9 +4361,12 @@ def main() -> int:
         f"{st['batch_fill']}, {fq.fused_qconv.launches} kernel launches (replayed)")
 
     # Phase 6: median batch-8 latency, inputs resident on the card.
-    lat_fp = epilogue_launches("phase 6 config B fp latency", pipe_fp.folded_counts,
-                               HOST_MS_CALLS, lambda: host_ms(lambda: pipe_fp.predict(*planes)))
-    lat_q = host_ms(lambda: pipe_q.predict(*planes))
+    lat_fp = epilogue_launches(
+        "phase 6 config B fp latency", pipe_fp.folded_counts, HOST_MS_CALLS,
+        lambda: letterbox_launches("phase 6 config B fp latency", HOST_MS_CALLS,
+                                   lambda: host_ms(lambda: pipe_fp.predict(*planes))))
+    lat_q = letterbox_launches("phase 6 config B int8 latency", HOST_MS_CALLS,
+                               lambda: host_ms(lambda: pipe_q.predict(*planes)))
     log(f"[latency] batch-8 predict (preprocess+forward+decode), median of 20 on {smi}: "
         f"fp (BN folded) {lat_fp:.3f} ms, int8 (fused, chained) {lat_q:.3f} ms")
 
@@ -4166,6 +4374,11 @@ def main() -> int:
     t0 = time.perf_counter()
     epilogue = phase_conv_epilogue(dev, smi)
     log(f"[epilogue] phase 6b took {time.perf_counter() - t0:.1f} s")
+
+    # Phase 6c: the eval YUV420 letterbox kernel in the benchmark's fp cells.
+    t0 = time.perf_counter()
+    letterbox = phase_yuv_letterbox(dev, smi)
+    log(f"[letterbox] phase 6c took {time.perf_counter() - t0:.1f} s")
 
     # Phase 7: K1 against its plain version.
     t0 = time.perf_counter()
@@ -4386,7 +4599,14 @@ def main() -> int:
         "plain_ms": epilogue["centernet_b"]["plain_ms"],
         "bound_ms": epilogue["centernet_b"]["bound_ms"], "bound_by": "bytes",
         "library_ms": epilogue["centernet_b"]["library_ms"], "cells": epilogue,
-        "paths": EPILOGUE_PATHS}]}))
+        "paths": EPILOGUE_PATHS}, {
+        "name": "yuv_letterbox", "route": "cuda", "source": LETTERBOX_SOURCE,
+        "replaces": None, "launches": sum(p["launches"] for p in LETTERBOX_PATHS.values()),
+        "max_abs_err": max(c["max_abs_err"] for c in letterbox.values()),
+        "ms": letterbox["centernet_b"]["ms"], "plain_ms": letterbox["centernet_b"]["plain_ms"],
+        "bound_ms": letterbox["centernet_b"]["bound_ms"], "bound_by": "bytes",
+        "paths": LETTERBOX_PATHS,
+        "library_ms": None, "cells": letterbox}]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -30,9 +30,10 @@ artifact both frames; dmds refuses the ``w8a8*`` postures, as the
 reference does. A program is read back by the torch version that wrote it. The fused int8
 postures record the kernel's custom op (``cvm_tpu_torch::fused_qconv``), a
 ``--fold_bn`` program (the default of ``--quantize none``) the folded conv's
-(``cvm_tpu_torch::conv_epilogue``), so loading them needs
-``cvm_tpu_torch.ops.cuda.fused_qconv`` and ``.conv_epilogue`` imported, and
-no other module of the package. ``--quantize w8a8`` is static-calibrated
+(``cvm_tpu_torch::conv_epilogue``), and a yuv420 program, on either device,
+the eval letterbox's (``cvm_tpu_torch::yuv_letterbox``), so loading them needs
+``cvm_tpu_torch.ops.cuda.fused_qconv``, ``.conv_epilogue`` and
+``.yuv_letterbox`` imported, and no other module of the package. ``--quantize w8a8`` is static-calibrated
 W8A8, as the reference's: its program runs ``Int8Conv`` on calibrated
 scales, and ``weights.npz`` holds the int8 weight matrices (the reference
 ships the fp kernels and quantizes inside the program).

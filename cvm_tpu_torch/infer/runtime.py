@@ -7,8 +7,9 @@ bucket) and the weights of ``weights.npz`` (weight-only int8 leaves
 dequantized at load) and runs the whole device pipeline, preprocess,
 forward and decode, with none of the model-zoo code: the programs need
 only the op registrations of the fused int8 kernel
-(``ops/cuda/fused_qconv.py``) and of the folded conv's epilogue
-(``ops/cuda/conv_epilogue.py``).
+(``ops/cuda/fused_qconv.py``), of the folded conv's epilogue
+(``ops/cuda/conv_epilogue.py``) and of the eval YUV420 letterbox
+(``ops/cuda/yuv_letterbox.py``).
 A program is read by the torch version that wrote it (``artifact.json``
 records it).
 
@@ -61,7 +62,7 @@ def load_weights(path: str, device: torch.device) -> Dict[str, torch.Tensor]:
 
 
 def _load_program(path: str, device: torch.device, exported_on: str):
-    from cvm_tpu_torch.ops.cuda import conv_epilogue, fused_qconv  # noqa: F401  (the ops)
+    from cvm_tpu_torch.ops.cuda import conv_epilogue, fused_qconv, yuv_letterbox  # noqa: F401
 
     ep = torch.export.load(path)
     if exported_on != device.type:

@@ -4,6 +4,7 @@ mapping, photometric augmentation.
 Mirrors ``cvm_tpu/ops/image.py`` (``Roi``, ``full_roi``, ``letterbox_roi``,
 ``jittered_roi``, ``_axis_coords``, ``sample_bilinear``, ``sample_nearest``,
 ``letterbox``, ``yuv_to_rgb``, ``chroma_roi``, ``normalize_pm1``,
+``resample_yuv420_frame`` (from ``cvm_tpu/pipeline/preprocess.py``),
 ``normalize_imagenet``, ``map_points_to_input``, ``map_boxes_to_input``,
 ``map_points_to_output``, ``map_boxes_to_output``, ``clip_boxes``,
 ``rotate_points``, ``rotate_boxes``, ``rotate_image``,
@@ -242,6 +243,23 @@ def chroma_roi(roi: Roi) -> Roi:
     siting: the half-pixel algebra reduces to halving the source window)."""
     return roi._replace(src_y0=roi.src_y0 * 0.5, src_x0=roi.src_x0 * 0.5,
                         src_h=roi.src_h * 0.5, src_w=roi.src_w * 0.5)
+
+
+def resample_yuv420_frame(yp, up, vp, hw, roi: Roi, out_hw) -> torch.Tensor:
+    """4:2:0 frames -> (B, H, W, 3) RGB floats on 0..255 through ``roi``.
+
+    yp (B, Hm, Wm), up/vp (B, Hm/2, Wm/2) planes; hw (B, 2) valid luma
+    sizes. Luma resamples through the ROI, chroma through the half-space
+    ROI, so no full-resolution YUV is materialized.
+    """
+    h, w = hw[:, 0], hw[:, 1]
+    croi = chroma_roi(roi)
+    yr = sample_bilinear(yp[..., None], roi, out_hw, valid_hw=(h, w), pad_value=0.0)
+    ch = (h + 1) // 2
+    cw = (w + 1) // 2
+    ur = sample_bilinear(up[..., None], croi, out_hw, valid_hw=(ch, cw), pad_value=128.0)
+    vr = sample_bilinear(vp[..., None], croi, out_hw, valid_hw=(ch, cw), pad_value=128.0)
+    return yuv_to_rgb(yr[..., 0], ur[..., 0], vr[..., 0])
 
 
 IMAGENET_MEAN = (0.485 * 255.0, 0.456 * 255.0, 0.406 * 255.0)

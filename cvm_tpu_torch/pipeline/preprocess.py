@@ -5,7 +5,8 @@ normalized NHWC batch.
 Mirrors ``cvm_tpu/pipeline/preprocess.py`` (``AugConfig``,
 ``aug_from_params``, ``sample_rotation``, ``make_rois``,
 ``rotate_image_batch``, ``preprocess_image_batch``, ``preprocess_batch``,
-``resample_yuv420_frame``, ``preprocess_yuv420_batch``). Where the
+``preprocess_yuv420_batch``; ``resample_yuv420_frame`` is in
+``ops/image.py``, which the eval kernel's plain version shares). Where the
 reference takes a JAX key and a
 ``train`` flag, these functions take ``draws``: ``None`` for the eval path,
 or the ``AugDraws`` of a training batch (``draw_augmentation``), so the
@@ -31,10 +32,11 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from cvm_tpu_torch.ops.image import (PhotoDraws, Roi, RoiDraws, chroma_roi, draw_photometric,
-                                     draw_roi, jittered_roi, letterbox_roi, normalize_pm1,
-                                     photometric_augment, rotate_image, sample_bilinear,
-                                     sample_nearest, yuv_to_rgb)
+from cvm_tpu_torch.ops.cuda.yuv_letterbox import yuv_letterbox
+from cvm_tpu_torch.ops.image import (PhotoDraws, Roi, RoiDraws, draw_photometric, draw_roi,
+                                     jittered_roi, letterbox_roi, normalize_pm1,
+                                     photometric_augment, resample_yuv420_frame, rotate_image,
+                                     sample_bilinear, sample_nearest)
 
 
 class AugConfig(NamedTuple):
@@ -168,30 +170,18 @@ def preprocess_batch(batch, out_hw: Tuple[int, int], out_dtype: torch.dtype = to
     return preprocess_image_batch(batch["image"], batch["image_hw"], out_hw, out_dtype, draws)
 
 
-def resample_yuv420_frame(yp, up, vp, hw, roi: Roi, out_hw) -> torch.Tensor:
-    """4:2:0 frames -> (B, H, W, 3) RGB floats on 0..255 through ``roi``.
-
-    yp (B, Hm, Wm), up/vp (B, Hm/2, Wm/2) planes; hw (B, 2) valid luma
-    sizes. Luma resamples through the ROI, chroma through the half-space
-    ROI, so no full-resolution YUV is materialized.
-    """
-    h, w = hw[:, 0], hw[:, 1]
-    croi = chroma_roi(roi)
-    yr = sample_bilinear(yp[..., None], roi, out_hw, valid_hw=(h, w), pad_value=0.0)
-    ch = (h + 1) // 2
-    cw = (w + 1) // 2
-    ur = sample_bilinear(up[..., None], croi, out_hw, valid_hw=(ch, cw), pad_value=128.0)
-    vr = sample_bilinear(vp[..., None], croi, out_hw, valid_hw=(ch, cw), pad_value=128.0)
-    return yuv_to_rgb(yr[..., 0], ur[..., 0], vr[..., 0])
-
-
 def preprocess_yuv420_batch(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
                             image_hw: torch.Tensor, out_hw: Tuple[int, int],
                             out_dtype: torch.dtype = torch.float32,
                             draws: Optional[AugDraws] = None) -> Tuple[torch.Tensor, Roi]:
     """Planar YUV420 batch -> ((B, H, W, 3) pm1 values in ``out_dtype``,
-    rois). Runs on the device the planes are on."""
-    rois = make_rois(image_hw, out_hw, None if draws is None else draws.roi)
+    rois). Runs on the device the planes are on. The eval letterbox (no
+    ``draws``) is the op ``yuv_letterbox`` (``ops/cuda/yuv_letterbox.py``):
+    one kernel on the card, the eager ops on the CPU; training draws take
+    the eager ops."""
+    if draws is None:
+        return yuv_letterbox(y, u, v, image_hw, out_hw, out_dtype)
+    rois = make_rois(image_hw, out_hw, draws.roi)
     out = resample_yuv420_frame(y, u, v, image_hw, rois, out_hw)
     return _finish(out, draws, out_dtype), rois
 

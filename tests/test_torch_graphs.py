@@ -161,10 +161,11 @@ def test_the_kernel_wrappers_register_their_launch_counters():
     from cvm_tpu_torch.infer.quantize import Int8Conv
     from cvm_tpu_torch.ops.cuda.fused_qconv import fused_qconv
     from cvm_tpu_torch.ops.cuda.gaussian_splat import render_heatmap
+    from cvm_tpu_torch.ops.cuda.yuv_letterbox import yuv_letterbox
 
     want = [(fused_qconv, "launches"), (fused_qconv, "int8_out_launches"),
             (fused_qconv, "weight_packs"), (Int8Conv, "mm_launches"),
-            (render_heatmap, "launches")]
+            (render_heatmap, "launches"), (yuv_letterbox, "launches")]
     assert all(c in prof.LAUNCH_COUNTERS for c in want)
     n = len(prof.LAUNCH_COUNTERS)
     prof.launch_counter(fused_qconv, "launches")  # a second registration adds nothing

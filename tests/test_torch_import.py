@@ -45,7 +45,8 @@ def test_every_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert int(proc.stdout.split()[-1]) == len(_module_names()) >= 40
     assert {"cvm_tpu_torch.cli.train", "cvm_tpu_torch.train.loop", "cvm_tpu_torch.ops.heatmap",
-            "cvm_tpu_torch.ops.cuda.gaussian_splat", "cvm_tpu_torch.cli.evaluate",
+            "cvm_tpu_torch.ops.cuda.gaussian_splat", "cvm_tpu_torch.ops.cuda.yuv_letterbox",
+            "cvm_tpu_torch.cli.evaluate",
             "cvm_tpu_torch.train.evaluate", "cvm_tpu_torch.train.early_stop",
             "cvm_tpu_torch.train.average", "cvm_tpu_torch.models.centernet.evaluate",
             "cvm_tpu_torch.infer.quantize", "cvm_tpu_torch.models.registry",

@@ -98,7 +98,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from cvm_tpu_torch.data.synthetic import synthetic_batch  # noqa: E402
 from cvm_tpu_torch.models.registry import build_model, get_model  # noqa: E402
-from cvm_tpu_torch.ops.cuda import fused_qconv, gaussian_splat  # noqa: E402
+from cvm_tpu_torch.ops.cuda import fused_qconv, gaussian_splat, yuv_letterbox  # noqa: E402
 from cvm_tpu_torch.ops.heatmap import CenternetTargets  # noqa: E402
 from cvm_tpu_torch.parallel.mesh import (init_distributed, launch_ranks,  # noqa: E402
                                          make_mesh, shutdown_distributed)
@@ -405,16 +405,19 @@ def run_serve(mesh, device, path: str, reps: int = 0):
     pipe = InferencePipeline(cfg, model, device, mesh=mesh, **opts)
     batch = {k[2:]: npz[k] for k in npz.files if k.startswith("b/")}
     fused_qconv.reset_counts()
+    n0 = yuv_letterbox.yuv_letterbox.launches
     out = pipe(batch)
     _sync(device)
     k2 = fused_qconv.fused_qconv.launches
+    letterbox = yuv_letterbox.yuv_letterbox.launches - n0
     ms = []
     for _ in range(reps):
         t0 = time.perf_counter()
         pipe(batch)
         _sync(device)
         ms.append(1e3 * (time.perf_counter() - t0))
-    return ({"k2": k2, "ms": ms, "tensor_parallel": pipe.tensor_parallel},
+    return ({"k2": k2, "letterbox": letterbox, "ms": ms,
+             "tensor_parallel": pipe.tensor_parallel},
             {k: v.cpu().numpy() for k, v in out.items()})
 
 
