@@ -11,6 +11,13 @@ decoder (``dec{i}``) and a residual translation ``Head`` (``resmotion``)
 upsampled to the input. ``forward(frames)`` runs the depth net on frame a,
 then frame b, and the motion net forward, then backward: in training each
 call moves the BatchNorm running statistics once, in the reference's order.
+
+Each depth pass is the span ``cvm.dmds.depth`` and each motion pass the span
+``cvm.dmds.motion`` (``utils/prof.py::span``: recorded only under a
+recording profiler, on eager calls), and each adds one to the launch
+counter ``DmdsModel.depth_passes`` or ``DmdsModel.motion_passes``
+(``utils/prof.py::launch_counter``: a graph's replay adds what its capture
+counted), so a call reads 2 + 2.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from cvm_tpu_torch.models.depth.params import DepthParams
 from cvm_tpu_torch.models.dmds.params import DmdsParams
 from cvm_tpu_torch.models.layers import ConvBN, Head, UpBlock, init_weights, upsample2x
 from cvm_tpu_torch.utils.device import DeviceLike, resolve_device
+from cvm_tpu_torch.utils.prof import launch_counter, span
 
 # Scales keep the raw head outputs O(1) while motions are centimetres-radians.
 ROT_SCALE = 0.01
@@ -77,6 +85,9 @@ class DmdsModel(nn.Module):
     frames (B, H, W, 6) = [frame_t, frame_t1] on channels -> {"depth_a",
     "depth_b", "motion_fwd", "motion_bwd"}."""
 
+    depth_passes = 0    # the depth net's passes, every instance's (module docstring)
+    motion_passes = 0   # the motion net's passes
+
     def __init__(self, params: DmdsParams):
         super().__init__()
         p = self.params = params
@@ -88,17 +99,30 @@ class DmdsModel(nn.Module):
 
     def forward(self, frames: torch.Tensor) -> Dict[str, object]:
         a, b = frames[..., :3], frames[..., 3:]
-        depth_a = self.depth(a)["depth"]
-        depth_b = self.depth(b)["depth"]
-        fwd = self.motion(frames)
-        bwd = self.motion(torch.cat([b, a], dim=-1))
+        depth_a = self._depth(a)
+        depth_b = self._depth(b)
+        fwd = self._motion(frames)
+        bwd = self._motion(torch.cat([b, a], dim=-1))
         return {"depth_a": depth_a, "depth_b": depth_b, "motion_fwd": fwd, "motion_bwd": bwd}
+
+    def _depth(self, x: torch.Tensor) -> torch.Tensor:
+        with span("cvm.dmds.depth"):
+            DmdsModel.depth_passes += 1
+            return self.depth(x)["depth"]
+
+    def _motion(self, pair: torch.Tensor) -> Dict[str, torch.Tensor]:
+        with span("cvm.dmds.motion"):
+            DmdsModel.motion_passes += 1
+            return self.motion(pair)
 
     def params_unread_by_loss(self) -> List[nn.Parameter]:
         """The depth net's disp heads but the finest: the loss reads
         ``depth_a`` / ``depth_b``, which the finest scale makes (the train
         step gives the others a zero gradient, as JAX does)."""
         return [q for i in range(3) for q in getattr(self.depth, f"disp{i}").parameters()]
+
+
+launch_counter(DmdsModel, "depth_passes", "motion_passes")
 
 
 def create_model(params: DmdsParams, device: DeviceLike,

@@ -31,8 +31,11 @@ too. The spans the program opens (``infer/pipeline.py``):
   * ``cvm.infer.decode``: inside ``cvm.infer.postprocess``, CenterNet's
     and multitask's peak and top-k decode (2D or 3D) and the mapping of
     its boxes into source pixels;
+  * ``cvm.dmds.depth`` and ``cvm.dmds.motion``: inside
+    ``cvm.infer.forward``, each pass of DMDS's depth net and of its motion
+    net (``models/dmds/model.py``; two of each a call);
   * ``cvm.infer.replay``: in place of the three stages above (and the
-    decode inside the last), the replay of a CUDA graph of all three
+    spans inside them), the replay of a CUDA graph of all three
     (``infer/graphs.py``) and the clones of its outputs; no host op runs
     the stages then.
 

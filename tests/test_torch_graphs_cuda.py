@@ -213,3 +213,29 @@ def test_zoo_posture_replays_bit_equal_to_run(cuda_device, posture):
     assert (c["first_sighting"], c["captures"], c["replays"]) == (1, 1, 2)
     if opts.get("w8a8_fused"):
         assert fq.fused_qconv.launches > 0
+
+
+def test_dmds_pass_counters_gain_the_captures_passes_on_each_replay(cuda_device):
+    """The DMDS cell's program at a small size (tiny backbone, 64x192, batch 2):
+    each call of the pipeline reads 2 depth and 2 motion passes, whether it
+    runs eagerly, captures or replays its graph (a replay runs no Python)."""
+    from cvbench import program
+    from cvbench.traffic.pairs import pair_pool
+    from cvm_tpu_torch.models.dmds.model import DmdsModel
+
+    with open(ROOT / "cvbench" / "configs" / "dmds_e.json") as f:
+        cfg = json.load(f)
+    cfg["params"].update(input_hw=[64, 192], batch_size=2, backbone="tiny",
+                         decoder_features=16, motion_features=32)
+    params, model, _ = program.build(cfg, 2147490023, cuda_device)
+    pipe = InferencePipeline(params, model, cuda_device, input_format="yuv420", fold_bn=True)
+    mix = {"pool": 2, "buffer_hw": [128, 384], "sizes": [[125, 380], [121, 371]], "colors": 10,
+           "max_objects": 12, "zoom": [1.0, 1.04], "focus": 0.1, "shift_px": 3.0}
+    pairs = pair_pool(np.random.default_rng(3), mix)
+    batch = {k: np.concatenate([p[k] for p in pairs]) for k in pairs[0]}
+    for _ in range(4):
+        d0, m0 = DmdsModel.depth_passes, DmdsModel.motion_passes
+        pipe(batch)["depth"].cpu()
+        assert (DmdsModel.depth_passes - d0, DmdsModel.motion_passes - m0) == (2, 2)
+    c = pipe.graph_counts
+    assert (c["first_sighting"], c["captures"], c["replays"]) == (1, 1, 3)
